@@ -18,7 +18,8 @@ Phases, each of which fails the run:
      views it rejects, that the frames are finite and not trivially empty,
      and that a frame rendered per ray agrees with the same frame rendered
      whole;
-  4. time the kernels, their plain versions and whole 800^2 frames.
+  4. time the kernels, their plain versions, whole 800^2 frames and one
+     view the plan rejects, rendered per ray.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Exits non-zero without a result
@@ -88,18 +89,17 @@ def psnr(a, b):
 
 class Capture:
     """Wraps a kernel wrapper in its module namespace and keeps the inputs
-    of the first call whose key matches; the wrapped call still launches
-    (and counts) exactly as before."""
+    of every call (``calls``); the wrapped call still launches (and counts)
+    exactly as before."""
 
-    def __init__(self, module, name, want=lambda args, kw: True):
-        self.module, self.name, self.want = module, name, want
+    def __init__(self, module, name):
+        self.module, self.name = module, name
         self.orig = getattr(module, name)
-        self.args = None
+        self.calls = []
         setattr(module, name, self)
 
     def __call__(self, *args, **kw):
-        if self.args is None and self.want(args, kw):
-            self.args = (args, kw)
+        self.calls.append((args, kw))
         return self.orig(*args, **kw)
 
     def restore(self):
@@ -157,17 +157,20 @@ def small_frame_case(torch, dev, width=128, f_k0=12, rgb_mode="direct"):
                 activity=to(activity), has_mlp=True, rgb_mode=rgb_mode)
 
 
-def check_sweep(ka, slabs, rays, k, what):
+def check_sweep(ka, slabs, rays, k, what, nonempty=False):
     import torch
     out = ka.sweep_fwd(slabs, rays, k)
     torch.cuda.synchronize()
     ref = ka.sweep_fwd_plain(slabs, rays, k)
     err = float((out - ref).abs().max())
+    share = float((ref != 0).float().mean())
     log(f"[phase 1] K-A sweep_fwd {what}: S={slabs.shape[0]} "
         f"slab={tuple(slabs.shape[1:])} N={rays.shape[1]} "
-        f"max|kernel-plain|={err:.3e}")
+        f"max|kernel-plain|={err:.3e} nonzero share={share:.4f}")
     if not err <= 1e-2:
         raise AssertionError(f"K-A {what}: max abs err {err} > 1e-2")
+    if nonempty and share == 0.0:
+        raise AssertionError(f"K-A {what}: every sample is zero")
     return err
 
 
@@ -308,12 +311,13 @@ def run(dev):
         raise AssertionError(f"expected {len(i_test)} frames, got {pngs}")
 
     # Phase 1 at the main path's shapes, on the captured inputs.
-    s_args = cap_a.args[0]
-    errs["sweep_fwd"] = max(errs["sweep_fwd"],
-                            check_sweep(ka, *s_args, "main path"))
+    # The middle chunk of the rejected view: rays through the object.
+    s_args = cap_a.calls[len(cap_a.calls) // 2][0]
+    errs["sweep_fwd"] = max(errs["sweep_fwd"], check_sweep(
+        ka, *s_args, "main path", nonempty=True))
     f_case = dict(zip(("d_geo", "d_k0", "vd_emb", "dnorm", "dclip", "ur",
                        "vr", "layers", "scalars", "activity"),
-                      cap_b.args[0]), **cap_b.args[1])
+                      cap_b.calls[0][0]), **cap_b.calls[0][1])
     err_b, _ = check_frame(kb, f_case, "main path 400^2", empty_check=True)
     errs["render_frame"] = max(errs["render_frame"], err_b)
 
@@ -350,7 +354,7 @@ def run(dev):
         cap_b.restore()
     f800 = dict(zip(("d_geo", "d_k0", "vd_emb", "dnorm", "dclip", "ur",
                      "vr", "layers", "scalars", "activity"),
-                    cap_b.args[0]), **cap_b.args[1])
+                    cap_b.calls[0][0]), **cap_b.calls[0][1])
     stats = {}
     kb.render_frame_plain(**f800, stats=stats)
     ms_b = cuda_time(lambda: kb.render_frame(**f800), 10)
@@ -360,38 +364,52 @@ def run(dev):
     ms_a = cuda_time(lambda: ka.sweep_fwd(*s_args), 20)
     plain_a = cuda_time(lambda: ka.sweep_fwd_plain(*s_args), 3, warmup=1)
     lib_a = cuda_time(grid_sample_call(torch, *s_args), 20)
+    # A view the sweep plan rejects, rendered per ray through
+    # render_viewpoints as run.py calls it (20 chunks of 8192 rays at 400^2).
+    r = rejected[0]
+    rk_view = dict(rk, render_depth=True)
+    rays_view_ms = host_time(lambda: render_lib.render_viewpoints(
+        model, data["poses"][[r]], np.array([[400, 400]]), data["Ks"][[r]],
+        False, rk_view, verbose=False), 3)
 
-    # Bounds from this run's inputs (see PERF.md for the accounting).
+    # Bounds from this run's inputs: what the function must read and write
+    # once, and the operations this run's data needs (see PERF.md).
     slabs, rays, k = s_args
     s_total, gu, gv, c = slabs.shape
     n = rays.shape[1]
-    bytes_a = slabs.numel() * slabs.element_size() + rays.numel() * 4 \
+    vox_a = sweep_voxels(torch, slabs, rays, k)
+    bytes_a = vox_a * c * slabs.element_size() + rays.numel() * 4 \
         + s_total * c * n * 4
     ops_a = s_total * n * (4 * c * 2 + 16)
     bound_a = max(bytes_a / HBM_BPS, ops_a / F32_FLOPS) * 1e3
     by_a = "bytes" if bytes_a / HBM_BPS >= ops_a / F32_FLOPS else "operations"
     hi, wi = f800["dnorm"].shape
     width = f800["layers"][1][0].shape[0]
-    f_mlp = f800["layers"][0][0].shape[0] - f800["vd_emb"].shape[-1]
     emb = f800["vd_emb"].shape[-1]
-    ins = [f800[x] for x in ("d_geo", "d_k0", "vd_emb", "dnorm", "dclip",
-                             "ur", "vr", "activity")]
-    bytes_b = sum(x.numel() * x.element_size() for x in ins) \
-        + sum(w.numel() * 2 + b.numel() * 4 for w, b in f800["layers"]) \
-        + hi * wi * 5 * 4
-    act = f800["activity"]
-    marched = int(act.sum()) * 128 * 128 * 16
+    f_mlp = f800["layers"][0][0].shape[0] - emb
+    f_k0 = f800["d_k0"].shape[-1]
+    bytes_b = (stats["geo_voxels"] * 2 * 2                 # density, mask
+               + stats["k0_voxels"] * f_k0 * 2
+               + stats["visible_pixels"] * emb * 2         # vd_emb
+               + stats["live_pixels"] * 2 * 4              # dnorm, dclip
+               + (hi + wi) * 4 + f800["activity"].numel() * 4
+               + sum(w.numel() * 2 + b.numel() * 4 for w, b in f800["layers"])
+               + hi * wi * 5 * 4)                          # rgb, depth, T
     mlp_flops = 2 * (stats["visible_samples"] * (f_mlp * width
                                                  + width * width + 3 * width)
-                     + hi * wi * emb * width)
-    geo_flops = marched * 40
+                     + stats["visible_pixels"] * emb * width)
+    geo_flops = stats["live_samples"] * 40
     t_ops_b = mlp_flops / BF16_FLOPS + geo_flops / F32_FLOPS
     bound_b = max(bytes_b / HBM_BPS, t_ops_b) * 1e3
     by_b = "bytes" if bytes_b / HBM_BPS >= t_ops_b else "operations"
     log(f"[phase 4] 800^2 frame: inter {hi}x{wi}, S={f800['d_geo'].shape[0]},"
-        f" visible samples {stats['visible_samples']}; K-B {ms_b:.3f} ms, "
-        f"plain {plain_b:.1f} ms, whole frame {frame_ms:.2f} ms; "
-        f"K-A {ms_a:.3f} ms (plain {plain_a:.1f}, grid_sample {lib_a:.3f})")
+        f" {stats}; K-B {ms_b:.4f} ms, plain {plain_b:.1f} ms, whole frame "
+        f"{frame_ms:.2f} ms; K-B bound {bound_b:.5f} ms ({by_b}: "
+        f"{bytes_b} bytes, {mlp_flops} MLP + {geo_flops} f32 operations)")
+    log(f"[phase 4] K-A {ms_a:.4f} ms (plain {plain_a:.1f}, grid_sample "
+        f"{lib_a:.4f}), bound {bound_a:.5f} ms ({by_a}: {bytes_a} bytes, "
+        f"{vox_a} slab voxels read); rejected view {r} per ray at 400^2: "
+        f"{rays_view_ms:.2f} ms")
     kernels = [
         {"name": "sweep_fwd", "route": "cuda",
          "source": "directvoxgo_tpu_torch/csrc/sweep_fwd.cu",
@@ -399,6 +417,7 @@ def run(dev):
          "launches": launches["sweep_fwd"], "max_abs_err": errs["sweep_fwd"],
          "ms": ms_a, "plain_ms": plain_a, "bound_ms": bound_a,
          "bound_by": by_a, "library_ms": lib_a,
+         "rejected_view_ms": rays_view_ms,
          "shape": f"S={s_total} slab={gu}x{gv}x{c} N={n}"},
         {"name": "render_frame", "route": "cuda",
          "source": "directvoxgo_tpu_torch/csrc/render_frame.cu",
@@ -413,6 +432,24 @@ def run(dev):
                   f"{stats['visible_samples']} visible samples"},
     ]
     return kernels
+
+
+def sweep_voxels(torch, slabs, rays, k):
+    """Distinct slab voxels that K-A's taps read with a nonzero weight."""
+    s_total, gu, gv, _ = slabs.shape
+    op, ou, ov, dp, du, dv = rays
+    total = 0
+    for s in range(s_total):
+        t = (s / k - op) / dp
+        u, v = ou + t * du, ov + t * dv
+        hit = torch.zeros((gu, gv), dtype=torch.bool, device=rays.device)
+        for iu in (torch.floor(u), torch.floor(u) + 1):
+            for iv in (torch.floor(v), torch.floor(v) + 1):
+                ok = ((iu >= 0) & (iu < gu) & (iv >= 0) & (iv < gv)
+                      & ((u - iu).abs() < 1) & ((v - iv).abs() < 1))
+                hit[iu[ok].long(), iv[ok].long()] = True
+        total += int(hit.sum())
+    return total
 
 
 def grid_sample_call(torch, slabs, rays, k):
@@ -434,6 +471,9 @@ def grid_sample_call(torch, slabs, rays, k):
 
 
 def main():
+    if len(sys.argv) > 1:
+        log(f"chip_smoke: takes no arguments, got {sys.argv[1:]}")
+        return 2
     try:
         import torch
     except ImportError:

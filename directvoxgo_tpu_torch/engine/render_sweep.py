@@ -165,36 +165,26 @@ def _build_slabs(density, mask, k0, *, axis, sign, k, s_lo, s_hi, s_pad):
 
 
 def _get_render_slabs(model, axis, sign, k, s_lo, s_hi, s_pad):
-    """Slabs cached per (axis, sign, station range); the cache is dropped
-    when the model's grids or mask are replaced."""
+    """Slabs cached per (axis, sign, station range) until the model's grids
+    or mask change."""
     key = (axis, float(sign), k, s_lo, s_hi, s_pad)
-    arrs = (model.density, model.k0, model.mask)
-    cache = getattr(model, "_render_slab_cache", None)
-    if cache is None or not all(a is b for a, b in zip(cache[0], arrs)):
-        cache = (arrs, {})
-        model._render_slab_cache = cache
-    if key not in cache[1]:
+    cache = model.grid_cache("render_slabs")
+    if key not in cache:
         with torch.no_grad():
-            cache[1][key] = _build_slabs(
+            cache[key] = _build_slabs(
                 model.density, model.mask,
                 model.k0 if model.k0_dim > 0 else None, axis=axis,
                 sign=sign, k=k, s_lo=s_lo, s_hi=s_hi, s_pad=s_pad)
-    return cache[1][key]
+    return cache[key]
 
 
-def _tile_activity(d_geo, ur_grid, vr_grid, sc, gu, gv):
-    """Per-(intermediate tile, station block) conservative occupancy test:
-    1 where the tile's warped footprint, padded by the 1-voxel interpolation
-    support, touches an occupied voxel of the block (2D integral image of
-    the slab mask). Inactive blocks contribute exactly zero, so K-B skips
-    them. Returns int32 [Hi/TILE, Wi/TILE, S/S_BLK]."""
-    dev = d_geo.device
-    nsb = d_geo.shape[0] // S_BLK
-    hi, wi = ur_grid.shape[0], vr_grid.shape[0]
-    nti, ntj = hi // TILE, wi // TILE
-    occ = (d_geo[..., 1] > 0).reshape(nsb, S_BLK, gu, gv).any(1)
-    integ = torch.cumsum(torch.cumsum(occ.to(torch.int32), 1), 2)
-    integ = torch.nn.functional.pad(integ, (1, 0, 1, 0))
+def _tile_boxes(nsb, ur_grid, vr_grid, sc, gu, gv):
+    """Slab footprint of each intermediate tile in each station block,
+    padded by the 1-voxel interpolation support: the half-open slab rows
+    [u0, u1) of each tile row ([Hi/TILE, nsb] each) and columns [v0, v1)
+    of each tile column ([Wi/TILE, nsb] each)."""
+    dev = ur_grid.device
+    nti, ntj = ur_grid.shape[0] // TILE, vr_grid.shape[0] // TILE
     op, ou, ov = sc[0], sc[1], sc[2]
     inv_span, p_first, p_step = sc[3], sc[4], sc[5]
     s0 = torch.arange(nsb, dtype=torch.float32, device=dev) * S_BLK
@@ -214,9 +204,21 @@ def _tile_activity(d_geo, ur_grid, vr_grid, sc, gu, gv):
     u1 = torch.clamp(torch.floor(u_hi + 1.0) + 1, 0, gu).long()
     v0 = torch.clamp(torch.ceil(v_lo - 1.0), 0, gv).long()
     v1 = torch.clamp(torch.floor(v_hi + 1.0) + 1, 0, gv).long()
-    u1 = torch.maximum(u1, u0)
-    v1 = torch.maximum(v1, v0)
-    s_idx = torch.arange(nsb, device=dev)[None, None, :]
+    return u0, torch.maximum(u1, u0), v0, torch.maximum(v1, v0)
+
+
+def _tile_activity(d_geo, ur_grid, vr_grid, sc, gu, gv):
+    """Per-(intermediate tile, station block) conservative occupancy test:
+    1 where the tile's footprint (:func:`_tile_boxes`) touches an occupied
+    voxel of the block (2D integral image of the slab mask). Inactive
+    blocks contribute exactly zero, so K-B skips them. Returns int32
+    [Hi/TILE, Wi/TILE, S/S_BLK]."""
+    nsb = d_geo.shape[0] // S_BLK
+    occ = (d_geo[..., 1] > 0).reshape(nsb, S_BLK, gu, gv).any(1)
+    integ = torch.cumsum(torch.cumsum(occ.to(torch.int32), 1), 2)
+    integ = torch.nn.functional.pad(integ, (1, 0, 1, 0))
+    u0, u1, v0, v1 = _tile_boxes(nsb, ur_grid, vr_grid, sc, gu, gv)
+    s_idx = torch.arange(nsb, device=d_geo.device)[None, None, :]
     U0, U1 = u0[:, None, :], u1[:, None, :]
     V0, V1 = v0[None, :, :], v1[None, :, :]
     cnt = (integ[s_idx, U1, V1] - integ[s_idx, U0, V1]
@@ -337,7 +339,7 @@ def _render_frame_fused(model, d_geo, d_k0, K, c2w, sc, *, hw, hiwi, guv,
     return rgb, depth
 
 
-def render_frame_sweep(model, H, W, K, c2w, render_kwargs, plan=None):
+def render_frame_sweep(model, H, W, K, c2w, render_kwargs):
     """Render one camera frame with the separable station sweep.
 
     Returns numpy (rgb [H, W, 3], depth [H, W]), or None when the camera
@@ -351,10 +353,9 @@ def render_frame_sweep(model, H, W, K, c2w, render_kwargs, plan=None):
     inverse_y = bool(render_kwargs.get("inverse_y", False))
     flip_x = bool(render_kwargs.get("flip_x", False))
     flip_y = bool(render_kwargs.get("flip_y", False))
-    if plan is None:
-        plan = plan_camera_sweep(model, H, W, K, c2w, near, far,
-                                 inverse_y=inverse_y, flip_x=flip_x,
-                                 flip_y=flip_y, stepsize=stepsize)
+    plan = plan_camera_sweep(model, H, W, K, c2w, near, far,
+                             inverse_y=inverse_y, flip_x=flip_x,
+                             flip_y=flip_y, stepsize=stepsize)
     if plan is None:
         return None
 

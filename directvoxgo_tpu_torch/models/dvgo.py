@@ -195,6 +195,44 @@ class DirectVoxGO(nn.Module):
             **self.rgbnet_kwargs,
         }
 
+    def grid_cache(self, name):
+        """A dict for arrays derived from the grids and the mask (station
+        slabs), emptied when any of them is replaced or modified in place."""
+        arrs = (self.density, self.k0, self.mask)
+        stamp = tuple(a._version for a in arrs)
+        caches = self.__dict__.setdefault("_grid_caches", {})
+        entry = caches.get(name)
+        if entry is None or entry[1] != stamp or not all(
+                a is b for a, b in zip(entry[0], arrs)):
+            entry = caches[name] = (arrs, stamp, {})
+        return entry[2]
+
+    def _sweep_slabs(self, axis, k, clip_sizes, clip_offsets):
+        """Station slabs [S, Gu, Gv, 2 + k0_dim] (density, mask, k0) of a
+        sweep along ``axis`` over the clip box (or the whole grid), in
+        ``sweep_dtype``; built once per view direction class, not per ray
+        chunk."""
+        offs = (None if clip_sizes is None
+                else tuple(int(v) for v in np.asarray(clip_offsets)))
+        key = (axis, k, self.sweep_dtype, clip_sizes, offs)
+        cache = self.grid_cache("sweep_slabs")
+        if key in cache:
+            return cache[key]
+        sdt = self.sweep_dtype
+        density, k0, mask_g = self.density, self.k0, self.mask
+        if clip_sizes is not None:
+            inv = {ax: i for i, ax in enumerate(sweep_ops._PERMS[axis])}
+            sl = tuple(slice(offs[inv[a]], offs[inv[a]]
+                             + int(clip_sizes[inv[a]])) for a in range(3))
+            density, mask_g, k0 = density[sl], mask_g[sl], k0[sl]
+        with torch.no_grad():
+            grid_cat = torch.cat([density.to(sdt)[..., None],
+                                  mask_g.to(sdt)[..., None], k0.to(sdt)], -1)
+            cache[key] = sweep_ops._station_slabs(
+                sweep_ops.permute_grid(grid_cat, axis, dtype=sdt),
+                k).contiguous()
+        return cache[key]
+
     def activate_density(self, density, interval=None):
         interval = interval if interval is not None else self.voxel_size_ratio
         return rm.raw2alpha(density, self.act_shift, interval)
@@ -236,26 +274,12 @@ class DirectVoxGO(nn.Module):
         ``raw_alpha``, ``raw_rgb_cl``, ``wmask`` and optionally
         ``depth [N]``.
         """
-        sdt = self.sweep_dtype
-        density, k0, mask_g = self.density, self.k0, self.mask
-        if clip_sizes is not None:
-            perm = sweep_ops._PERMS[axis]
-            inv = {ax: i for i, ax in enumerate(perm)}
-            offs = [int(v) for v in np.asarray(clip_offsets)]
-            sl = tuple(slice(offs[inv[a]], offs[inv[a]]
-                             + int(clip_sizes[inv[a]])) for a in range(3))
-            density, mask_g = density[sl], mask_g[sl]
-            k0 = k0[sl]
-        chans = [density.to(sdt)[..., None], mask_g.to(sdt)[..., None]]
-        if self.k0_dim > 0:
-            chans.append(k0.to(sdt))
-        grid_cat = torch.cat(chans, -1)
-
+        k = sweep_ops.substeps_for_stepsize(stepsize)
+        slabs = self._sweep_slabs(axis, k, clip_sizes, clip_offsets)
         out = sweep_ops.sweep_samples(
-            grid_cat, rays_o, rays_d, self.xyz_min, self.xyz_max, axis,
-            stepsize=stepsize, interp_dtype=sdt,
-            clip_offsets=None if clip_sizes is None else clip_offsets,
-            world_size=tuple(self.world_size))
+            slabs, k, rays_o, rays_d, self.xyz_min, self.xyz_max, axis,
+            tuple(self.world_size),
+            clip_offsets=None if clip_sizes is None else clip_offsets)
         vals, t, fwd = out["vals"], out["t"], out["forward"]
         density_s, mask_s, k0_cl = vals[0], vals[1], vals[2:]
 

@@ -111,6 +111,32 @@ def pack_mlp(layers, f_mlp):
     return torch.cat([p.reshape(-1) for p in parts]).contiguous()
 
 
+_packed = None  # (key, layers, buffer) of the last MLP packed
+
+
+def _packed_mlp(layers, f_mlp):
+    """:func:`pack_mlp`, reusing the last buffer while the same weights come
+    again unmodified (same storage and in-place version), as they do frame
+    after frame. The entry holds the layers, so their storage stays put."""
+    global _packed
+    key = (f_mlp,) + tuple(
+        (x.device, x.dtype, x.data_ptr(), x._version, tuple(x.shape),
+         x.stride()) for wb in layers for x in wb)
+    if _packed is None or _packed[0] != key:
+        _packed = (key, layers, pack_mlp(layers, f_mlp))
+    return _packed[2]
+
+
+def _tap_matrix(i0, i1, w0, w1, g):
+    """[n, g] 0/1 matrix of the slab indices each coordinate reads with a
+    nonzero weight."""
+    m = torch.zeros((i0.shape[0], g), dtype=torch.float32, device=i0.device)
+    rows = torch.arange(i0.shape[0], device=i0.device)
+    m[rows, i0] += (w0 > 0).float()
+    m[rows, i1] += (w1 > 0).float()
+    return (m > 0).float()
+
+
 def render_frame_plain(d_geo, d_k0, vd_emb, dnorm, dclip, ur, vr, layers,
                        scalars, activity, *, has_mlp, rgb_mode,
                        stats=None):
@@ -119,8 +145,13 @@ def render_frame_plain(d_geo, d_k0, vd_emb, dnorm, dclip, ur, vr, layers,
     Arguments as :func:`render_frame`. Rounds where the TPU frame kernels
     round: hat rows and warp intermediates in bf16, MLP operands in bf16,
     sums in f32, the view half of layer 1 in f32. ``stats``, when a dict,
-    receives ``visible_samples``: the (pixel, station) pairs with w > 0,
-    each of which runs the colour MLP.
+    receives what this frame's data needs, for the kernel's bound:
+    ``visible_samples`` (the (pixel, station) pairs with w > 0, each of
+    which runs the colour MLP), ``live_samples`` (pairs in active blocks,
+    not yet terminated, inside near/far: the warps that decide anything),
+    ``geo_voxels`` and ``k0_voxels`` (distinct slab voxels that the live
+    and the visible samples read), ``live_pixels`` and ``visible_pixels``
+    (pixels with any such sample).
     """
     (op, ou, ov, inv_span, p_first, p_step, act_shift, interval_scale,
      fast_thres, near, far, bg) = [float(x) for x in scalars]
@@ -145,7 +176,9 @@ def render_frame_plain(d_geo, d_k0, vd_emb, dnorm, dclip, ur, vr, layers,
     t_cum = torch.ones((hi, wi), dtype=f32, device=dev)
     rgb = torch.zeros((3, hi, wi), dtype=f32, device=dev)
     depth = torch.zeros((hi, wi), dtype=f32, device=dev)
-    n_visible = 0
+    n_visible = n_live = geo_voxels = k0_voxels = 0
+    any_live = torch.zeros((hi, wi), dtype=torch.bool, device=dev)
+    any_vis = torch.zeros((hi, wi), dtype=torch.bool, device=dev)
     for s in range(s_total):
         sb = s // S_BLK
         blk = act[:, :, sb].repeat_interleave(TILE, 0).repeat_interleave(
@@ -169,6 +202,17 @@ def render_frame_plain(d_geo, d_k0, vd_emb, dnorm, dclip, ur, vr, layers,
               & (alpha > fast_thres) & (t_cum >= T_TERMINATE) & blk)
         a = torch.where(ok, alpha, torch.zeros_like(alpha))
         w = t_cum * a
+        if stats is not None:
+            live = ((t_px >= near) & (t_px <= far) & (t_cum >= T_TERMINATE)
+                    & blk)
+            vis = w > 0.0
+            tu = _tap_matrix(ua, ub, wua, wub, gu)             # [Hi, Gu]
+            tv = _tap_matrix(va, vb, wva, wvb, gv)             # [Wi, Gv]
+            geo_voxels += int((tu.t() @ live.float() @ tv > 0).sum())
+            k0_voxels += int((tu.t() @ vis.float() @ tv > 0).sum())
+            n_live += int(live.sum())
+            any_live |= live
+            any_vis |= vis
         t_cum = t_cum * (1.0 - a + T_EPS)
         idx = torch.nonzero(w.reshape(-1) > 0.0).squeeze(1)
         n_visible += idx.numel()
@@ -198,7 +242,10 @@ def render_frame_plain(d_geo, d_k0, vd_emb, dnorm, dclip, ur, vr, layers,
         rgb.view(3, -1)[:, idx] += (w_sel[:, None] * rgb_s).t()
         depth.view(-1)[idx] += w_sel * dist.reshape(-1)[idx]
     if stats is not None:
-        stats["visible_samples"] = n_visible
+        stats.update(visible_samples=n_visible, live_samples=n_live,
+                     geo_voxels=geo_voxels, k0_voxels=k0_voxels,
+                     live_pixels=int(any_live.sum()),
+                     visible_pixels=int(any_vis.sum()))
     rgb = rgb + t_cum[None] * bg
     return rgb, depth, t_cum
 
@@ -285,7 +332,7 @@ def render_frame(d_geo, d_k0, vd_emb, dnorm, dclip, ur, vr, layers,
         if f_mlp != f_k0 - c0:
             raise ValueError(f"render_frame: MLP takes {f_mlp} features, "
                              f"the slabs give {f_k0 - c0}")
-        mlp = pack_mlp(layers, f_mlp)
+        mlp = _packed_mlp(layers, f_mlp)
         emb = vd_emb
     if f_k0 > lib.dvgo_render_frame_max_features() \
             or emb_dim > lib.dvgo_render_frame_max_emb():

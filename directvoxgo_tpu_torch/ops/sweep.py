@@ -59,12 +59,12 @@ def rays_to_voxel(rays_o, rays_d, xyz_min, xyz_max, world_size, axis):
     return tuple(o), tuple(d)
 
 
-def station_sweep(grid_perm, rays_pv, k):
-    """Every station of every ray: grid_perm [Gp, Gu, Gv, C] -> (vals
-    [C, N, S] f32 in slab order, t [N, S])."""
+def station_sweep(slabs, rays_pv, k):
+    """Every station of every ray: contiguous station slabs [S, Gu, Gv, C]
+    (:func:`_station_slabs`) -> (vals [C, N, S] f32 in slab order,
+    t [N, S])."""
     (op, ou, ov), (dp, du, dv) = rays_pv
     dp_safe = torch.where(dp == 0, torch.full_like(dp, 1e-10), dp)
-    slabs = _station_slabs(grid_perm, k).contiguous()
     rays = torch.stack([op, ou, ov, dp_safe, du, dv]).contiguous()
     vals = sweep_fwd(slabs, rays, k)                     # [S, C, N]
     s_total = slabs.shape[0]
@@ -74,30 +74,27 @@ def station_sweep(grid_perm, rays_pv, k):
     return vals.permute(1, 2, 0), ts
 
 
-def sweep_samples(grid, rays_o, rays_d, xyz_min, xyz_max, axis,
-                  stepsize=0.5, interp_dtype=torch.bfloat16,
-                  clip_offsets=None, world_size=None):
+def sweep_samples(slabs, k, rays_o, rays_d, xyz_min, xyz_max, axis,
+                  world_size, clip_offsets=None):
     """Density/mask/feature channels at every station of every ray.
 
-    grid: [Gx, Gy, Gz, C] stacked channels. When the sweep is clipped to
-    the occupancy bbox, ``grid`` is already the box, ``clip_offsets`` its
-    start voxel ([3] ints, permuted order) and ``world_size`` the full
-    grid's extents (for the world -> voxel scale).
+    slabs: [S, Gu, Gv, C] station slabs of the grid's stacked channels
+    permuted for ``axis`` (``_station_slabs(permute_grid(grid, axis), k)``),
+    k stations per voxel. When the sweep is clipped to the occupancy bbox,
+    the slabs cover only the box and ``clip_offsets`` is its start voxel
+    ([3] ints, permuted order); ``world_size`` is the full grid's extents
+    (for the world -> voxel scale).
 
     Returns dict: vals [C, N, S] (slab order), t [N, S], forward [N] (True
     where t ascends with the station index), interval [N] (world distance
     between consecutive stations).
     """
-    k = substeps_for_stepsize(stepsize)
-    if world_size is None:
-        world_size = tuple(grid.shape[:3])
     o_pv, d_pv = rays_to_voxel(rays_o, rays_d, xyz_min, xyz_max,
                                world_size, axis)
     if clip_offsets is not None:
         o_pv = tuple(o - float(off)
                      for o, off in zip(o_pv, np.asarray(clip_offsets)))
-    grid_perm = permute_grid(grid, axis, dtype=interp_dtype)
-    vals, t = station_sweep(grid_perm, (o_pv, d_pv), k)
+    vals, t = station_sweep(slabs, (o_pv, d_pv), k)
     forward = d_pv[0] >= 0
     d_norm = torch.sqrt(torch.sum(rays_d * rays_d, -1))
     interval = d_norm / (k * torch.clamp(d_pv[0].abs(), min=1e-10))

@@ -265,3 +265,17 @@ def test_kernel_signatures_match_their_c_prototypes(monkeypatch):
             n = len([p for p in params.split(",") if p.strip()])
             assert len(getattr(lib, fn).argtypes) == n, fn
             assert getattr(lib, fn).restype is not None, fn
+
+
+def test_packed_mlp_follows_the_weights():
+    """K-B's packed MLP buffer is reused for the same weights and repacked
+    after they change in place."""
+    g = torch.Generator().manual_seed(0)
+    layers = [(torch.randn((d_in, d_out), generator=g), torch.randn(
+        d_out, generator=g)) for d_in, d_out in ((9, 8), (8, 8), (8, 3))]
+    buf = kb._packed_mlp(layers, 6)
+    assert kb._packed_mlp(list(layers), 6) is buf
+    assert torch.equal(buf, kb.pack_mlp(layers, 6))
+    layers[1][0].mul_(2.0)
+    again = kb._packed_mlp(layers, 6)
+    assert again is not buf and torch.equal(again, kb.pack_mlp(layers, 6))

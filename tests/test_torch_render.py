@@ -204,3 +204,29 @@ def test_topk_station_select_matches_jax(gather_mode):
     tol = 1e-2 if gather_mode == "onehot" else 0.0
     np.testing.assert_allclose(cl_t(torch.tensor(x)).numpy(),
                                np.asarray(cl_j(jnp.asarray(x))), atol=tol)
+
+
+@pytest.mark.parametrize("change", ["density", "k0", "mask"])
+def test_station_slab_caches_follow_the_grids(change):
+    """The per-ray and whole-frame station slabs are built once and reused,
+    and rebuilt after an in-place change of any grid or of the mask."""
+    tm = TorchDVGO(xyz_min=[-1] * 3, xyz_max=[1] * 3, num_voxels=12 ** 3,
+                   num_voxels_base=12 ** 3, alpha_init=1e-2, rgbnet_dim=6,
+                   rgbnet_direct=True, rgbnet_width=8, device="cpu")
+
+    def slabs():
+        return (tm._sweep_slabs(0, 2, None, None),
+                torch_render_sweep._get_render_slabs(tm, 1, -1.0, 2, 2, 20,
+                                                     11))
+
+    first = slabs()
+    assert all(a is b for a, b in zip(slabs(), first))
+    with torch.no_grad():
+        if change == "mask":
+            tm.mask.logical_not_()
+        else:
+            getattr(tm, change).add_(1.0)
+    again = slabs()
+    assert not any(a is b for a, b in zip(again, first))
+    ch = {"density": 0, "mask": 1, "k0": 2}[change]
+    assert not torch.equal(again[0][..., ch], first[0][..., ch])
