@@ -4,10 +4,11 @@
   python3 chip_smoke.py
 
 Phases, each of which fails the run:
-  0. build every CUDA kernel of the render path from csrc/ (one nvcc per
-     source, all at once);
+  0. build every CUDA kernel from csrc/ (one nvcc per source, all at once);
   1. hold each kernel against its plain PyTorch version on the card, at a
-     small shape here and at the main path's full shape after phase 3;
+     small shape here (the sweep's backward in its full, segment and
+     per-tile windowed forms) and at the main paths' full shapes after
+     phases 3 and 5;
   2. build a full-width lego fine checkpoint (160^3 grid, k0 12, MLP
      39->128->128->3) from the fixture teacher density and seeded random
      colour weights, and save it in the checkpoint format;
@@ -19,14 +20,29 @@ Phases, each of which fails the run:
      and that a frame rendered per ray agrees with the same frame rendered
      whole;
   4. time the kernels, their plain versions, whole 800^2 frames and one
-     view the plan rejects, rendered per ray.
+     view the plan rejects, rendered per ray;
+  5. train coarse then fine at full lego width through
+     ``python -m directvoxgo_tpu_torch.run`` (in process) on a config that
+     shortens only the iteration counts of
+     configs/synthetic/fixture_lego_sparse.py, and check the launch counts
+     against the steps and counted views, finite parameters, a rising train
+     PSNR, exact zeros of the density cotangent outside the clip box, the
+     checkpoints, and ``--render_test`` of the trained model; then a few
+     train steps with ray-tile v-windows (a side path: the engine draws no
+     windows yet); then the sweep's forward and backward, each against its
+     plain version and timed, on the inputs of the last call of every form
+     the training run launched (a coarse step's, a fine step's, a counted
+     view's of the per-voxel lr).
 
-Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
+Prints the card's name and power limit, a ``{"kernels": [...]}`` line (one
+entry per kernel and form, each with the launches of the path it belongs
+to) and,
 last, ``{"ok": true, "device": {...}}``. Exits non-zero without a result
 line when there is no CUDA device or the port's package is not beside this
 file.
 """
 
+import collections
 import json
 import os
 import subprocess
@@ -88,19 +104,33 @@ def psnr(a, b):
 
 
 class Capture:
-    """Wraps a kernel wrapper in its module namespace and keeps the inputs
-    of every call (``calls``); the wrapped call still launches (and counts)
-    exactly as before."""
+    """Wraps a function in its module namespace and keeps the inputs of
+    every call (``calls``; only the last ``keep`` when given) and, with
+    ``results``, what it returned; the wrapped call still launches (and
+    counts) exactly as before. With ``form`` (a function of no arguments
+    naming the form of the call being made) it keeps instead the last call
+    of every form (``forms``) and how many calls each form had
+    (``counts``)."""
 
-    def __init__(self, module, name):
+    def __init__(self, module, name, keep=None, results=False, form=None):
         self.module, self.name = module, name
         self.orig = getattr(module, name)
-        self.calls = []
+        self.calls = collections.deque(maxlen=keep)
+        self.results = [] if results else None
+        self.form, self.forms = form, {}
+        self.counts = collections.Counter()
         setattr(module, name, self)
 
     def __call__(self, *args, **kw):
-        self.calls.append((args, kw))
-        return self.orig(*args, **kw)
+        if self.form is None:
+            self.calls.append((args, kw))
+        else:
+            self.forms[self.form()] = (args, kw)
+            self.counts[self.form()] += 1
+        out = self.orig(*args, **kw)
+        if self.results is not None:
+            self.results.append(out)
+        return out
 
     def restore(self):
         setattr(self.module, self.name, self.orig)
@@ -235,6 +265,585 @@ def build_checkpoint(torch, dev, num_voxels=None):
     return path
 
 
+# ------------------------------------------- phase 1: the sweep's backward
+
+TRAIN_CONFIG = os.path.join(CKPT_DIR, "train_lego.py")
+# Iteration counts of the training phase (the base config's are 5000 and
+# 20000 with pg_scale [1000, 2000, 3000, 4000]); everything else is the
+# lego schedule: N_rand 8192, per-voxel lr, in_maskcache sampling. The
+# coarse stage keeps 3000 steps: from alpha_init 1e-6 at lr 0.1 its PSNR
+# only leaves the white frame's after some 1500 steps, and a shorter stage
+# hands the fine stage an empty occupancy mask.
+N_COARSE, N_FINE, PG_SCALE = 3000, 600, [100, 200, 300, 400]
+CLIP_QUANTUM = 16       # voxels the clip box sizes round up to
+MIN_TOP_STEPS = 100     # fine steps at the final resolution, at least
+TRAIN_BASE = '../../configs/synthetic/fixture_lego_sparse.py'
+
+
+def small_bwd_case(torch, dev, c, k):
+    """Rays over a 10 x 12 x 40 grid (two 512-ray tiles), a cotangent of
+    which 70% is exactly zero, and windows for the three forms."""
+    g = torch.Generator(device="cpu").manual_seed(SEED + 2)
+    gp, gu, gv, n = 10, 12, 40, 1024
+    s_total = k * (gp - 1) + 1
+    rays = torch.stack([
+        torch.rand(n, generator=g) * (gp + 4) - 2,
+        torch.rand(n, generator=g) * (gu + 2) - 1,
+        torch.rand(n, generator=g) * (gv + 2) - 1,
+        (torch.rand(n, generator=g) * 0.7 + 0.3)
+        * torch.where(torch.rand(n, generator=g) < 0.5, -1.0, 1.0),
+        torch.rand(n, generator=g) - 0.5,
+        torch.rand(n, generator=g) - 0.5])
+    rays[3, :7] = 1e-10        # rays parallel to the stations: huge t
+    cot = torch.randn((s_total, c, n), generator=g) * (
+        torch.rand((s_total, 1, n), generator=g) < 0.3)
+    forms = {"full": (None, 0),
+             "tile": (torch.tensor([0, 16], dtype=torch.int32), 16),
+             "segment": (torch.tensor([0, 16, 8], dtype=torch.int32), 24)}
+    forms = {f: (None if vb is None else vb.to(dev), wv)
+             for f, (vb, wv) in forms.items()}
+    return (rays.to(dev).contiguous(), cot.to(dev).contiguous(),
+            (gp, gu, gv, c), forms)
+
+
+def check_bwd(kc, g, rays, k, shape, dtype, v_base, wv, what):
+    """K-C against its plain version: the f32 accumulator within ``tol`` =
+    1e-5 of the plain sum's largest entry (f32 atomics sum in another
+    order); the output in the grid dtype within one bf16 ulp of the value on
+    top of that (a sum that nearly cancels keeps the absolute error of its
+    summands; f32 grids: ``tol`` again); zeros exactly where the plain
+    version has zeros. A voxel sums up to N*(2k-1) terms one after another
+    in f32, and the rounding of such a sum grows with the square root of
+    their number (the plain version's matrix product sums in blocks): 1e-5
+    covers batches of up to 8192 rays, and a counted view's 160,000 rays
+    get 2e-5 * sqrt(N / 8192)."""
+    import torch
+    n = g.shape[2]
+    tol = 1e-5 if n <= 8192 else 2e-5 * (n / 8192) ** 0.5
+    acc = kc.sweep_bwd(g, rays, k, shape, dtype, v_base, wv,
+                       out_dtype=torch.float32)
+    out = kc.sweep_bwd(g, rays, k, shape, dtype, v_base, wv)
+    torch.cuda.synchronize()
+    ref = kc.sweep_bwd_plain(g, rays, k, shape, dtype, v_base, wv)
+    scale = float(ref.abs().max())
+    err = float((acc - ref).abs().max())
+    zeros_differ = int(((acc == 0) != (ref == 0)).sum())
+    ref_out = ref.to(dtype).float()
+    if dtype == torch.bfloat16:
+        ulp_ok = bool(((out.float() - ref_out).abs()
+                       <= 2.0 ** -7 * ref_out.abs() + tol * scale).all())
+    else:
+        ulp_ok = float((out - ref_out).abs().max()) <= tol * scale
+    log(f"[phase 1] K-C sweep_bwd {what}: g={tuple(g.shape)} grid="
+        f"{tuple(shape)} {str(dtype).split('.')[-1]} wv={wv} max|kernel-"
+        f"plain|={err:.3e} of {scale:.3e} (allowed {tol:.2e} of it), zero "
+        f"pattern differs at "
+        f"{zeros_differ}, output within one ulp: {ulp_ok}, nonzero voxels "
+        f"{float((ref != 0).float().mean()):.4f}")
+    if not (scale > 0 and err <= tol * scale and zeros_differ == 0
+            and ulp_ok and bool(torch.isfinite(acc).all())):
+        raise AssertionError(f"K-C {what}: err {err} of {scale}, zero "
+                             f"pattern differs at {zeros_differ}, ulp "
+                             f"{ulp_ok}")
+    return err
+
+
+def check_sweep_rel(ka, slabs, rays, k, v_base, wv, what, zero_slab=False):
+    """K-A, full (``wv`` 0) or windowed, against its plain version, channel
+    by channel: within 1e-5 of the channel's largest plain value (a trained
+    grid's channels differ by orders of magnitude), and exactly zero
+    wherever the plain version is (off the slab, outside the window).
+    ``zero_slab``: the slabs are all zero (a counted view's), so the output
+    must be too."""
+    import torch
+    out = ka.sweep_fwd(slabs, rays, k, v_base, wv)
+    torch.cuda.synchronize()
+    ref = ka.sweep_fwd_plain(slabs, rays, k, v_base, wv)
+    scale = ref.abs().amax((0, 2))                              # [C]
+    err_c = (out - ref).abs().amax((0, 2))
+    err = float(err_c.max())
+    rel = float((err_c / scale.clamp(min=1e-30)).max())
+    stray = int(((ref == 0) & (out != 0)).sum())
+    log(f"[phase 1] K-A sweep_fwd {what}: S={slabs.shape[0]} "
+        f"slab={tuple(slabs.shape[1:])} {str(slabs.dtype).split('.')[-1]} "
+        f"N={rays.shape[1]} wv={wv} max|kernel-plain|={err:.3e}, largest "
+        f"share of a channel's max {rel:.3e}, nonzero where plain is zero: "
+        f"{stray}, nonzero share={float((ref != 0).float().mean()):.4f}")
+    if not (bool((err_c <= 1e-5 * scale).all()) and stray == 0
+            and (float(scale.max()) > 0) != zero_slab
+            and bool(torch.isfinite(out).all())):
+        raise AssertionError(f"K-A {what}: max abs err {err}, {rel} of a "
+                             f"channel's largest value, {stray} stray "
+                             "nonzeros")
+    return err
+
+
+def small_train_kernel_checks(torch, dev, ka, kc, sweep_ops):
+    errs = {"sweep_bwd": 0.0, "sweep_fwd_windowed": 0.0}
+    for c, dtype in ((14, torch.bfloat16), (1, torch.float32)):
+        for k in (1, 2):
+            rays, cot, shape, forms = small_bwd_case(torch, dev, c, k)
+            for form, (vb, wv) in forms.items():
+                errs["sweep_bwd"] = max(errs["sweep_bwd"], check_bwd(
+                    kc, cot, rays, k, shape, dtype, vb, wv,
+                    f"small {form} C={c} k={k}"))
+            g = torch.Generator(device="cpu").manual_seed(SEED + 3)
+            slabs = sweep_ops._station_slabs(torch.randn(
+                shape, generator=g).to(dtype).to(dev), k).contiguous()
+            errs["sweep_fwd_windowed"] = max(
+                errs["sweep_fwd_windowed"], check_sweep_rel(
+                    ka, slabs, rays, k, *forms["tile"],
+                    f"windowed small C={c} k={k}"))
+    return errs
+
+
+# ----------------------------------------------------------------- phase 5
+
+def write_train_config():
+    os.makedirs(CKPT_DIR, exist_ok=True)
+    with open(TRAIN_CONFIG, "w") as f:
+        f.write(f"_base_ = {TRAIN_BASE!r}\n"
+                "expname = 'train_lego'\n"
+                "basedir = './logs/chip_smoke'\n"
+                f"coarse_train = {{'N_iters': {N_COARSE}}}\n"
+                f"fine_train = {{'N_iters': {N_FINE}, "
+                f"'pg_scale': {PG_SCALE}}}\n")
+    return TRAIN_CONFIG
+
+
+class StepRecorder:
+    """Wraps ``engine.train.make_train_step``: every step it builds is
+    synchronised and timed on the host clock, and its PSNR, stage (coarse:
+    no colour MLP) and grid size are recorded."""
+
+    def __init__(self, train_lib):
+        self.train_lib = train_lib
+        self.orig = train_lib.make_train_step
+        self.steps = []   # (stage, voxels, ms, psnr, loss)
+        self.inside = None   # stage of the step being taken, if any
+        train_lib.make_train_step = self
+
+    def form(self):
+        """The form of a sweep launched now: a step's, or (between steps)
+        a counted view's of the per-voxel lr."""
+        return f"{self.inside} step" if self.inside else "counted view"
+
+    def __call__(self, model, *args, **kw):
+        import torch
+        step = self.orig(model, *args, **kw)
+        stage = "fine" if model.rgbnet is not None else "coarse"
+
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            self.inside = stage
+            try:
+                loss, psnr = step(*a, **k)
+            finally:
+                self.inside = None
+            torch.cuda.synchronize()
+            self.steps.append((stage, int(np_prod(model.world_size)),
+                               (time.perf_counter() - t0) * 1e3,
+                               float(psnr), float(loss)))
+            return loss, psnr
+
+        return timed
+
+    def restore(self):
+        self.train_lib.make_train_step = self.orig
+
+
+def np_prod(xs):
+    out = 1
+    for x in xs:
+        out *= int(x)
+    return out
+
+
+def median(xs):
+    xs = sorted(xs)
+    return float(xs[len(xs) // 2])
+
+
+def tile_windows_for(torch, sweep_ops, model, ro, rd, axis, n_rand):
+    """Pick ``n_rand`` rays of one view ordered by their v coordinate at the
+    middle sweep plane and give every 512-ray tile a v-window that covers
+    its rays' support at every station (v is linear in the station plane,
+    so the two end planes, clipped to the slab's support, bound it).
+    Returns (indices into the view's rays, v_base int32, wv)."""
+    perm = sweep_ops._PERMS[axis]
+    gp, gv = int(model.world_size[perm[0]]), int(model.world_size[perm[2]])
+    (op, _, ov), (dp, _, dv) = sweep_ops.rays_to_voxel(
+        ro, rd, model.xyz_min, model.xyz_max, model.world_size, axis)
+    dp = torch.where(dp.abs() < 1e-10, torch.full_like(dp, 1e-10), dp)
+    v_at = lambda p: ov + (p - op) / dp * dv  # noqa: E731
+    order = torch.argsort(v_at(0.5 * (gp - 1)))[:n_rand]
+    ends = torch.stack([v_at(0.0), v_at(gp - 1.0)])[:, order].clamp(-1.0, gv)
+    tiles = ends.reshape(2, n_rand // 512, 512)
+    lo = torch.floor(tiles.amin((0, 2))).clamp(min=0)
+    hi = (torch.floor(tiles.amax((0, 2))) + 1).clamp(max=gv - 1)
+    wv = int((hi - lo + 1).max())
+    v_base = torch.minimum(lo, torch.full_like(lo, gv - wv)).clamp(min=0)
+    return order, v_base.to(torch.int32).contiguous(), wv
+
+
+def fwd_numbers(torch, ka, slabs, rays, k, v_base=None, wv=0):
+    """K-A on these inputs: its time, its plain version's, one
+    ``grid_sample`` call's, and its bound (the distinct slab voxels its taps
+    weight, the rays and window starts read once, the [S, C, N] f32 output
+    written once; two operations per tap and channel plus the
+    coordinates)."""
+    s_total, gu, gv, c = slabs.shape
+    n = rays.shape[1]
+    ms = cuda_time(lambda: ka.sweep_fwd(slabs, rays, k, v_base, wv), 20)
+    plain = cuda_time(lambda: ka.sweep_fwd_plain(slabs, rays, k, v_base, wv),
+                      3, warmup=1)
+    lib = cuda_time(grid_sample_call(torch, slabs, rays, k), 20)
+    voxels = sweep_voxels(torch, slabs, rays, k)
+    n_bytes = voxels * c * slabs.element_size() + rays.numel() * 4 \
+        + (v_base.numel() * 4 if wv else 0) + s_total * c * n * 4
+    ops = s_total * n * (4 * c * 2 + 16)
+    by = "bytes" if n_bytes / HBM_BPS >= ops / F32_FLOPS else "operations"
+    return {"ms": ms, "plain_ms": plain,
+            "bound_ms": max(n_bytes / HBM_BPS, ops / F32_FLOPS) * 1e3,
+            "bound_by": by, "library_ms": lib, "bytes": n_bytes,
+            "slab_voxels_read": voxels,
+            "shape": f"S={s_total} slab={gu}x{gv}x{c} "
+                     f"{str(slabs.dtype).split('.')[-1]} N={n}"
+                     + (f" wv={wv}" if wv else "")}
+
+
+def bwd_numbers(torch, kc, g, rays, k, shape, dtype, v_base, wv):
+    """K-C on these inputs: its time, its plain version's, the backward of
+    one ``grid_sample`` call, and its bound (the cotangent and the rays read
+    once, the voxels it touches written once in the grid dtype; six
+    operations per tap of a nonzero cotangent plus the coordinates)."""
+    ms = cuda_time(lambda: kc.sweep_bwd(g, rays, k, shape, dtype, v_base,
+                                        wv), 20)
+    plain = cuda_time(lambda: kc.sweep_bwd_plain(g, rays, k, shape, dtype,
+                                                 v_base, wv), 3, warmup=1)
+    lib = cuda_time(grid_sample_backward_call(torch, g, rays, k, shape), 10)
+    out = kc.sweep_bwd(g, rays, k, shape, dtype, v_base, wv)
+    touched = int((out != 0).any(-1).sum())
+    nnz = int((g != 0).sum())
+    n_bytes = g.numel() * 4 + rays.numel() * 4 \
+        + touched * shape[3] * out.element_size()
+    ops = nnz * 4 * 6 + g.shape[0] * g.shape[2] * 16
+    by = "bytes" if n_bytes / HBM_BPS >= ops / F32_FLOPS else "operations"
+    return {"ms": ms, "plain_ms": plain,
+            "bound_ms": max(n_bytes / HBM_BPS, ops / F32_FLOPS) * 1e3,
+            "bound_by": by, "library_ms": lib, "bytes": n_bytes,
+            "operations": ops, "nonzero_cotangents": nnz,
+            "voxels_touched": touched,
+            "shape": f"g={tuple(g.shape)} grid={tuple(shape)} "
+                     f"{str(dtype).split('.')[-1]} "
+                     f"nonzero={nnz / g.numel():.4f}"}
+
+
+def train_phase(torch, dev, ka, kb, kc, sweep_ops):
+    """Phase 5; returns the kernels-line entries of the training path (K-A
+    and K-C in each form that path launches, K-A's windowed form) and a
+    summary of the training run."""
+    import numpy as np
+    from directvoxgo_tpu_torch import rays as ray_lib
+    from directvoxgo_tpu_torch import run as run_lib
+    from directvoxgo_tpu_torch.config import Config
+    from directvoxgo_tpu_torch.data import load_everything
+    from directvoxgo_tpu_torch.engine import checkpoint as ckpt_lib
+    from directvoxgo_tpu_torch.engine import train as train_lib
+    from directvoxgo_tpu_torch.models.dvgo import DirectVoxGO
+
+    cfg_path = write_train_config()
+    cfg = Config.fromfile(cfg_path)
+    data = load_everything(None, cfg)
+    logdir = os.path.join(cfg.basedir, cfg.expname)
+    n_views = len(data["i_train"])
+
+    # The last call of every form the path launches (a coarse step's, a
+    # fine step's, a counted view's) is kept for the checks below.
+    rec = StepRecorder(train_lib)
+    cap_a = Capture(sweep_ops, "sweep_fwd", form=rec.form)
+    cap_c = Capture(sweep_ops, "sweep_bwd", form=rec.form)
+    ka.launches = ka.launches_windowed = kb.launches = kc.launches = 0
+    t0 = time.time()
+    try:
+        run_lib.main(["--config", cfg_path, "--no_reload", "--i_print", "100",
+                      "--device", str(dev)])
+        torch.cuda.synchronize()
+    finally:
+        rec.restore()
+        cap_a.restore()
+        cap_c.restore()
+    train_launches = {"sweep_fwd": ka.launches, "sweep_bwd": kc.launches,
+                      "render_frame": kb.launches,
+                      "sweep_fwd_windowed": ka.launches_windowed}
+    coarse = [s for s in rec.steps if s[0] == "coarse"]
+    fine = [s for s in rec.steps if s[0] == "fine"]
+    top = max(s[1] for s in fine)
+    fine_top = [s for s in fine if s[1] == top]
+    log(f"[phase 5] run.main trained {len(coarse)} coarse + {len(fine)} "
+        f"fine steps (pg_scale {PG_SCALE}, {len(fine_top)} at {top} voxels) "
+        f"in {time.time() - t0:.1f} s; launches {train_launches}; "
+        f"{n_views} views counted")
+    # Every step is one K-A and one K-C launch; so is every counted view of
+    # the coarse stage's per-voxel lr.
+    want = {"coarse step": N_COARSE, "fine step": N_FINE,
+            "counted view": n_views}
+    if not (len(coarse) == N_COARSE and len(fine) == N_FINE
+            and len(fine_top) >= MIN_TOP_STEPS
+            and dict(cap_a.counts) == want and dict(cap_c.counts) == want
+            and train_launches["sweep_fwd"] == sum(want.values())
+            and train_launches["sweep_bwd"] == sum(want.values())
+            and train_launches["sweep_fwd_windowed"] == 0
+            and train_launches["render_frame"] == 0):
+        raise AssertionError(
+            f"launches {train_launches} (K-A by form {dict(cap_a.counts)}, "
+            f"K-C {dict(cap_c.counts)}) do not match {want}")
+    if not all(np.isfinite(s[3]) and np.isfinite(s[4]) for s in rec.steps):
+        raise AssertionError("a train step's loss or PSNR is not finite")
+    psnr_first = float(np.mean([s[3] for s in coarse[:50]]))
+    psnr_last = float(np.mean([s[3] for s in fine[-50:]]))
+    step_ms = {"coarse": median([s[2] for s in coarse[len(coarse) // 10:]]),
+               "fine_top": median([s[2] for s in
+                                   fine_top[len(fine_top) // 10:]])}
+    log(f"[phase 5] train PSNR: first 50 coarse steps {psnr_first:.2f} dB, "
+        f"last 50 fine steps {psnr_last:.2f} dB; median step "
+        f"{step_ms['coarse']:.2f} ms coarse, {step_ms['fine_top']:.2f} ms "
+        f"fine at {top} voxels (host clock around a synced step)")
+    if not psnr_last > psnr_first:
+        raise AssertionError(f"train PSNR did not rise: {psnr_first} -> "
+                             f"{psnr_last}")
+
+    # The checkpoints load back, with finite parameters.
+    models = {}
+    for stage in ("coarse", "fine"):
+        path = os.path.join(logdir, f"{stage}_last.tar")
+        st = ckpt_lib.load_checkpoint_file(path)
+        models[stage] = ckpt_lib.load_model(DirectVoxGO, path, device=dev)
+        finite = all(bool(torch.isfinite(p).all())
+                     for p in models[stage].parameters())
+        log(f"[phase 5] {path}: step {st['global_step']}, world_size "
+            f"{models[stage].world_size}, optimizer step "
+            f"{int(st['optimizer_state_dict']['step'])}, finite {finite}")
+        if not (finite and st["global_step"] == (
+                N_COARSE if stage == "coarse" else N_FINE)):
+            raise AssertionError(f"{path}: step {st['global_step']}, "
+                                 f"finite {finite}")
+
+    # One checked step: under the clip box the full-size density cotangent
+    # is exactly zero outside the box (skip_zero_grad relies on it).
+    cm = models["coarse"]
+    v = int(data["i_train"][0])
+    H, W = (int(x) for x in data["HW"][v])
+    ro, rd, vd = (torch.as_tensor(x.reshape(-1, 3), device=dev)
+                  for x in ray_lib.get_rays_of_a_view(
+                      H, W, data["Ks"][v], data["poses"][v], False, False,
+                      False, False))
+    gt = torch.as_tensor(np.asarray(data["images"][v], np.float32).reshape(
+        -1, 3), device=dev)
+    axes = sweep_ops.dominant_axis(rd.cpu().numpy(), cm.xyz_min, cm.xyz_max,
+                                   cm.world_size)
+    axis = int(np.bincount(axes, minlength=3).argmax())
+    sel = torch.as_tensor(np.flatnonzero(axes == axis)[::7][:8192],
+                          device=dev)
+    # the occupancy the fine stage takes from this checkpoint
+    # (mask_cache_thres), so that the box is the object's
+    from directvoxgo_tpu_torch.ops import grid as grid_ops
+    with torch.no_grad():
+        cm.mask = cm.mask & (cm.activate_density(grid_ops.max_pool3d_same(
+            cm.density)) >= cfg.fine_model_and_render.mask_cache_thres)
+    clip_sizes, clip_off = cm.sweep_clip_for_axis(axis, CLIP_QUANTUM)
+    if clip_sizes is None:
+        raise AssertionError("the coarse model's occupancy box does not "
+                             "clip the sweep")
+    rk = {"near": data["near"], "far": data["far"], "bg": 1.0,
+          "stepsize": cfg.coarse_model_and_render.stepsize}
+    ret = cm.forward_sweep(ro[sel], rd[sel], vd[sel], axis,
+                           clip_sizes=clip_sizes, clip_offsets=clip_off, **rk)
+    g_dens, = torch.autograd.grad(
+        torch.mean((ret["rgb_marched"] - gt[sel]) ** 2), cm.density)
+    inv = {ax: i for i, ax in enumerate(sweep_ops._PERMS[axis])}
+    inside = torch.zeros(cm.world_size, dtype=torch.bool, device=dev)
+    inside[tuple(slice(int(clip_off[inv[a]]),
+                       int(clip_off[inv[a]]) + clip_sizes[inv[a]])
+                 for a in range(3))] = True
+    n_out = int((g_dens[~inside] != 0).sum())
+    n_in = int((g_dens[inside] != 0).sum())
+    log(f"[phase 5] clip box {clip_sizes} at {clip_off.tolist()} of "
+        f"{cm.world_size} (axis {axis}): density cotangent nonzero at {n_in} "
+        f"voxels inside, {n_out} outside")
+    if n_out != 0 or n_in == 0:
+        raise AssertionError(f"density cotangent: {n_out} nonzero voxels "
+                             f"outside the clip box, {n_in} inside")
+
+    # Re-entering run.main resumes without training and renders the test
+    # views of the trained model through K-B / K-A.
+    cap_r = Capture(run_lib, "render_viewpoints", results=True)
+    ka.launches = kb.launches = kc.launches = 0
+    try:
+        run_lib.main(["--config", cfg_path, "--render_test", "--device",
+                      str(dev)])
+        torch.cuda.synchronize()
+    finally:
+        cap_r.restore()
+    stats = cap_r.results[0][2]
+    psnr_test = float(np.mean(stats["psnr"]))
+    white = [float(-10.0 * np.log10(np.mean(
+        (1.0 - np.asarray(data["images"][i], np.float32)) ** 2)))
+        for i in data["i_test"]]
+    log(f"[phase 5] --render_test of fine_last.tar: paths {stats['path']}, "
+        f"K-B launches {kb.launches}, K-A launches {ka.launches}, K-C "
+        f"launches {kc.launches}; test PSNR {psnr_test:.2f} dB, a white "
+        f"frame scores {float(np.mean(white)):.2f} dB")
+    if not (kc.launches == 0 and kb.launches + ka.launches > 0
+            and psnr_test > float(np.mean(white))):
+        raise AssertionError(f"render of the trained model: PSNR "
+                             f"{psnr_test} vs white {np.mean(white)}, "
+                             f"launches K-B {kb.launches} K-A {ka.launches} "
+                             f"K-C {kc.launches}")
+
+    # A few train steps with per-ray-tile v-windows (which only unclipped
+    # sweeps take) on the trained fine model: K-A's and K-C's per-tile
+    # windowed forms in a train step. This is a side path of this script:
+    # the engine's loop draws no windows yet, so run.main launches neither.
+    fm = models["fine"]
+    rk_f = {"near": data["near"], "far": data["far"], "bg": 1.0,
+            "stepsize": cfg.fine_model_and_render.stepsize}
+    axes = sweep_ops.dominant_axis(rd.cpu().numpy(), fm.xyz_min, fm.xyz_max,
+                                   fm.world_size)
+    axis = int(np.bincount(axes, minlength=3).argmax())
+    idx = torch.as_tensor(np.flatnonzero(axes == axis), device=dev)
+    n_rand = int(cfg.fine_train.N_rand)
+    order, v_base, wv = tile_windows_for(torch, sweep_ops, fm, ro[idx],
+                                         rd[idx], axis, n_rand)
+    sel = idx[order]
+    gv = int(fm.world_size[sweep_ops._PERMS[axis][2]])
+    if not 0 < wv < gv:
+        raise AssertionError(f"tile windows of width {wv} do not narrow the "
+                             f"{gv}-wide sweep")
+    full = fm.forward_sweep(ro[sel], rd[sel], vd[sel], axis, **rk_f)
+    cap_w = Capture(sweep_ops, "sweep_fwd", keep=1)
+    try:
+        win = fm.forward_sweep(ro[sel], rd[sel], vd[sel], axis,
+                               tile_windows=(v_base, wv), **rk_f)
+    finally:
+        cap_w.restore()
+    w_err = float((win["rgb_marched"] - full["rgb_marched"]).detach().abs()
+                  .max())
+    log(f"[phase 5] tile windows: axis {axis}, {n_rand // 512} tiles, wv "
+        f"{wv} of {gv}; windowed vs full sweep max|rgb diff| {w_err:.3e}")
+    if not w_err <= 1e-6:
+        raise AssertionError(f"windowed sweep differs from the full sweep by "
+                             f"{w_err}")
+    opt = train_lib.create_optimizer_or_freeze_model(fm, cfg.fine_train)
+    step = train_lib.make_train_step(fm, opt, cfg.fine_train, rk_f, False,
+                                     False, axis=axis, clip_sizes=None,
+                                     wv=wv)
+    pool = {"rgb": gt, "rays_o": ro, "rays_d": rd, "viewdirs": vd}
+    ka.launches_windowed = kc.launches = 0
+    for _ in range(3):
+        loss_w, _ = step(pool, sel, np.zeros(3, np.int32), v_base)
+    torch.cuda.synchronize()
+    win_launches = ka.launches_windowed
+    log(f"[phase 5] 3 windowed train steps (side path): loss {float(loss_w):.6f}, "
+        f"windowed K-A launches {win_launches}, K-C launches {kc.launches}")
+    if not (win_launches == 3 and kc.launches == 3
+            and np.isfinite(float(loss_w))):
+        raise AssertionError("windowed train steps did not run through the "
+                             "windowed kernels")
+
+    # Every form the training path launched, on the inputs of its last
+    # call there, against the plain version and timed.
+    entries = []
+    for form in want:
+        (slabs, f_rays, f_k, f_vb, f_wv), _ = cap_a.forms[form]
+        zero_slab = not bool(slabs.any())
+        err = check_sweep_rel(ka, slabs, f_rays, f_k, f_vb, f_wv,
+                              f"training path, {form}", zero_slab=zero_slab)
+        if zero_slab:
+            # A counted view sweeps a zero grid (only its transpose is
+            # wanted), which checks no tap: the same rays over a seeded
+            # random slab of that shape and dtype do.
+            gen = torch.Generator(device="cpu").manual_seed(SEED + 4)
+            rand = torch.randn(slabs.shape, generator=gen).to(
+                slabs.dtype).to(dev)
+            err = max(err, check_sweep_rel(
+                ka, rand, f_rays, f_k, f_vb, f_wv,
+                f"training path, {form}, seeded random slab"))
+        nums = fwd_numbers(torch, ka, slabs, f_rays, f_k, f_vb, f_wv)
+        log(f"[phase 5] K-A {form}: {nums}")
+        entries.append(dict(
+            {"name": f"sweep_fwd [{form}]", "route": "cuda",
+             "source": "directvoxgo_tpu_torch/csrc/sweep_fwd.cu",
+             "replaces": "directvoxgo_tpu/ops/pallas_sweep_train.py:85",
+             "launches": cap_a.counts[form], "max_abs_err": err}, **nums))
+
+    # K-A windowed, on the inputs of the windowed steps above. No entry
+    # point launches this form yet: its count is of those three steps.
+    (w_slabs, w_rays, w_k, w_vb, w_wv), _ = cap_w.calls[0]
+    err_w = check_sweep_rel(ka, w_slabs, w_rays, w_k, w_vb, w_wv,
+                            "windowed, fine model")
+    nums = fwd_numbers(torch, ka, w_slabs, w_rays, w_k, w_vb, w_wv)
+    log(f"[phase 5] K-A windowed: {nums}")
+    entries.append(dict(
+        {"name": "sweep_fwd_windowed", "route": "cuda",
+         "source": "directvoxgo_tpu_torch/csrc/sweep_fwd.cu",
+         "replaces": "directvoxgo_tpu/ops/pallas_sweep_train.py:85 "
+                     "(windowed pallas_call :198)",
+         "launches": win_launches, "max_abs_err": err_w,
+         "launches_of": "3 windowed train steps built by this script; "
+                        "run.main launched this form "
+                        f"{train_launches['sweep_fwd_windowed']} times"},
+        **nums))
+
+    for form in want:
+        (g, c_rays, c_k, c_shape, c_dtype, c_vb, c_wv), _ = cap_c.forms[form]
+        err = check_bwd(kc, g, c_rays, c_k, c_shape, c_dtype, c_vb, c_wv,
+                        f"training path, {form}")
+        nums = bwd_numbers(torch, kc, g, c_rays, c_k, c_shape, c_dtype, c_vb,
+                           c_wv)
+        log(f"[phase 5] K-C {form}: {nums}")
+        entries.append(dict(
+            {"name": f"sweep_bwd [{form}]", "route": "cuda",
+             "source": "directvoxgo_tpu_torch/csrc/sweep_bwd.cu",
+             "replaces": "directvoxgo_tpu/ops/pallas_sweep_train.py:247 "
+                         "(fold_bwd_partials :356)",
+             "launches": cap_c.counts[form], "max_abs_err": err}, **nums))
+    summary = {"steps": [N_COARSE, N_FINE], "pg_scale": PG_SCALE,
+               "counted_views": n_views, "top_voxels": top,
+               "steps_at_top": len(fine_top),
+               "coarse_step_ms": step_ms["coarse"],
+               "fine_step_ms": step_ms["fine_top"],
+               "train_psnr_first50_coarse": psnr_first,
+               "train_psnr_last50_fine": psnr_last, "test_psnr": psnr_test,
+               "sweep_launches_per_step": 1,
+               "sweep_launches_per_counted_view": 1}
+    return entries, summary
+
+
+def grid_sample_backward_call(torch, g, rays, k, grid_shape):
+    """The backward of one ``grid_sample`` call over the station slabs: the
+    library yardstick of K-C (per-station slab cotangents [S, C, Gu, Gv]
+    in f32; it does not fold them onto the grid slabs). Coordinates and the
+    forward are prepared outside the timed call."""
+    gp, gu, gv, c = grid_shape
+    s_total, _, n = g.shape
+    op, ou, ov, dp, du, dv = rays
+    p = torch.arange(s_total, dtype=torch.float32, device=rays.device) / k
+    t = (p[:, None] - op[None]) / dp[None]
+    u = ou[None] + t * du[None]
+    v = ov[None] + t * dv[None]
+    grid = torch.stack([v / (gv - 1) * 2 - 1, u / (gu - 1) * 2 - 1],
+                       -1)[:, None]                        # [S, 1, N, 2]
+    inp = torch.zeros((s_total, c, gu, gv), device=rays.device,
+                      requires_grad=True)
+    out = torch.nn.functional.grid_sample(
+        inp, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
+    g4 = g[:, :, None, :]
+    return lambda: torch.autograd.grad(out, inp, g4, retain_graph=True)
+
+
+
 # ----------------------------------------------------------------- main
 
 def run(dev):
@@ -243,6 +852,7 @@ def run(dev):
     from directvoxgo_tpu_torch.ops import _build
     from directvoxgo_tpu_torch.ops import render_frame as kb
     from directvoxgo_tpu_torch.ops import sweep as sweep_ops
+    from directvoxgo_tpu_torch.ops import sweep_bwd as kc
     from directvoxgo_tpu_torch.ops import sweep_fwd as ka
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -256,6 +866,7 @@ def run(dev):
     errs = {}
     slabs, rays, k = small_sweep_case(torch, dev)
     errs["sweep_fwd"] = check_sweep(ka, slabs, rays, k, "small")
+    errs.update(small_train_kernel_checks(torch, dev, ka, kc, sweep_ops))
     for rgb_mode, f_k0, width in (("direct", 12, 128),
                                   ("logit_plus_k0", 12, 64)):
         case = small_frame_case(torch, dev, width, f_k0, rgb_mode)
@@ -431,7 +1042,17 @@ def run(dev):
                   f"S={f800['d_geo'].shape[0]}, "
                   f"{stats['visible_samples']} visible samples"},
     ]
-    return kernels
+    # Phase 5: the training path. The render path's entries keep the
+    # launches of their own run (phase 3).
+    train_entries, training = train_phase(torch, dev, ka, kb, kc, sweep_ops)
+    for entry in train_entries:
+        small = {"sweep_fwd_windowed": "sweep_fwd_windowed",
+                 "sweep_bwd [fine step]": "sweep_bwd"}.get(entry["name"])
+        if small:
+            entry["small_shape_max_abs_err"] = errs[small]
+    kernels[0]["name"] = "sweep_fwd [render]"
+    return kernels[:1] + train_entries[:4] + kernels[1:] \
+        + train_entries[4:], training
 
 
 def sweep_voxels(torch, slabs, rays, k):
@@ -489,7 +1110,7 @@ def main():
     sys.path.insert(0, REPO)
     os.chdir(REPO)
     try:
-        kernels = run(torch.device("cuda", 0))
+        kernels, training = run(torch.device("cuda", 0))
     except Exception:  # report the failed phase, print no result
         traceback.print_exc()
         return 1
@@ -498,7 +1119,7 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=False).stdout.strip().splitlines()
     print(smi[0] if smi else "nvidia-smi: no output")
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "training": training}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

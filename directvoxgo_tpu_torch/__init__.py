@@ -2,10 +2,12 @@
 
 A port of the JAX package ``directvoxgo_tpu`` that keeps its file formats
 (configs, ``fixture_cache/`` ground truth, numpy-pickle checkpoints) and its
-numerics. Plain tensor code is PyTorch; the two hot loops of the render path
-are CUDA kernels in ``csrc/`` (built with ``nvcc`` at first use):
+numerics. Plain tensor code is PyTorch; the hot loops of the training and
+render paths are CUDA kernels in ``csrc/`` (built with ``nvcc`` at first
+use):
 
   * ``ops/sweep_fwd.py``    — the per-ray station sweep (bilinear slab taps);
+  * ``ops/sweep_bwd.py``    — its transpose onto the grid (the backward);
   * ``ops/render_frame.py`` — the fused whole-frame renderer.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with

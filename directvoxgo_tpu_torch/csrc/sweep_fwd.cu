@@ -2,7 +2,7 @@
 // of the station slab.
 //
 // Replaces: directvoxgo_tpu/ops/pallas_sweep_train.py::sweep_fwd_pallas
-// (full-Gv form; the per-ray render fallback of ops/sweep.station_sweep).
+// (the full-Gv form and, with v_base/wv, the per-ray-tile v-windowed form).
 //
 // For ray n at station s (axis coordinate p = s/k):
 //   t = (p - op) / dp,  u = ou + t*du,  v = ov + t*dv
@@ -10,7 +10,8 @@
 // with hat weights w(x, i) = max(0, 1 - |x - i|) (wu rounded to the slab
 // dtype, wv kept f32, as the Pallas kernel and the XLA scan do). A
 // coordinate in (-1, 0) still weights index 0; taps outside the slab read
-// zero (no clamping).
+// zero (no clamping). Windowed (wv > 0): ray n of tile n / tile_n reads only
+// v in [v_base[tile], v_base[tile] + wv); its other taps read zero.
 //
 // Bound on the H100: the TPU version is a dense [Gu] x [Gu, Gv*C] matmul per
 // ray and station because gathers are slow there; here only the 4 nonzero
@@ -44,13 +45,19 @@ __device__ __forceinline__ float round_w(float w, const float*) { return w; }
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 sweep_fwd_kernel(const T* __restrict__ slabs, const float* __restrict__ rays,
-                 float* __restrict__ out, int n, int s_total, int gu, int gv,
-                 int c, float inv_k) {
+                 const int* __restrict__ v_base, float* __restrict__ out,
+                 int n, int s_total, int gu, int gv, int c, float inv_k,
+                 int wv, int tile_n) {
   const int r = blockIdx.x * THREADS + threadIdx.x;
   if (r >= n) return;
   const float op = rays[r], ou = rays[n + r], ov = rays[2 * n + r];
   const float dp = rays[3 * n + r], du = rays[4 * n + r],
               dv = rays[5 * n + r];
+  int v_lo = 0, v_hi = gv;
+  if (wv > 0) {
+    v_lo = v_base[r / tile_n];
+    v_hi = min(v_lo + wv, gv);
+  }
   const int s0 = blockIdx.y * S_BLK;
   const int s1 = min(s0 + S_BLK, s_total);
   const size_t slab_elems = (size_t)gu * gv * c;
@@ -76,7 +83,7 @@ sweep_fwd_kernel(const T* __restrict__ slabs, const float* __restrict__ rays,
 #pragma unroll
       for (int b = 0; b < 2; ++b) {
         const int iv = iv0 + b;
-        if (iv < 0 || iv >= gv) continue;
+        if (iv < v_lo || iv >= v_hi) continue;
         const float wv =
             fmaxf(0.f, __fsub_rn(1.f, fabsf(__fsub_rn(v, (float)iv))));
         float tmp[C_MAX];
@@ -115,21 +122,24 @@ const char* dvgo_error_string(int code) {
 int dvgo_sweep_fwd_max_channels() { return C_MAX; }
 
 // slabs [S, Gu, Gv, C] (bf16 if slab_is_bf16 else f32), rays [6, N] f32
-// rows (op, ou, ov, dp, du, dv) with dp != 0, out [S, C, N] f32.
+// rows (op, ou, ov, dp, du, dv) with dp != 0, out [S, C, N] f32. wv > 0
+// selects the windowed form: v_base [ceil(N / tile_n)] int32 window starts.
 int dvgo_sweep_fwd(const void* slabs, int slab_is_bf16, const float* rays,
-                   float* out, int n, int s_total, int gu, int gv, int c,
-                   int k, void* stream) {
-  if (c < 1 || c > C_MAX || n < 1 || s_total < 1) return cudaErrorInvalidValue;
+                   const int* v_base, float* out, int n, int s_total, int gu,
+                   int gv, int c, int k, int wv, int tile_n, void* stream) {
+  if (c < 1 || c > C_MAX || n < 1 || s_total < 1 ||
+      (wv > 0 && (v_base == nullptr || tile_n < 1)))
+    return cudaErrorInvalidValue;
   dim3 grid((n + THREADS - 1) / THREADS, (s_total + S_BLK - 1) / S_BLK);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (slab_is_bf16)
     sweep_fwd_kernel<__nv_bfloat16><<<grid, THREADS, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(slabs), rays, out, n, s_total, gu,
-        gv, c, 1.f / (float)k);
+        static_cast<const __nv_bfloat16*>(slabs), rays, v_base, out, n,
+        s_total, gu, gv, c, 1.f / (float)k, wv, tile_n);
   else
     sweep_fwd_kernel<float><<<grid, THREADS, 0, st>>>(
-        static_cast<const float*>(slabs), rays, out, n, s_total, gu, gv, c,
-        1.f / (float)k);
+        static_cast<const float*>(slabs), rays, v_base, out, n, s_total, gu,
+        gv, c, 1.f / (float)k, wv, tile_n);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,8 +5,10 @@ A checkpoint is a pickled dict ``{global_step, model_kwargs,
 model_state_dict, optimizer_state_dict}`` of numpy arrays and plain
 containers (``.tar`` names kept from the upstream project; these are not
 torch checkpoints). ``model_state_dict`` holds the JAX parameter pytree
-(``density``, ``k0``, ``rgbnet.layers[i].{w, b}``) plus ``mask``;
-:mod:`..convert` maps it onto the port's module. Big float32 grids may be
+(``density``, ``k0``, ``rgbnet.layers[i].{w, b}``) plus ``mask``,
+``optimizer_state_dict`` the optimizer pytree (``step``, ``exp_avg``,
+``exp_avg_sq``, ``per_lr``); :mod:`..convert` maps both onto the port's
+module and optimizer. Big float32 grids may be
 stored as float16 and are widened back to float32 on load.
 
 Loading goes through a restricted unpickler that only rebuilds numpy
@@ -15,6 +17,7 @@ arrays and dtypes, so a checkpoint path cannot execute code.
 
 from __future__ import annotations
 
+import glob
 import io
 import os
 import pickle
@@ -90,8 +93,17 @@ def load_checkpoint_file(path):
         return _restore_f32(_RestrictedUnpickler(io.BytesIO(f.read())).load())
 
 
+def newest_numbered_checkpoint(logdir, stage):
+    """The newest ``{stage}_{step:06d}.tar`` of an interrupted run (written
+    atomically, so any file found is complete), or None."""
+    numbered = sorted(glob.glob(os.path.join(logdir, f"{stage}_[0-9]*.tar")))
+    return numbered[-1] if numbered else None
+
+
 def save_model_checkpoint(path, model, global_step, optimizer_state=None,
                           compact=False):
+    """``optimizer_state``: the JAX-layout pytree of
+    :func:`..convert.opt_state_to_jax`, or None."""
     params, mask = convert.params_to_jax(model)
     state = {"mask": mask}
     state.update(params)

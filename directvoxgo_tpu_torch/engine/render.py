@@ -54,6 +54,7 @@ def make_render_fn(model, render_kwargs):
     kwargs = {k: v for k, v in render_kwargs.items()
               if k in ("near", "far", "bg", "stepsize")}
 
+    @torch.no_grad()
     def render_chunk(ro, rd, vd, axis, clip_sizes, clip_off):
         ret = model.forward_sweep(ro, rd, vd, axis, render_depth=True,
                                   clip_sizes=clip_sizes,

@@ -1,0 +1,536 @@
+"""Training engine: coarse -> fine per-scene optimisation.
+
+One stage (:func:`scene_rep_reconstruction`) builds the model and its
+MaskedAdam, gathers the training rays into a pool on the device, and runs
+the step loop: every step draws an index batch of rays that share a
+dominant axis, renders it through the station sweep (kernel K-A),
+backpropagates (kernel K-C under ``station_sweep``'s backward) and updates
+the parameters in place. Around the steps it keeps the schedule of the JAX
+package's engine: per-voxel learning rates from the view count, the
+occupancy clip box with its hysteresis, mask renewal, progressive scaling
+with a fresh optimizer, TV state flips, progress lines and checkpoints.
+
+PyTorch runs eagerly, so there is nothing to compile ahead of a step and no
+remote dispatch to hide: the JAX engine's precompile queue, compile epochs,
+step batching and guarded fetches have no counterpart here. Batches are
+drawn uniformly within an axis group; the spatial window buckets of the JAX
+engine (its ``bucket_tiles`` draws) are not ported yet.
+"""
+
+from __future__ import annotations
+
+import copy
+import os
+import time
+
+import numpy as np
+import torch
+
+from .. import convert
+from .. import rays as ray_lib
+from ..device import resolve_device
+from ..models.dvgo import DirectVoxGO
+from ..ops import grid as grid_ops
+from ..ops import sweep as sweep_ops
+from ..ops import tv as tv_ops
+from ..optim import MaskedAdam
+from . import checkpoint as ckpt_lib
+
+
+def compute_bbox_by_cam_frustrm(cfg, HW, Ks, poses, i_train, near, far,
+                                **kwargs):
+    """Union of the train views' frustum corners at near and far."""
+    xyz_min = np.full(3, np.inf, np.float32)
+    xyz_max = -xyz_min
+    for (H, W), K, c2w in zip(HW[i_train], Ks[i_train], poses[i_train]):
+        rays_o, rays_d, viewdirs = ray_lib.get_rays_of_a_view(
+            H=H, W=W, K=K, c2w=c2w, ndc=cfg.data.ndc,
+            inverse_y=cfg.data.inverse_y,
+            flip_x=cfg.data.flip_x, flip_y=cfg.data.flip_y)
+        if cfg.data.ndc:
+            pts_nf = np.stack([rays_o + rays_d * near, rays_o + rays_d * far])
+        else:
+            pts_nf = np.stack([rays_o + viewdirs * near,
+                               rays_o + viewdirs * far])
+        xyz_min = np.minimum(xyz_min, pts_nf.min(axis=(0, 1, 2)))
+        xyz_max = np.maximum(xyz_max, pts_nf.max(axis=(0, 1, 2)))
+    print("compute_bbox_by_cam_frustrm: xyz_min", xyz_min)
+    print("compute_bbox_by_cam_frustrm: xyz_max", xyz_max)
+    return xyz_min, xyz_max
+
+
+def compute_bbox_by_coarse_geo(model_class, model_path, thres, device=None):
+    """Shrink the fine bbox to the coarse ``alpha > thres`` region."""
+    model = ckpt_lib.load_model(model_class, model_path, device=device)
+    with torch.no_grad():
+        alpha = model.activate_density(model.density).cpu().numpy()
+        pts = model.grid_points().cpu().numpy()
+    mask = alpha > thres
+    if not mask.any():
+        xyz_min, xyz_max = np.asarray(model.xyz_min), np.asarray(model.xyz_max)
+    else:
+        active = pts[mask]
+        xyz_min, xyz_max = active.min(0), active.max(0)
+        # a near-zero extent (very few voxels over the threshold) is padded
+        # to at least one voxel per axis
+        pad = np.maximum(model.voxel_size - (xyz_max - xyz_min), 0.0) / 2
+        xyz_min, xyz_max = xyz_min - pad, xyz_max + pad
+    print("compute_bbox_by_coarse_geo: xyz_min", xyz_min)
+    print("compute_bbox_by_coarse_geo: xyz_max", xyz_max)
+    return xyz_min, xyz_max
+
+
+def _param_groups(model):
+    """name -> list of parameters, in the JAX pytree's names."""
+    groups = {"density": [model.density], "k0": [model.k0]}
+    if model.rgbnet is not None:
+        groups["rgbnet"] = list(model.rgbnet.parameters())
+    return groups
+
+
+def create_optimizer_or_freeze_model(model, cfg_train):
+    """The ``lrate_<name>`` convention: keys with lr > 0 become parameter
+    groups; lr == 0 freezes the parameter (no gradient, no update)."""
+    params = _param_groups(model)
+    groups = {}
+    for key in list(cfg_train.keys()):
+        if not key.startswith("lrate_"):
+            continue
+        name = key[len("lrate_"):]
+        if name not in params:
+            continue
+        lr = float(cfg_train[key])
+        if lr > 0:
+            print(f"create_optimizer_or_freeze_model: param {name} lr {lr}")
+            groups[name] = {
+                "params": params[name], "lr": lr,
+                "skip_zero_grad": name in cfg_train.get(
+                    "skip_zero_grad_fields", []),
+            }
+        else:
+            print(f"create_optimizer_or_freeze_model: param {name} freeze")
+    decay_steps = cfg_train.lrate_decay * 1000
+    return MaskedAdam(groups, lr_decay_factor=0.1 ** (1.0 / decay_steps))
+
+
+def make_train_step(model, optimizer, cfg_train, render_kwargs,
+                    apply_tv, tv_dense, axis=None, clip_sizes=None, wv=0):
+    """Build the train step of the current phase:
+    ``step(pool, sel, clip_off, v_base=None) -> (loss, psnr)`` (0-d
+    tensors, not synchronised) gathers the batch ``sel`` from the device
+    ray ``pool``, renders it along the static sweep ``axis``, adds the TV
+    gradients when ``apply_tv``, and updates ``model`` and ``optimizer`` in
+    place.
+
+    ``clip_sizes`` (permuted order) bounds the sweep to the occupancy box
+    whose start voxels arrive as ``clip_off``. Region mode: when every
+    trainable grid is a ``skip_zero_grad`` group (and TV is off or sparse),
+    the step differentiates with respect to the box slices of the grids, so
+    gradients and the Adam update stay box-sized; exact because the sweep
+    reads nothing outside the box and ``skip_zero_grad`` leaves untouched
+    voxels alone. Plain Adam decays moments everywhere, so those steps keep
+    full-size gradients (zero outside the box) and a full-grid update.
+    ``wv > 0`` passes ``(v_base, wv)`` ray-tile windows to unclipped sweeps;
+    :func:`scene_rep_reconstruction` never sets it (its draws ride the clip
+    box), so it waits for a caller that draws window buckets.
+    """
+    if axis is None:
+        raise NotImplementedError(
+            "only the sweep train step is ported (ROADMAP A: gather forward)")
+    kwargs = {k: render_kwargs[k] for k in ("near", "far", "bg", "stepsize")}
+    w_main = float(cfg_train.weight_main)
+    w_entropy = float(cfg_train.weight_entropy_last)
+    w_rgbper = float(cfg_train.weight_rgbper)
+    w_tv_density = float(cfg_train.weight_tv_density)
+    w_tv_k0 = float(cfg_train.weight_tv_k0)
+    n_rand = int(cfg_train.N_rand)
+    trainable = list(optimizer.groups)
+    grid_names = [n for n in ("density", "k0") if n in trainable]
+    all_skip = all(bool(optimizer.groups[n].get("skip_zero_grad", False))
+                   for n in grid_names)
+    tv_boxed = apply_tv and not tv_dense
+    region_mode = (clip_sizes is not None and (not apply_tv or tv_boxed)
+                   and all_skip and grid_names != [])
+    if region_mode:
+        inv = {ax: i for i, ax in enumerate(sweep_ops._PERMS[axis])}
+        sizes_xyz = tuple(int(clip_sizes[inv[a]]) for a in range(3))
+
+    def train_step(pool, sel, clip_off, v_base=None):
+        target = pool["rgb"][sel]
+        rays_o, rays_d = pool["rays_o"][sel], pool["rays_d"][sel]
+        viewdirs = pool["viewdirs"][sel]
+        clip_off = np.asarray(clip_off, np.int32)
+
+        leaves = {n: list(optimizer.groups[n]["params"]) for n in trainable}
+        grids = None
+        if region_mode:
+            offs_xyz = tuple(int(clip_off[inv[a]]) for a in range(3))
+            box = tuple(slice(o, o + s) for o, s in zip(offs_xyz, sizes_xyz))
+            boxed = {n: getattr(model, n).detach()[box]
+                     for n in ("density", "k0")}
+            for n in grid_names:
+                boxed[n].requires_grad_(True)
+                leaves[n] = [boxed[n]]
+            grids = (boxed["density"], boxed["k0"], model.mask[box])
+
+        with torch.enable_grad():
+            ret = model.forward_sweep(
+                rays_o, rays_d, viewdirs, axis, clip_sizes=clip_sizes,
+                clip_offsets=clip_off, grids_pre_clipped=region_mode,
+                tile_windows=((v_base, wv) if wv and v_base is not None
+                              else None),
+                grids=grids, **kwargs)
+            mse = torch.mean((ret["rgb_marched"] - target) ** 2)
+            loss = w_main * mse
+            if w_entropy > 0:
+                pout = torch.clamp(ret["alphainv_last"], 1e-6, 1 - 1e-6)
+                entropy = -torch.mean(pout * torch.log(pout)
+                                      + (1 - pout) * torch.log(1 - pout))
+                loss = loss + w_entropy * entropy
+            if w_rgbper > 0:
+                rgbper = torch.sum(
+                    (ret["raw_rgb_cl"] - target.t()[:, :, None]) ** 2, 0)
+                loss = loss + w_rgbper * (
+                    torch.sum(rgbper * ret["weights"].detach()) / n_rand)
+            flat = [p for n in trainable for p in leaves[n]]
+            flat_grads = torch.autograd.grad(loss, flat, allow_unused=True)
+        it = iter(flat_grads)
+        grads = {n: [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(leaves[n], it)] for n in trainable}
+
+        with torch.no_grad():
+            if apply_tv and region_mode:
+                # Boxed sparse TV: the term on a 1-voxel-haloed slice of the
+                # box read from the full grid (edge voxels of the box need
+                # their true neighbours), gated by the batch gradient.
+                sx, sy, sz = model.tv_axis_scales()
+                for name, wn in (("density", w_tv_density), ("k0", w_tv_k0)):
+                    if wn <= 0 or name not in grads:
+                        continue
+                    full = getattr(model, name)
+                    g3 = tuple(int(d) for d in full.shape[:3])
+                    hs = tuple(min(s + 2, g) for s, g in zip(sizes_xyz, g3))
+                    start = tuple(int(np.clip(o - 1, 0, g - h))
+                                  for o, g, h in zip(offs_xyz, g3, hs))
+                    halo = full[tuple(slice(s, s + h)
+                                      for s, h in zip(start, hs))]
+                    tv_h = tv_ops.tv_term(halo, wn / n_rand * sx,
+                                          wn / n_rand * sy, wn / n_rand * sz)
+                    tv_box = tv_h[tuple(slice(o - s, o - s + z) for o, s, z
+                                        in zip(offs_xyz, start, sizes_xyz))]
+                    g = grads[name][0]
+                    grads[name] = [g + torch.where(
+                        g != 0, tv_box, torch.zeros_like(tv_box))]
+            elif apply_tv:
+                if w_tv_density > 0 and "density" in grads:
+                    grads["density"] = [model.density_total_variation_grad(
+                        model.density, grads["density"][0],
+                        w_tv_density / n_rand, tv_dense)]
+                if w_tv_k0 > 0 and "k0" in grads:
+                    grads["k0"] = [model.k0_total_variation_grad(
+                        model.k0, grads["k0"][0], w_tv_k0 / n_rand,
+                        tv_dense)]
+            regions = ({n: (offs_xyz, sizes_xyz) for n in grid_names}
+                       if region_mode else None)
+            optimizer.step(grads, regions=regions)
+            psnr = -10.0 * torch.log10(mse.detach())
+        return loss.detach(), psnr
+
+    return train_step
+
+
+def gather_training_rays(model, cfg, cfg_train, data_dict, render_kwargs):
+    """Assemble the training ray pool (numpy) per the configured sampler."""
+    images = data_dict["images"]
+    HW, Ks, poses = data_dict["HW"], data_dict["Ks"], data_dict["poses"]
+    i_train = data_dict["i_train"]
+    if data_dict["irregular_shape"]:
+        rgb_tr_ori = [np.asarray(images[i], np.float32) for i in i_train]
+    else:
+        rgb_tr_ori = np.asarray(images, np.float32)[i_train]
+    common = dict(train_poses=poses[i_train], HW=HW[i_train], Ks=Ks[i_train],
+                  ndc=cfg.data.ndc, inverse_y=cfg.data.inverse_y,
+                  flip_x=cfg.data.flip_x, flip_y=cfg.data.flip_y)
+    sampler = cfg_train.ray_sampler
+    if sampler == "in_maskcache":
+        out = ray_lib.get_training_rays_in_maskcache_sampling(
+            rgb_tr_ori=rgb_tr_ori, model=model, render_kwargs=render_kwargs,
+            **common)
+        if len(out[0]) == 0:
+            # coarse geometry below mask_cache_thres everywhere (a very
+            # short coarse stage) would starve training
+            print("gather_training_rays: in_maskcache pool empty, "
+                  "falling back to 'flatten'")
+            sampler = "flatten"
+    if sampler == "flatten":
+        out = ray_lib.get_training_rays_flatten(rgb_tr_ori=rgb_tr_ori,
+                                                **common)
+    elif sampler == "random":
+        out = ray_lib.get_training_rays(rgb_tr=rgb_tr_ori, **common)
+    return out
+
+
+def scene_rep_reconstruction(args, cfg, cfg_model, cfg_train, xyz_min,
+                             xyz_max, data_dict, stage,
+                             coarse_ckpt_path=None, device=None):
+    """One optimisation stage; returns the trained model."""
+    device = resolve_device(device)
+    t_stage = time.time()
+    if stage == "fine" and not cfg.fine_model_and_render.get(
+            "use_coarse_geo", True):
+        coarse_ckpt_path = None
+    if abs(cfg_model.world_bound_scale - 1) > 1e-9:
+        xyz_shift = (xyz_max - xyz_min) * (cfg_model.world_bound_scale - 1) / 2
+        xyz_min, xyz_max = xyz_min - xyz_shift, xyz_max + xyz_shift
+    near, far = data_dict["near"], data_dict["far"]
+    poses, i_train = data_dict["poses"], data_dict["i_train"]
+
+    logdir = os.path.join(cfg.basedir, cfg.expname)
+    last_ckpt_path = os.path.join(logdir, f"{stage}_last.tar")
+    if args.no_reload:
+        reload_ckpt_path = None
+    elif getattr(args, "ft_path", ""):
+        reload_ckpt_path = args.ft_path
+    elif os.path.isfile(last_ckpt_path):
+        reload_ckpt_path = last_ckpt_path
+    else:
+        # an interrupted run resumes from its newest i_weights checkpoint
+        reload_ckpt_path = ckpt_lib.newest_numbered_checkpoint(logdir, stage)
+
+    if reload_ckpt_path is None:
+        print(f"scene_rep_reconstruction ({stage}): train from scratch")
+        start = 0
+        model_kwargs = copy.deepcopy(dict(cfg_model))
+        num_voxels = model_kwargs.pop("num_voxels")
+        if len(cfg_train.pg_scale):
+            num_voxels = int(num_voxels / (2 ** len(cfg_train.pg_scale)))
+        model = DirectVoxGO(
+            xyz_min=xyz_min, xyz_max=xyz_max, num_voxels=num_voxels,
+            mask_cache_path=coarse_ckpt_path, device=device,
+            generator=torch.Generator().manual_seed(
+                int(getattr(args, "seed", 777))), **model_kwargs)
+        if not cfg.data.ndc and cfg_model.maskout_near_cam_vox:
+            model.maskout_near_cam_vox(poses[i_train, :3, 3], near)
+        optimizer = create_optimizer_or_freeze_model(model, cfg_train)
+    else:
+        print(f"scene_rep_reconstruction ({stage}): reload from "
+              f"{reload_ckpt_path}")
+        st = ckpt_lib.load_checkpoint_file(reload_ckpt_path)
+        model = ckpt_lib.load_model(DirectVoxGO, reload_ckpt_path,
+                                    device=device)
+        optimizer = create_optimizer_or_freeze_model(model, cfg_train)
+        start = int(st["global_step"])
+        if not args.no_reload_optimizer and st.get("optimizer_state_dict"):
+            convert.opt_state_from_jax(st["optimizer_state_dict"], optimizer)
+        if start >= cfg_train.N_iters:
+            return model     # nothing left to train in this stage
+
+    render_kwargs = {
+        "near": float(near), "far": float(far),
+        "bg": 1 if cfg.data.white_bkgd else 0,
+        "stepsize": cfg_model.stepsize,
+        "inverse_y": cfg.data.inverse_y,
+        "flip_x": cfg.data.flip_x, "flip_y": cfg.data.flip_y,
+    }
+    rgb_tr, rays_o_tr, rays_d_tr, viewdirs_tr, imsz = gather_training_rays(
+        model, cfg, cfg_train, data_dict, render_kwargs)
+
+    # The ray pool lives on the device; a step uploads only its indices.
+    rays_d_np = np.asarray(rays_d_tr).reshape(-1, 3)
+
+    def to_dev(x):
+        return torch.as_tensor(np.ascontiguousarray(
+            np.asarray(x, np.float32).reshape(-1, 3)), device=device)
+
+    pool = {"rgb": to_dev(rgb_tr), "rays_o": to_dev(rays_o_tr),
+            "rays_d": to_dev(rays_d_np), "viewdirs": to_dev(viewdirs_tr)}
+    n_rand = int(cfg_train.N_rand)
+    rng = np.random.default_rng(getattr(args, "seed", 777))
+
+    # Group the pool by each ray's dominant axis so that every batch shares
+    # one sweep axis; the axis of a step is drawn with probability
+    # proportional to its group's size.
+    groups = sweep_ops.dominant_axis(rays_d_np, model.xyz_min, model.xyz_max,
+                                     model.world_size)
+    group_idx = [np.flatnonzero(groups == ax) for ax in range(3)]
+    group_p = np.array([len(g) for g in group_idx], np.float64)
+    group_p = group_p / group_p.sum()
+    print("gather_training_rays: sweep axis groups",
+          [len(g) for g in group_idx])
+    group_gens = []
+    for g in group_idx:
+        if len(g) >= n_rand:
+            gen = ray_lib.batch_indices_generator(len(g), n_rand, rng=rng)
+            group_gens.append(lambda g=g, gen=gen: g[np.asarray(next(gen))])
+        elif len(g) > 0:
+            group_gens.append(
+                lambda g=g: g[rng.integers(0, len(g), n_rand)])
+        else:
+            group_gens.append(None)
+
+    def next_batch():
+        ax = int(rng.choice(3, p=group_p))
+        return group_gens[ax](), ax
+
+    # View-count-based per-voxel lr; voxels seen by at most two views are
+    # switched off.
+    if cfg_train.pervoxel_lr:
+        t0 = time.time()
+        cnt = model.voxel_count_views(
+            rays_o_tr=rays_o_tr, rays_d_tr=rays_d_tr, imsz=imsz,
+            near=near, far=far, stepsize=cfg_model.stepsize,
+            downrate=cfg_train.pervoxel_lr_downrate,
+            irregular_shape=data_dict["irregular_shape"])
+        optimizer.set_pervoxel_lr(cnt)
+        with torch.no_grad():
+            model.density.masked_fill_(cnt <= 2, -100.0)
+        print(f"scene_rep_reconstruction ({stage}): voxel_count_views in "
+              f"{time.time() - t0:.1f} s")
+
+    # Occupancy-bbox sweep clipping: refreshed when the mask changes.
+    clip_plan = {}   # axis -> (sizes or None, offsets int32[3])
+
+    def refresh_clip():
+        bb = grid_ops.mask_bbox_vox_device(model.mask).cpu().numpy()
+        bbox = (bb[0].astype(np.float64), bb[1].astype(np.float64))
+        for ax in range(3):
+            new = model.sweep_clip_for_axis(ax, bbox=bbox)
+            old = clip_plan.get(ax)
+            if old is not None and old[0] is not None \
+                    and new[0] is not None and old[0] != new[0] \
+                    and np.prod(new[0]) > 0.7 * np.prod(old[0]):
+                # Renewals only shrink the mask within a stage: keep the
+                # box shape (offsets refit) unless tightening buys at least
+                # 30% of the sweep volume.
+                kept = model.sweep_clip_for_axis(ax, fixed_sizes=old[0],
+                                                 bbox=bbox)
+                if kept[0] is not None:
+                    new = kept
+            clip_plan[ax] = new
+
+    refresh_clip()
+    pg_set = set(cfg_train.pg_scale)
+
+    def tv_state_of(j):
+        apply_tv = (j < cfg_train.tv_before and j > cfg_train.tv_after
+                    and j % cfg_train.tv_every == 0
+                    and (cfg_train.weight_tv_density > 0
+                         or cfg_train.weight_tv_k0 > 0))
+        return (apply_tv, j < cfg_train.tv_dense_before)
+
+    print(f"scene_rep_reconstruction ({stage}): setup in "
+          f"{time.time() - t_stage:.1f} s")
+    psnr_lst = []
+    train_steps = {}   # (axis, clip sizes) -> step of the current tv state
+    tv_state = None
+    loss = None
+    time0 = time.time()
+    global_step = start
+    while global_step < cfg_train.N_iters:
+        global_step += 1
+        # occupancy renewal
+        if (global_step + 500) % 1000 == 0:
+            model.update_occupancy_cache()
+            refresh_clip()
+
+        # progressive scaling: new grids, a fresh optimizer, density - 1
+        if global_step in pg_set:
+            n_rest_scales = len(cfg_train.pg_scale) \
+                - list(cfg_train.pg_scale).index(global_step) - 1
+            cur_voxels = int(cfg_model.num_voxels / (2 ** n_rest_scales))
+            model.scale_volume_grid(cur_voxels)
+            optimizer = create_optimizer_or_freeze_model(model, cfg_train)
+            with torch.no_grad():
+                model.density.sub_(1.0)
+            train_steps = {}
+            clip_plan.clear()
+            refresh_clip()
+
+        if tv_state != tv_state_of(global_step):
+            tv_state = tv_state_of(global_step)
+            train_steps = {}
+
+        sel, axis = next_batch()
+        clip_sizes, clip_off = clip_plan[axis]
+        key = (axis, clip_sizes)
+        if key not in train_steps:
+            train_steps[key] = make_train_step(
+                model, optimizer, cfg_train, render_kwargs, *tv_state,
+                axis=axis, clip_sizes=clip_sizes)
+        loss, psnr = train_steps[key](
+            pool, torch.as_tensor(sel, device=device), clip_off)
+        psnr_lst.append(psnr)
+
+        if global_step % args.i_print == 0:
+            eps_time = time.time() - time0
+            eps_str = (f"{eps_time//3600:02.0f}:{eps_time//60%60:02.0f}:"
+                       f"{eps_time%60:02.0f}")
+            psnr_avg = float(torch.stack(psnr_lst).mean())
+            print(f"scene_rep_reconstruction ({stage}): iter "
+                  f"{global_step:6d} / Loss: {float(loss):.9f} / "
+                  f"PSNR: {psnr_avg:5.2f} / Eps: {eps_str}")
+            psnr_lst = []
+
+        if global_step % args.i_weights == 0:
+            ckpt_lib.save_model_checkpoint(
+                os.path.join(logdir, f"{stage}_{global_step:06d}.tar"),
+                model, global_step, convert.opt_state_to_jax(optimizer),
+                compact=True)
+
+    ckpt_lib.save_model_checkpoint(
+        last_ckpt_path, model, global_step,
+        convert.opt_state_to_jax(optimizer), compact=True)
+    print(f"scene_rep_reconstruction ({stage}): saved {last_ckpt_path}")
+    return model
+
+
+def train(args, cfg, data_dict, device=None):
+    """Full coarse -> fine pipeline; the checkpoints ``coarse_last.tar`` and
+    ``fine_last.tar`` are on disk when it returns the fine model."""
+    device = resolve_device(device)
+    print("train: start")
+    eps_time = time.time()
+    logdir = os.path.join(cfg.basedir, cfg.expname)
+    os.makedirs(logdir, exist_ok=True)
+    with open(os.path.join(logdir, "args.txt"), "w") as f:
+        for arg in sorted(vars(args)):
+            f.write(f"{arg} = {getattr(args, arg)}\n")
+    cfg.dump(os.path.join(logdir, "config.py"))
+
+    # coarse geometry searching
+    eps_coarse = time.time()
+    xyz_min_coarse, xyz_max_coarse = compute_bbox_by_cam_frustrm(
+        cfg=cfg, **data_dict)
+    if cfg.coarse_train.N_iters > 0:
+        scene_rep_reconstruction(
+            args=args, cfg=cfg, cfg_model=cfg.coarse_model_and_render,
+            cfg_train=cfg.coarse_train, xyz_min=xyz_min_coarse,
+            xyz_max=xyz_max_coarse, data_dict=data_dict, stage="coarse",
+            device=device)
+        print("train: coarse geometry searching in "
+              f"{time.time() - eps_coarse:.1f} s")
+        coarse_ckpt_path = os.path.join(logdir, "coarse_last.tar")
+    else:
+        print("train: skip coarse geometry searching")
+        coarse_ckpt_path = None
+
+    # fine detail reconstruction
+    eps_fine = time.time()
+    if cfg.data.ndc:
+        xyz_min_fine, xyz_max_fine = xyz_min_coarse, xyz_max_coarse
+    elif cfg.fine_model_and_render.get("use_coarse_geo", True) \
+            and coarse_ckpt_path:
+        xyz_min_fine, xyz_max_fine = compute_bbox_by_coarse_geo(
+            model_class=DirectVoxGO, model_path=coarse_ckpt_path,
+            thres=cfg.fine_model_and_render.bbox_thres, device=device)
+    else:
+        xyz_min_fine, xyz_max_fine = xyz_min_coarse, xyz_max_coarse
+    model = scene_rep_reconstruction(
+        args=args, cfg=cfg, cfg_model=cfg.fine_model_and_render,
+        cfg_train=cfg.fine_train, xyz_min=xyz_min_fine,
+        xyz_max=xyz_max_fine, data_dict=data_dict, stage="fine",
+        coarse_ckpt_path=coarse_ckpt_path, device=device)
+    print(f"train: fine detail reconstruction in "
+          f"{time.time() - eps_fine:.1f} s")
+    print(f"train: finish (eps time {time.time() - eps_time:.1f} s)")
+    return model

@@ -20,7 +20,7 @@ import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-KERNELS = ("sweep_fwd", "render_frame")
+KERNELS = ("sweep_fwd", "render_frame", "sweep_bwd")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -73,3 +73,56 @@ def max_pool3d_same(x):
     """3x3x3 max pool, stride 1, 'same' padding on an ``[X, Y, Z]`` grid."""
     return F.max_pool3d(x[None, None], kernel_size=3, stride=1,
                         padding=1)[0, 0]
+
+
+def mask_bbox_vox_device(mask):
+    """:func:`mask_bbox_vox` computed on the mask's device: a [2, 3] f32
+    tensor (lo row, hi row), so only six scalars cross to the host."""
+    lo, hi = [], []
+    any_all = mask.any()
+    for a in range(3):
+        line = mask.any(dim=tuple(x for x in range(3) if x != a))
+        n = line.shape[0]
+        iota = torch.arange(n, dtype=torch.float32, device=mask.device)
+        first = torch.where(line, iota, torch.full_like(iota, float(n))).min()
+        last = torch.where(line, iota, torch.full_like(iota, -1.0)).max()
+        zero = torch.zeros_like(first)
+        lo.append(torch.where(any_all, torch.clamp(first - 1.0, min=0.0),
+                              zero))
+        hi.append(torch.where(any_all, torch.clamp(last + 1.0, max=n - 1.0),
+                              zero + (n - 1.0)))
+    return torch.stack([torch.stack(lo), torch.stack(hi)])
+
+
+def _interp_matrix(n_new, n_old):
+    """[n_new, n_old] linear-interpolation matrix (align-corners), built on
+    the host in numpy."""
+    if n_old == 1:
+        return np.ones((n_new, 1), np.float32)
+    w = np.zeros((n_new, n_old), np.float32)
+    if n_new == 1:
+        w[0, 0] = 1.0
+        return w
+    pos = np.arange(n_new, dtype=np.float64) * ((n_old - 1) / (n_new - 1))
+    lo = np.clip(np.floor(pos).astype(np.int64), 0, n_old - 2)
+    frac = (pos - lo).astype(np.float32)
+    rows = np.arange(n_new)
+    np.add.at(w, (rows, lo), 1.0 - frac)
+    np.add.at(w, (rows, lo + 1), frac)
+    return w
+
+
+def resize_trilinear(grid, new_size):
+    """Trilinear resize (align-corners) of an ``[X, Y, Z(, C)]`` grid to
+    ``new_size`` as three separable f32 matrix products."""
+    squeeze = grid.dim() == 3
+    if squeeze:
+        grid = grid[..., None]
+    nx, ny, nz, _ = grid.shape
+    mx, my, mz = (torch.as_tensor(_interp_matrix(int(n_new), n_old),
+                                  dtype=grid.dtype, device=grid.device)
+                  for n_new, n_old in zip(new_size, (nx, ny, nz)))
+    out = torch.einsum("ax,xyzc->ayzc", mx, grid)
+    out = torch.einsum("by,ayzc->abzc", my, out)
+    out = torch.einsum("cz,abzd->abcd", mz, out)
+    return out[..., 0] if squeeze else out

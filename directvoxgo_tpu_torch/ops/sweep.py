@@ -1,10 +1,11 @@
-"""Station-sweep grid queries (render subset, forward only).
+"""Station-sweep grid queries, forward and backward.
 
 Samples sit on *stations*: planes at axis coordinate ``s/k`` perpendicular
 to a ray batch's dominant axis. A station between two grid slabs is the
 linear blend of the two, so a bilinear tap of a station slab equals a
 trilinear sample of the grid. The taps themselves are kernel K-A
-(:mod:`.sweep_fwd`).
+(:mod:`.sweep_fwd`); their transpose onto the grid, the backward of
+:func:`station_sweep`, is kernel K-C (:mod:`.sweep_bwd`).
 """
 
 from __future__ import annotations
@@ -12,7 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .sweep_fwd import sweep_fwd
+from .sweep_bwd import sweep_bwd
+from .sweep_fwd import TILE_N, sweep_fwd
 
 # Axis permutations: sweep axis first, remaining axes keep original order.
 _PERMS = {0: (0, 1, 2), 1: (1, 0, 2), 2: (2, 0, 1)}
@@ -59,42 +61,128 @@ def rays_to_voxel(rays_o, rays_d, xyz_min, xyz_max, world_size, axis):
     return tuple(o), tuple(d)
 
 
-def station_sweep(slabs, rays_pv, k):
-    """Every station of every ray: contiguous station slabs [S, Gu, Gv, C]
-    (:func:`_station_slabs`) -> (vals [C, N, S] f32 in slab order,
-    t [N, S])."""
+def _pack_rays(rays_pv):
+    """((op, ou, ov), (dp, du, dv)) -> (rays [6, N] with ``dp`` nonzero,
+    op, dp_safe)."""
     (op, ou, ov), (dp, du, dv) = rays_pv
     dp_safe = torch.where(dp == 0, torch.full_like(dp, 1e-10), dp)
-    rays = torch.stack([op, ou, ov, dp_safe, du, dv]).contiguous()
-    vals = sweep_fwd(slabs, rays, k)                     # [S, C, N]
-    s_total = slabs.shape[0]
+    return torch.stack([op, ou, ov, dp_safe, du, dv]).contiguous(), op, \
+        dp_safe
+
+
+def _station_t(op, dp_safe, s_total, k):
     p_stations = torch.arange(s_total, dtype=torch.float32,
                               device=op.device) / k
-    ts = (p_stations[None, :] - op[:, None]) / dp_safe[:, None]
-    return vals.permute(1, 2, 0), ts
+    return (p_stations[None, :] - op[:, None]) / dp_safe[:, None]
 
 
-def sweep_samples(slabs, k, rays_o, rays_d, xyz_min, xyz_max, axis,
-                  world_size, clip_offsets=None):
-    """Density/mask/feature channels at every station of every ray.
+def station_sweep_slabs(slabs, rays_pv, k):
+    """Every station of every ray from prebuilt station slabs (the render
+    path: no gradient). slabs: contiguous [S, Gu, Gv, C]
+    (:func:`_station_slabs`) -> (vals [C, N, S] f32 in slab order,
+    t [N, S])."""
+    rays, op, dp_safe = _pack_rays(rays_pv)
+    vals = sweep_fwd(slabs, rays, k)                     # [S, C, N]
+    return vals.permute(1, 2, 0), _station_t(op, dp_safe, slabs.shape[0], k)
 
-    slabs: [S, Gu, Gv, C] station slabs of the grid's stacked channels
-    permuted for ``axis`` (``_station_slabs(permute_grid(grid, axis), k)``),
-    k stations per voxel. When the sweep is clipped to the occupancy bbox,
-    the slabs cover only the box and ``clip_offsets`` is its start voxel
-    ([3] ints, permuted order); ``world_size`` is the full grid's extents
-    (for the world -> voxel scale).
 
-    Returns dict: vals [C, N, S] (slab order), t [N, S], forward [N] (True
-    where t ascends with the station index), interval [N] (world distance
-    between consecutive stations).
+class _StationSweep(torch.autograd.Function):
+    """K-A forward, K-C backward, over the permuted grid. The backward
+    hands the (1-f)/f split straight to the two grid slabs (it does not
+    differentiate through the rounding of the blended station slab) and
+    returns the cotangent in the grid's dtype; rays and windows get no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, grid_perm, rays, v_base, k, wv):
+        slabs = _station_slabs(grid_perm, k).contiguous()
+        n = rays.shape[1]
+        # The forward kernel wants per-tile starts only; a trailing
+        # batch-level entry (segment convention) is for the backward.
+        fwd_vb = v_base[: -(-n // TILE_N)] if wv else None
+        vals = sweep_fwd(slabs, rays, k, fwd_vb, wv)     # [S, C, N]
+        ctx.save_for_backward(rays, v_base)
+        ctx.sweep = (tuple(grid_perm.shape), grid_perm.dtype, k, wv)
+        return vals.permute(1, 2, 0)
+
+    @staticmethod
+    def backward(ctx, g_vals):
+        rays, v_base = ctx.saved_tensors
+        shape, dtype, k, wv = ctx.sweep
+        # One layout for the kernel: [S, C, N] contiguous, as K-A writes
+        # (a copy of the cotangent whatever strides autograd gave it).
+        g = g_vals.permute(2, 0, 1).contiguous()
+        d_grid = sweep_bwd(g, rays, k, shape, dtype, v_base, wv)
+        return d_grid, None, None, None, None
+
+
+def station_sweep(grid_perm, rays_pv, k, v_base=None, wv=0):
+    """Sample every station along each ray, differentiably in the grid.
+
+    grid_perm: [Gp, Gu, Gv, C] permuted grid slabs (:func:`permute_grid`)
+    in the sweep's interp dtype. ``v_base``/``wv``: per-ray-tile v-windows
+    ([N // TILE_N] int32 starts; one more entry, the batch's window, in the
+    segment convention) - exact when every ray of a tile keeps its v
+    support inside the tile's window. Returns (vals [C, N, S] f32 in slab
+    order, t [N, S] (no gradient))."""
+    rays, op, dp_safe = _pack_rays(rays_pv)
+    if v_base is None or not wv:
+        v_base, wv = torch.zeros(0, dtype=torch.int32, device=rays.device), 0
+    vals = _StationSweep.apply(grid_perm, rays.detach(), v_base, int(k),
+                               int(wv))
+    s_total = k * (grid_perm.shape[0] - 1) + 1
+    return vals, _station_t(op, dp_safe, s_total, k).detach()
+
+
+def sweep_samples(grid, rays_o, rays_d, xyz_min, xyz_max, axis, k,
+                  interp_dtype=torch.bfloat16, clip_sizes=None,
+                  clip_offsets=None, pre_clipped=False, world_size=None,
+                  tile_windows=None, slabs=None):
+    """Density/mask/feature channels at every station of every ray, in slab
+    order (the caller composites bidirectionally).
+
+    grid: [Gx, Gy, Gz, C] channels-last stacked grids (density, mask as
+    float, colour features), differentiable; ``k`` stations per voxel.
+    ``clip_sizes`` ((p, u, v) extents, permuted order) and ``clip_offsets``
+    ([3] ints) restrict the sweep to the occupancy box: samples outside it
+    read zero, exact because the box bounds everything with interpolated
+    mask > 0. ``pre_clipped``: ``grid`` is already the box (gradients stay
+    box-sized); ``world_size`` is then the full grid's extents, for the
+    world -> voxel scale. ``tile_windows`` (v_base, wv): per-ray-tile
+    v-windows, only for unclipped sweeps whose ray count tiles.
+    ``slabs``: prebuilt station slabs of the (clipped) grid - the render
+    path's cache; no gradient flows and ``grid`` is not read.
+
+    Returns dict: vals [C, N, S], t [N, S], forward [N] (True where t
+    ascends with the station index), interval [N] (world distance between
+    consecutive stations).
     """
+    if world_size is None:
+        world_size = grid.shape[:3]
     o_pv, d_pv = rays_to_voxel(rays_o, rays_d, xyz_min, xyz_max,
                                world_size, axis)
-    if clip_offsets is not None:
-        o_pv = tuple(o - float(off)
-                     for o, off in zip(o_pv, np.asarray(clip_offsets)))
-    vals, t = station_sweep(slabs, (o_pv, d_pv), k)
+    if clip_sizes is not None:
+        offs = [int(v) for v in np.asarray(clip_offsets)]
+        if slabs is None and not pre_clipped:
+            inv = {ax: i for i, ax in enumerate(_PERMS[axis])}
+            grid = grid[tuple(slice(offs[inv[a]], offs[inv[a]]
+                                    + int(clip_sizes[inv[a]]))
+                              for a in range(3))]
+        o_pv = tuple(o - float(off) for o, off in zip(o_pv, offs))
+    if slabs is not None:
+        vals, t = station_sweep_slabs(slabs, (o_pv, d_pv), k)
+    else:
+        grid_perm = permute_grid(grid, axis, dtype=interp_dtype)
+        v_base, wv = None, 0
+        if tile_windows is not None and clip_sizes is None:
+            v_base, wv = tile_windows
+            wv = int(wv)
+            n = rays_o.shape[0]
+            if (wv >= grid_perm.shape[2] or n % TILE_N
+                    or v_base.shape[0] not in (n // TILE_N,
+                                               n // TILE_N + 1)):
+                v_base, wv = None, 0
+        vals, t = station_sweep(grid_perm, (o_pv, d_pv), k, v_base, wv)
     forward = d_pv[0] >= 0
     d_norm = torch.sqrt(torch.sum(rays_d * rays_d, -1))
     interval = d_norm / (k * torch.clamp(d_pv[0].abs(), min=1e-10))

@@ -2,8 +2,10 @@
 
 ``sweep_fwd(slabs, rays, k)`` samples every station slab along every ray:
 ``out[s, c, n] = sum_v wv * sum_u wu * slab[s, u, v, c]`` with hat weights
-at ``(u, v) = (ou, ov) + t*(du, dv)``, ``t = (s/k - op)/dp``. On a CUDA
-tensor it launches the kernel (or raises); on a CPU tensor it runs
+at ``(u, v) = (ou, ov) + t*(du, dv)``, ``t = (s/k - op)/dp``. With
+``v_base``/``wv`` ray ``n`` of tile ``n // TILE_N`` reads only the v-window
+``[v_base[tile], v_base[tile] + wv)`` of every slab. On a CUDA tensor it
+launches the kernel (or raises); on a CPU tensor it runs
 :func:`sweep_fwd_plain`, the same arithmetic in plain PyTorch.
 """
 
@@ -16,14 +18,18 @@ import torch
 from . import _build
 
 launches = 0
+launches_windowed = 0   # those of ``launches`` that took a v-window
+
+# Ray-tile width of the per-tile v-windows.
+TILE_N = 512
 
 
 def _lib():
     """The kernel library, with every C function's signature declared."""
     lib = _build.load("sweep_fwd")
     lib.dvgo_sweep_fwd.argtypes = ([ctypes.c_void_p, ctypes.c_int]
-                                   + [ctypes.c_void_p] * 2
-                                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+                                   + [ctypes.c_void_p] * 3
+                                   + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     lib.dvgo_sweep_fwd.restype = ctypes.c_int
     lib.dvgo_sweep_fwd_max_channels.argtypes = []
     lib.dvgo_sweep_fwd_max_channels.restype = ctypes.c_int
@@ -32,36 +38,73 @@ def _lib():
     return lib
 
 
-def sweep_fwd_plain(slabs, rays, k):
+def station_uv(rays, s, k):
+    """(u, v) [N] of every ray at station ``s`` as the kernels compute
+    them: ``t`` by one division, then one fused multiply-add each."""
+    op, ou, ov, dp, du, dv = rays
+    t = (torch.tensor(s, dtype=torch.float32) / k - op) / dp
+    u = (t.double() * du.double() + ou.double()).float()
+    v = (t.double() * dv.double() + ov.double()).float()
+    return u, v
+
+
+def window_rows(v_base, wv, n, gv, device, segment=False):
+    """[N, Gv] bool: the v columns each ray's window ``[vb, vb + wv)``
+    covers (``segment``: every ray takes the last entry of ``v_base``)."""
+    if segment:
+        vb = v_base[-1:].expand(n)
+    else:
+        vb = v_base[torch.arange(n, device=device) // TILE_N]
+    iota = torch.arange(gv, device=device)
+    return (iota >= vb[:, None]) & (iota < vb[:, None] + wv)
+
+
+def sweep_fwd_plain(slabs, rays, k, v_base=None, wv=0):
     """Plain version: per station, dense hat rows ``wu [N, Gu]`` (rounded to
-    the slab dtype) times the slab in f32, then the f32 ``wv`` reduction."""
+    the slab dtype) times the slab in f32, then the f32 ``wv`` reduction
+    (over the ray tile's v-window only when ``wv > 0``)."""
     s_total, gu, gv, c = slabs.shape
     n = rays.shape[1]
-    op, ou, ov, dp, du, dv = rays
     iota_u = torch.arange(gu, dtype=torch.float32, device=rays.device)
     iota_v = torch.arange(gv, dtype=torch.float32, device=rays.device)
+    win = window_rows(v_base, wv, n, gv, rays.device) if wv else None
     out = torch.empty((s_total, c, n), dtype=torch.float32,
                       device=rays.device)
     for s in range(s_total):
-        t = (torch.tensor(s, dtype=torch.float32) / k - op) / dp
-        # (u, v) as fused multiply-adds (one f32 rounding), as the kernel
-        u = (t.double() * du.double() + ou.double()).float()
-        v = (t.double() * dv.double() + ov.double()).float()
+        u, v = station_uv(rays, s, k)
         wu = torch.clamp(1.0 - (u[:, None] - iota_u).abs(), min=0.0)
         wu = wu.to(slabs.dtype).float()
-        wv = torch.clamp(1.0 - (v[:, None] - iota_v).abs(), min=0.0)
+        w_v = torch.clamp(1.0 - (v[:, None] - iota_v).abs(), min=0.0)
+        if win is not None:
+            w_v = torch.where(win, w_v, torch.zeros_like(w_v))
         tmp = wu @ slabs[s].reshape(gu, gv * c).float()
-        out[s] = torch.einsum("nvc,nv->cn", tmp.reshape(n, gv, c), wv)
+        out[s] = torch.einsum("nvc,nv->cn", tmp.reshape(n, gv, c), w_v)
     return out
 
 
-def sweep_fwd(slabs, rays, k):
+def check_window(name, v_base, wv, n, device, entries):
+    """Validate a v-window argument pair; ``entries``: allowed lengths."""
+    if wv < 1 or v_base is None:
+        raise ValueError(f"{name}: a window needs v_base and wv >= 1")
+    if (v_base.dtype != torch.int32 or v_base.dim() != 1
+            or v_base.device != device or not v_base.is_contiguous()
+            or v_base.shape[0] not in entries):
+        raise ValueError(f"{name}: v_base must be a contiguous int32 vector "
+                         f"of length in {sorted(entries)} on {device}")
+
+
+def sweep_fwd(slabs, rays, k, v_base=None, wv=0):
     """slabs [S, Gu, Gv, C] bf16 or f32 station slabs (channel-minor);
     rays [6, N] f32 rows (op, ou, ov, dp, du, dv), ``dp`` already nonzero;
-    k stations per voxel. Returns [S, C, N] f32."""
-    global launches
+    k stations per voxel; optional ``v_base`` [ceil(N / TILE_N)] int32
+    window starts with width ``wv``. Returns [S, C, N] f32."""
+    global launches, launches_windowed
+    wv = int(wv)
+    if wv:
+        check_window("sweep_fwd", v_base, wv, rays.shape[1], rays.device,
+                     {-(-rays.shape[1] // TILE_N)})
     if slabs.device.type == "cpu" and rays.device.type == "cpu":
-        return sweep_fwd_plain(slabs, rays, k)
+        return sweep_fwd_plain(slabs, rays, k, v_base, wv)
     if not (slabs.is_cuda and rays.device == slabs.device):
         raise ValueError("sweep_fwd: slabs and rays must be on one CUDA "
                          "device")
@@ -83,10 +126,12 @@ def sweep_fwd(slabs, rays, k):
                       device=slabs.device)
     err = lib.dvgo_sweep_fwd(
         slabs.data_ptr(), int(slabs.dtype == torch.bfloat16),
-        rays.data_ptr(), out.data_ptr(), n, s_total, gu, gv, c, int(k),
+        rays.data_ptr(), v_base.data_ptr() if wv else None, out.data_ptr(),
+        n, s_total, gu, gv, c, int(k), wv, TILE_N,
         torch.cuda.current_stream(slabs.device).cuda_stream)
     if err:
         raise RuntimeError("sweep_fwd launch failed: "
                            + lib.dvgo_error_string(err).decode())
     launches += 1
+    launches_windowed += bool(wv)
     return out

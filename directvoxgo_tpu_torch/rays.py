@@ -1,4 +1,4 @@
-"""Camera-to-ray generation (numpy, host-side; reference lib/ray_utils.py)."""
+"""Camera-to-ray generation and the training ray pools (numpy, host-side)."""
 
 from __future__ import annotations
 
@@ -65,3 +65,89 @@ def get_rays_of_a_view(H, W, K, c2w, ndc, inverse_y, flip_x, flip_y,
         rays_o, rays_d = ndc_rays(H, W, K[0][0], 1.0, rays_o, rays_d)
     return (rays_o.astype(np.float32), rays_d.astype(np.float32),
             viewdirs.astype(np.float32))
+
+
+def get_training_rays(rgb_tr, train_poses, HW, Ks, ndc, inverse_y,
+                      flip_x, flip_y):
+    """Per-image ray arrays [n_img, H, W, 3] (all images one size)."""
+    assert len(np.unique(HW, axis=0)) == 1
+    assert len(np.unique(np.asarray(Ks).reshape(len(Ks), -1), axis=0)) == 1
+    H, W = HW[0]
+    K = Ks[0]
+    n = len(rgb_tr)
+    rays_o_tr = np.zeros([n, H, W, 3], np.float32)
+    rays_d_tr = np.zeros([n, H, W, 3], np.float32)
+    viewdirs_tr = np.zeros([n, H, W, 3], np.float32)
+    for i, c2w in enumerate(train_poses):
+        rays_o_tr[i], rays_d_tr[i], viewdirs_tr[i] = get_rays_of_a_view(
+            H, W, K, c2w, ndc, inverse_y, flip_x, flip_y)
+    imsz = [1] * n
+    return rgb_tr, rays_o_tr, rays_d_tr, viewdirs_tr, imsz
+
+
+def get_training_rays_flatten(rgb_tr_ori, train_poses, HW, Ks, ndc, inverse_y,
+                              flip_x, flip_y):
+    """Every image's rays concatenated into flat [N, 3] pools (image sizes
+    may differ)."""
+    chunks_rgb, chunks_o, chunks_d, chunks_v, imsz = [], [], [], [], []
+    for c2w, img, (H, W), K in zip(train_poses, rgb_tr_ori, HW, Ks):
+        assert img.shape[:2] == (H, W)
+        rays_o, rays_d, viewdirs = get_rays_of_a_view(
+            H, W, K, c2w, ndc, inverse_y, flip_x, flip_y)
+        chunks_rgb.append(np.asarray(img, np.float32).reshape(-1, 3))
+        chunks_o.append(rays_o.reshape(-1, 3))
+        chunks_d.append(rays_d.reshape(-1, 3))
+        chunks_v.append(viewdirs.reshape(-1, 3))
+        imsz.append(H * W)
+    return (np.concatenate(chunks_rgb), np.concatenate(chunks_o),
+            np.concatenate(chunks_d), np.concatenate(chunks_v), imsz)
+
+
+def get_training_rays_in_maskcache_sampling(rgb_tr_ori, train_poses, HW, Ks,
+                                            ndc, inverse_y, flip_x, flip_y,
+                                            model, render_kwargs):
+    """Training rays pre-filtered to those that hit the coarse geometry:
+    per image, ``model.hit_coarse_geo_view`` (rays generated on the device)
+    or, for NDC cameras, ``model.hit_coarse_geo`` on the host rays; the
+    dynamic-length compaction happens here on the host."""
+    device_view = not ndc
+    rk = {k: v for k, v in render_kwargs.items()
+          if k not in ("inverse_y", "flip_x", "flip_y")}
+    chunks_rgb, chunks_o, chunks_d, chunks_v, imsz = [], [], [], [], []
+    total = kept = 0
+    for c2w, img, (H, W), K in zip(train_poses, rgb_tr_ori, HW, Ks):
+        assert img.shape[:2] == (H, W)
+        rays_o, rays_d, viewdirs = get_rays_of_a_view(
+            H, W, K, c2w, ndc, inverse_y, flip_x, flip_y)
+        if device_view:
+            hit = model.hit_coarse_geo_view(
+                H, W, K, c2w, inverse_y=inverse_y, flip_x=flip_x,
+                flip_y=flip_y, **rk).cpu().numpy()
+        else:
+            hit = model.hit_coarse_geo(rays_o=rays_o.reshape(-1, 3),
+                                       rays_d=rays_d.reshape(-1, 3), **rk)
+        mask = np.asarray(hit, bool).reshape(H, W)
+        n = int(mask.sum())
+        chunks_rgb.append(np.asarray(img, np.float32)[mask])
+        chunks_o.append(rays_o[mask])
+        chunks_d.append(rays_d[mask])
+        chunks_v.append(viewdirs[mask])
+        imsz.append(n)
+        total += H * W
+        kept += n
+    print("get_training_rays_in_maskcache_sampling: ratio",
+          kept / max(total, 1))
+    return (np.concatenate(chunks_rgb), np.concatenate(chunks_o),
+            np.concatenate(chunks_d), np.concatenate(chunks_v), imsz)
+
+
+def batch_indices_generator(N, BS, rng=None):
+    """Infinite shuffled index batches: a fresh permutation whenever fewer
+    than ``BS`` indices remain."""
+    rng = rng or np.random
+    idx, top = rng.permutation(N), 0
+    while True:
+        if top + BS > N:
+            idx, top = rng.permutation(N), 0
+        yield idx[top:top + BS]
+        top += BS

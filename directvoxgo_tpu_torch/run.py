@@ -1,10 +1,15 @@
-"""Experiment driver of the port: renders a trained checkpoint.
+"""Command line of the port: trains a scene coarse then fine and
+renders the result, or renders a trained checkpoint.
 
-Takes the same flags as the JAX package's ``run.py``; the rendering flags
-(``--render_only`` with ``--render_test``, ``--render_train``,
-``--render_video``, ``--eval_ssim``, ``--ft_path``) work, the rest raise
+Takes the same flags as the JAX package's ``run.py``. Training
+(``--no_reload``, ``--no_reload_optimizer``, ``--ft_path``, ``--i_print``,
+``--i_weights``, ``--seed``) and rendering (``--render_only``,
+``--render_test``, ``--render_train``, ``--render_video``, ``--eval_ssim``)
+work; the export, LPIPS, profiling and ``--data_parallel`` flags raise
 until their slice is ported. Usage::
 
+  python -m directvoxgo_tpu_torch.run \\
+      --config configs/synthetic/fixture_lego_sparse.py --render_test
   python -m directvoxgo_tpu_torch.run --config configs/nerf/lego.py \\
       --render_only --render_test [--ft_path ckpt.tar] [--device cuda]
 """
@@ -23,10 +28,20 @@ from .data import load_everything
 from .device import resolve_device
 from .engine import checkpoint as ckpt_lib
 from .engine import metrics as metrics_lib
+from .engine import train as train_lib
 from .engine.render import render_viewpoints, write_png
 from .models.dvgo import DirectVoxGO
 
-_NOT_PORTED = "is not ported yet (ROADMAP queue A)"
+# flag -> the ROADMAP item that ports it
+_NOT_PORTED = {
+    "export_bbox_and_cams_only": "ROADMAP A7: export flags",
+    "export_coarse_only": "ROADMAP A7: export flags",
+    "export_fine_only": "ROADMAP A7: export flags",
+    "eval_lpips_alex": "ROADMAP A1: gated LPIPS",
+    "eval_lpips_vgg": "ROADMAP A1: gated LPIPS",
+    "data_parallel": "ROADMAP A13: parallel",
+    "profile_dir": "ROADMAP A7: profiler trace of training",
+}
 
 
 def config_parser():
@@ -60,22 +75,20 @@ def config_parser():
     parser.add_argument('--profile_dir', type=str, default='',
                         help='capture a profiler trace of training')
     parser.add_argument('--device', type=str, default=None,
-                        help='torch device (default: cuda; "cpu" renders '
-                             'with the kernels\' plain versions)')
+                        help='torch device (default: cuda; "cpu" runs the '
+                             'kernels\' plain versions)')
     return parser
 
 
 def _check_supported(args, cfg):
-    if not args.render_only:
-        raise NotImplementedError(f"training {_NOT_PORTED}; pass "
-                                  "--render_only with a checkpoint")
-    for flag in ("export_bbox_and_cams_only", "export_coarse_only",
-                 "export_fine_only", "eval_lpips_alex", "eval_lpips_vgg",
-                 "data_parallel"):
+    for flag, item in _NOT_PORTED.items():
         if getattr(args, flag):
-            raise NotImplementedError(f"--{flag} {_NOT_PORTED}")
+            raise NotImplementedError(
+                f"--{flag} is not ported yet ({item})")
     if cfg.data.ndc:
-        raise NotImplementedError(f"ndc configs (DMPIGO) {_NOT_PORTED}")
+        raise NotImplementedError(
+            "ndc configs (DMPIGO) are not ported yet (ROADMAP A9: DMPIGO "
+            "and NDC)")
 
 
 def _write_frames(savedir, rgbs, depths):
@@ -102,8 +115,15 @@ def main(argv=None):
     torch.manual_seed(args.seed)
 
     data_dict = load_everything(args=args, cfg=cfg)
-    ckpt_path = args.ft_path or os.path.join(cfg.basedir, cfg.expname,
-                                             'fine_last.tar')
+    if not args.render_only:
+        train_lib.train(args, cfg, data_dict, device=device)
+    if not (args.render_test or args.render_train or args.render_video):
+        print('Done')
+        return
+    if args.ft_path and args.render_only:
+        ckpt_path = args.ft_path
+    else:
+        ckpt_path = os.path.join(cfg.basedir, cfg.expname, 'fine_last.tar')
     ckpt_name = os.path.basename(ckpt_path)[:-4]
     model = ckpt_lib.load_model(DirectVoxGO, ckpt_path, device=device)
     common = {

@@ -5,7 +5,9 @@ K-B (``directvoxgo_tpu_torch.ops.render_frame``) replaces the fused frame
 kernels ``render_frame_pallas4`` and ``render_frame_pallas3``; K-A
 (``directvoxgo_tpu_torch.ops.sweep_fwd``) replaces the full-Gv form of
 ``sweep_fwd_pallas``. Inputs are made once with numpy from a seed and
-handed to both packages in each one's layout.
+handed to both packages in each one's layout. K-A's windowed form and K-C
+(the sweep's backward) are held against JAX in ``test_torch_sweep_bwd.py``;
+the signature test here covers all three sources.
 """
 
 import numpy as np
@@ -18,6 +20,7 @@ from directvoxgo_tpu.ops import sweep as jax_sweep
 from directvoxgo_tpu.ops.pallas_render3 import render_frame_pallas3
 from directvoxgo_tpu.ops.pallas_render4 import render_frame_pallas4
 from directvoxgo_tpu_torch.ops import render_frame as kb
+from directvoxgo_tpu_torch.ops import sweep_bwd as kc
 from directvoxgo_tpu_torch.ops import sweep_fwd as ka
 from directvoxgo_tpu_torch.ops import sweep as torch_sweep
 
@@ -259,7 +262,7 @@ def test_kernel_signatures_match_their_c_prototypes(monkeypatch):
         return lib
 
     monkeypatch.setattr(_build, "load", fake_load)
-    for mod in (ka, kb):
+    for mod in (ka, kb, kc):
         lib = mod._lib()
         for fn, params in lib.prototypes.items():
             n = len([p for p in params.split(",") if p.strip()])

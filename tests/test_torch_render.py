@@ -112,9 +112,10 @@ def test_forward_sweep_matches_jax_f32(mode):
                           jnp.asarray(rd), jnp.asarray(vd), axis,
                           clip_sizes=clip_sizes,
                           clip_offsets=jnp.asarray(clip_off), **kw)
-    rt = tm.forward_sweep(torch.tensor(ro), torch.tensor(rd),
-                          torch.tensor(vd), axis, clip_sizes=t_sizes,
-                          clip_offsets=t_off, **kw)
+    with torch.no_grad():
+        rt = tm.forward_sweep(torch.tensor(ro), torch.tensor(rd),
+                              torch.tensor(vd), axis, clip_sizes=t_sizes,
+                              clip_offsets=t_off, **kw)
     rgb_j = np.asarray(rj["rgb_marched"])
     assert np.abs(rgb_j - 1.0).max() > 0.1        # rays hit the blob
     assert np.abs(rt["rgb_marched"].numpy() - rgb_j).max() < 2e-5
