@@ -7,8 +7,9 @@ Phases, each of which fails the run:
   0. build every CUDA kernel from csrc/ (one nvcc per source, all at once);
   1. hold each kernel against its plain PyTorch version on the card, at a
      small shape here (the sweep's backward in its full, segment and
-     per-tile windowed forms) and at the main paths' full shapes after
-     phases 3 and 5;
+     per-tile windowed forms; the fused train step in both colour modes,
+     both march directions, full and windowed) and at the main paths' full
+     shapes after phases 3, 5 and 6;
   2. build a full-width lego fine checkpoint (160^3 grid, k0 12, MLP
      39->128->128->3) from the fixture teacher density and seeded random
      colour weights, and save it in the checkpoint format;
@@ -32,7 +33,16 @@ Phases, each of which fails the run:
      windows yet); then the sweep's forward and backward, each against its
      plain version and timed, on the inputs of the last call of every form
      the training run launched (a coarse step's, a fine step's, a counted
-     view's of the per-voxel lr).
+     view's of the per-voxel lr);
+  6. with ``DVGO_FUSED_TRAIN=1``, train the fine stage again from phase 5's
+     coarse checkpoint, same schedule and width, through the fused step
+     (kernels K-D and K-E, drawn as same-class ray tiles), and check that
+     both kernels ran once per fused step, that at least half of the fine
+     steps were fused, and that the trained model's test PSNR beats a white
+     frame's by 3 dB; print the tile classes, the remainder's share of rays,
+     the fused step's time beside phase 5's unfused one and the gated
+     samples per step; then both kernels against their plain versions, and
+     timed, on the inputs of the last fused step.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line (one
 entry per kernel and form, each with the launches of the path it belongs
@@ -397,6 +407,172 @@ def small_train_kernel_checks(torch, dev, ka, kc, sweep_ops):
     return errs
 
 
+# ------------------------------------------ phase 1: the fused train step
+
+# Kernel against plain version, as shares of each tensor's largest entry.
+# Values that do not pass through the colour MLP (alphainv_last, the density
+# cotangent's dependence on T) agree to f32 rounding of sums taken in another
+# order. The MLP's hidden activations are rounded to bf16 in both versions:
+# where the two f32 sums (tensor-core tiles here, an f32 matrix product
+# there) land on either side of a rounding boundary, one activation moves by
+# 2^-8 of itself, which a single sample's colour and cotangents show. Such
+# flips are rare, so the mean error stays at f32 level while the largest
+# error may reach the first bound.
+FUSED_TOL_MAX = 5e-3     # largest error of an MLP-path tensor
+FUSED_TOL_MEAN = 5e-5    # mean error of any tensor
+FUSED_TOL_EXACT = 2e-5   # largest error off the MLP path (alphainv_last)
+
+
+def small_fused_case(torch, dev, direct, desc, width, windowed,
+                     dead_tile=False):
+    """Seeded inputs of the fused kernels on a 12 x 24 x 20 box at k = 2:
+    three 512-ray tiles, each aimed at its own spot of the plane (the last
+    one missing the box altogether with ``dead_tile``)."""
+    from directvoxgo_tpu_torch.ops import train_fused as tf
+    g = torch.Generator(device="cpu").manual_seed(SEED + 5)
+    gp, gu, gv, k, nt, n_tiles = 12, 24, 20, 2, 512, 3
+    n = nt * n_tiles
+    k0_dim = 12
+    fdim = k0_dim if direct else k0_dim - 3
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g)
+
+    dens = torch.randn((gp, gu, gv), generator=g) * 3.0
+    k0 = torch.randn((gp, gu, gv, k0_dim), generator=g)
+    mask = (rand(gp, gu, gv) < 0.8).float()
+    rays = torch.zeros((16, n))
+    sg = -1.0 if desc else 1.0
+    for j in range(n_tiles):
+        sl = slice(j * nt, (j + 1) * nt)
+        cu, cv = 5.0 + 6.0 * j, 4.0 + 5.0 * j
+        dp = sg * (rand(nt) * 0.8 + 0.6)
+        op = (gp + 2.0 + rand(nt) * 2) if desc else (-3.0 - rand(nt) * 2)
+        du = torch.randn(nt, generator=g) * 0.12 * dp.abs()
+        dv = torch.randn(nt, generator=g) * 0.12 * dp.abs()
+        tm = ((gp - 1) / 2 - op) / dp
+        t_a, t_b = (0.8 - op) / dp, (gp - 1.6 - op) / dp
+        tlo, thi = torch.minimum(t_a, t_b), torch.maximum(t_a, t_b)
+        miss = rand(nt) < (1.0 if dead_tile and j == n_tiles - 1 else 0.05)
+        rays[0, sl], rays[3, sl], rays[4, sl], rays[5, sl] = op, dp, du, dv
+        rays[1, sl] = cu + torch.randn(nt, generator=g) * 1.5 - tm * du
+        rays[2, sl] = cv + torch.randn(nt, generator=g) * 1.5 - tm * dv
+        rays[6, sl], rays[7, sl] = tlo, torch.where(miss, tlo - 0.1, thi)
+        rays[8, sl] = rand(nt) * 0.7 + 0.3
+        rays[9:12, sl] = rand(3, nt)
+    dims = [fdim, width, width, 3]
+    ws = [(rand(dims[i], dims[i + 1]) * 2 - 1) / dims[i] ** 0.5
+          for i in range(3)]
+    cfg = tf.FusedCfg(k=k, f=fdim, width=width, act_shift=-4.0, thres=1e-4,
+                      bg=1.0, direct=direct, wu=16 if windowed else 0,
+                      wv=16 if windowed else 0)
+    slabs = tf.build_slabs(dens.to(dev), k0.to(dev), mask.to(dev), k)
+    rays = rays.to(dev).contiguous()
+    uvb = None
+    gu_p, gv_p, wu_e, wv_e, win = tf._window_plan(cfg, gu, gv)
+    if win:
+        s_pad, p0, pstep = tf.march_scalars(slabs.shape[0], k, cfg.s_blk,
+                                            desc)
+        uvb, _ = tf.blocktile_uv_bases(rays, p0, pstep, s_pad // cfg.s_blk,
+                                       cfg.s_blk, gu_p, gv_p, wu_e, wv_e,
+                                       cfg.nt)
+    bf = torch.bfloat16
+    cot = torch.cat([torch.randn((3, n), generator=g),
+                     torch.randn((1, n), generator=g),
+                     rand(1, n) * 0.1, torch.zeros((3, n))])
+    return dict(
+        slabs=slabs, rays16=rays,
+        sh1_t=(torch.randn((width, n), generator=g) * 0.5).to(dev),
+        w1a=ws[0].to(bf).to(dev), w2=ws[1].to(bf).to(dev),
+        b2=(rand(width) * 0.2 - 0.1).to(dev), w3=ws[2].to(bf).to(dev),
+        b3=(rand(3) * 0.2 - 0.1).to(dev), desc=desc, uvb=uvb, cfg=cfg, gp=gp,
+        cot=cot.to(dev).contiguous())
+
+
+def _share(torch, got, ref):
+    """(largest, mean) |got - ref| as shares of ref's largest entry."""
+    scale = float(ref.abs().max())
+    diff = (got - ref).abs()
+    if scale == 0.0:
+        return float(diff.max()), float(diff.mean()), scale
+    return float(diff.max()) / scale, float(diff.mean()) / scale, scale
+
+
+def check_fused(tf, case, what):
+    """K-D and K-E against their plain versions on ``case``. Returns the
+    largest absolute error of K-D's pack and of K-E's outputs."""
+    import torch
+    names = ("slabs", "rays16", "sh1_t", "w1a", "w2", "b2", "w3", "b3",
+             "desc", "uvb")
+    args = [case[k] for k in names]
+    cfg, gp = case["cfg"], case["gp"]
+    pack = tf.train_fwd(*args, cfg=cfg)
+    torch.cuda.synchronize()
+    ref = tf.train_fwd_plain(*args, cfg=cfg)
+    rows = {"rgb": slice(0, 3), "alphainv_last": slice(3, 4),
+            "rgbper_sum": slice(4, 5)}
+    msgs, ok = [], bool(torch.isfinite(pack).all())
+    for name, sl in rows.items():
+        mx, mean, scale = _share(torch, pack[sl], ref[sl])
+        tol = FUSED_TOL_EXACT if name == "alphainv_last" else FUSED_TOL_MAX
+        ok = ok and mx <= tol and mean <= FUSED_TOL_MEAN and scale > 0
+        msgs.append(f"{name} {mx:.2e}/{mean:.2e}")
+    ok = ok and not bool(pack[5:].any())
+    err_fwd = float((pack - ref).abs().max())
+    log(f"[phase 1] K-D train_fwd {what}: slabs {tuple(case['slabs'].shape)}"
+        f" N={pack.shape[1]} W={cfg.width} max/mean |kernel-plain| as a "
+        f"share of the largest entry: {', '.join(msgs)}")
+    if not ok:
+        raise AssertionError(f"K-D {what}: {msgs}")
+
+    # K-E takes alphainv_last from the forward it follows.
+    cot = case["cot"].clone()
+    cot[5] = pack[3]
+    b_args = args[:2] + [cot] + args[2:]
+    outs = tf.train_bwd(*b_args, cfg=cfg, gp=gp)
+    torch.cuda.synchronize()
+    refs = tf.train_bwd_plain(*b_args, cfg=cfg, gp=gp)
+    onames = ("d_density", "d_k0", "d_sh1", "d_w1a", "d_w2", "d_b2", "d_w3",
+              "d_b3")
+    msgs, ok, err_bwd = [], True, 0.0
+    for name, got, want in zip(onames, outs, refs):
+        mx, mean, scale = _share(torch, got, want)
+        ok = ok and bool(torch.isfinite(got).all()) and scale > 0 \
+            and mx <= FUSED_TOL_MAX and mean <= FUSED_TOL_MEAN
+        err_bwd = max(err_bwd, float((got - want).abs().max()))
+        msg = f"{name} {mx:.2e}/{mean:.2e}"
+        if name in ("d_density", "d_k0"):
+            differ = int(((got == 0) != (want == 0)).sum())
+            ok = ok and differ == 0
+            msg += f" (zero pattern differs at {differ} of " \
+                   f"{int((want != 0).sum())} nonzeros)"
+        msgs.append(msg)
+    log(f"[phase 1] K-E train_bwd {what}: {', '.join(msgs)}")
+    if not ok:
+        raise AssertionError(f"K-E {what}: {msgs}")
+    return err_fwd, err_bwd
+
+
+def small_fused_checks(torch, dev, tf):
+    """Both rgb modes, both march directions, full and windowed, and a
+    batch whose last tile misses the box (every cell of it inactive)."""
+    errs = {"train_fwd": 0.0, "train_bwd": 0.0}
+    for direct, width in ((True, 128), (False, 64), (True, 32)):
+        for desc in (False, True):
+            for windowed in (False, True):
+                dead = windowed and desc
+                case = small_fused_case(torch, dev, direct, desc, width,
+                                        windowed, dead_tile=dead)
+                e_f, e_b = check_fused(
+                    tf, case, f"small {'direct' if direct else 'logit+k0'} "
+                    f"W={width} {'desc' if desc else 'asc'} "
+                    f"{'windowed' if windowed else 'full'}"
+                    f"{' dead tile' if dead else ''}")
+                errs["train_fwd"] = max(errs["train_fwd"], e_f)
+                errs["train_bwd"] = max(errs["train_bwd"], e_b)
+    return errs
+
+
 # ----------------------------------------------------------------- phase 5
 
 def write_train_config():
@@ -419,7 +595,8 @@ class StepRecorder:
     def __init__(self, train_lib):
         self.train_lib = train_lib
         self.orig = train_lib.make_train_step
-        self.steps = []   # (stage, voxels, ms, psnr, loss)
+        self.steps = []   # (stage, voxels, ms, psnr, loss, fused step?)
+        self.last = {}    # (stage, fused step?) -> (step, args, kwargs)
         self.inside = None   # stage of the step being taken, if any
         train_lib.make_train_step = self
 
@@ -432,8 +609,11 @@ class StepRecorder:
         import torch
         step = self.orig(model, *args, **kw)
         stage = "fine" if model.rgbnet is not None else "coarse"
+        clip = kw.get("clip_sizes")
+        fused = clip is not None and clip[0] == "fblk"
 
         def timed(*a, **k):
+            self.last[(stage, fused)] = (step, a, k)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             self.inside = stage
@@ -444,7 +624,7 @@ class StepRecorder:
             torch.cuda.synchronize()
             self.steps.append((stage, int(np_prod(model.world_size)),
                                (time.perf_counter() - t0) * 1e3,
-                               float(psnr), float(loss)))
+                               float(psnr), float(loss), fused))
             return loss, psnr
 
         return timed
@@ -816,8 +996,312 @@ def train_phase(torch, dev, ka, kb, kc, sweep_ops):
                "fine_step_ms": step_ms["fine_top"],
                "train_psnr_first50_coarse": psnr_first,
                "train_psnr_last50_fine": psnr_last, "test_psnr": psnr_test,
+               "white_psnr": float(np.mean(white)),
                "sweep_launches_per_step": 1,
                "sweep_launches_per_counted_view": 1}
+    return entries, summary
+
+
+# ----------------------------------------------------------------- phase 6
+
+FUSED_CONFIG = os.path.join(CKPT_DIR, "train_lego_fused.py")
+GATED_EVERY = 50    # every how many fused steps the gated samples are counted
+
+
+class GatedCounter:
+    """Wraps ``train_fused.train_fwd`` in its module: the call still launches
+    (and counts) as before; the inputs of the last call are kept, and at
+    every ``GATED_EVERY``-th call the samples whose weight passes the gate
+    are counted with the plain version's march."""
+
+    def __init__(self, tf):
+        self.tf, self.orig = tf, tf.train_fwd
+        self.calls, self.last, self.gated = 0, None, []
+        tf.train_fwd = self
+
+    def __call__(self, *args, cfg):
+        self.last = (args, cfg)
+        if self.calls % GATED_EVERY == 0:
+            st = self.tf._March(args[0], args[1], cfg, args[8], args[9])
+            self.gated.append(int(st.sel[0].numel()))
+        self.calls += 1
+        return self.orig(*args, cfg=cfg)
+
+    def restore(self):
+        self.tf.train_fwd = self.orig
+
+
+def fused_numbers(torch, tf, args, cfg, gp, cot):
+    """K-D and K-E on these inputs: their times, their plain versions', and
+    their bounds from what this batch needs. Bytes: the distinct slab voxels
+    the marched stations tap (density and mask) and the gated samples tap
+    (features), rays, sh1, window cells, weights and the outputs (K-E: the
+    touched voxels of the two f32 accumulators, d_sh1 and the weight
+    gradients); each input once, although K-E taps the slabs twice, and
+    without K-E's scratch (T per march block and dL/dw_eff per gated
+    sample, 4 bytes each). Operations: the MLP of the gated samples on the
+    tensor cores (once for K-D, three times for K-E: forward again and two
+    products per layer backward) plus about 60 f32 operations per marched
+    station (120 for K-E, which marches twice and scatters)."""
+    slabs, rays16, sh1_t, w1a, w2, b2, w3, b3, desc, uvb = args
+    s_real, gu, gv, c = slabs.shape
+    n = rays16.shape[1]
+    width, f = cfg.width, cfg.f
+    st = tf._March(slabs, rays16, cfg, desc, uvb)
+    gated = int(st.sel[0].numel())
+    # stations the march visits: on a slab, inside [t_lo, t_hi], alive
+    any_w = (st.wu[0] + st.wu[1] > 0) & (st.wv[0] + st.wv[1] > 0)
+    op, dp, tlo, thi = rays16[0], rays16[3], rays16[6], rays16[7]
+    s_pad, p0, pstep = tf.march_scalars(s_real, cfg.k, cfg.s_blk, desc)
+    ms = torch.arange(s_pad, device=slabs.device, dtype=torch.float32)
+    t = ((p0 + pstep * ms)[:, None] - op[None]) / dp[None]
+    marched = any_w & st.live & (t >= tlo[None]) & (t <= thi[None]) \
+        & (thi > tlo)[None]
+
+    def voxels(sel):
+        hit = torch.zeros((s_real, gu, gv), dtype=torch.bool,
+                          device=slabs.device)
+        ms_i, ray_i = sel
+        for a in (0, 1):
+            for b in (0, 1):
+                ok = (st.wu[a][ms_i, ray_i] > 0) & (st.wv[b][ms_i, ray_i] > 0)
+                hit[st.sidx_c[ms_i][ok], st.iu[a][ms_i, ray_i][ok],
+                    st.iv[b][ms_i, ray_i][ok]] = True
+        return int(hit.sum())
+
+    geo_vox = voxels(torch.nonzero(marched, as_tuple=True))
+    feat_vox = voxels(st.sel)
+    n_marched = int(marched.sum())
+    weights = (w1a.numel() + w2.numel() + w3.numel()) * 2 \
+        + (b2.numel() + b3.numel()) * 4
+    common = geo_vox * 2 * 2 + feat_vox * (c - 2) * 2 + 12 * n * 4 \
+        + width * n * 4 + (uvb.numel() * 4 if uvb is not None else 0) \
+        + weights
+    mlp = gated * 2 * (f * width + width * width + 3 * width)
+
+    fwd = lambda: tf.train_fwd(*args, cfg=cfg)  # noqa: E731
+    b_args = list(args[:2]) + [cot] + list(args[2:])
+    bwd = lambda: tf.train_bwd(*b_args, cfg=cfg, gp=gp)  # noqa: E731
+    outs = bwd()
+    touched = (int((outs[0] != 0).sum()), int((outs[1] != 0).any(-1).sum()))
+    out = {}
+    for name, fn, plain, n_bytes, t_ops in (
+            ("train_fwd", fwd,
+             lambda: tf.train_fwd_plain(*args, cfg=cfg),
+             common + 8 * n * 4,
+             mlp / BF16_FLOPS + n_marched * 60 / F32_FLOPS),
+            ("train_bwd", bwd,
+             lambda: tf.train_bwd_plain(*b_args, cfg=cfg, gp=gp),
+             common + 6 * n * 4 + touched[0] * 4 + touched[1] * (c - 2) * 4
+             + width * n * 4 + weights * 2,
+             3 * mlp / BF16_FLOPS + n_marched * 120 / F32_FLOPS)):
+        by = "bytes" if n_bytes / HBM_BPS >= t_ops else "operations"
+        out[name] = {
+            "ms": cuda_time(fn, 20), "plain_ms": cuda_time(plain, 3, warmup=1),
+            "bound_ms": max(n_bytes / HBM_BPS, t_ops) * 1e3, "bound_by": by,
+            "library_ms": None,
+            "library": "none: no single PyTorch call computes the march, "
+                       "the gates and the MLP together",
+            "bytes": n_bytes, "mlp_operations": mlp * (1 if name ==
+                                                       "train_fwd" else 3),
+            "gated_samples": gated, "marched_stations": n_marched,
+            "slab_voxels_read": [geo_vox, feat_vox],
+            "shape": f"S={s_real} slab={gu}x{gv}x{c} N={n} W={width} F={f} "
+                     f"window={'%dx%d' % (cfg.wu, cfg.wv) if uvb is not None else 'none'}"}
+    out["train_bwd"]["voxels_touched"] = list(touched)
+    return out
+
+
+def profile_step(torch, step, args, kwargs, n_steps=3):
+    """``n_steps`` more calls of a train step under ``torch.profiler``: per
+    step the host wall time (with the profiler's own cost in it), the
+    device's busy time (the sum of its kernels and copies) and idle share,
+    the kernel count, and the ten kernels and the ten operators with the most
+    device time (ms per step). None when the profiler records no device
+    time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    step(*args, **kwargs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            step(*args, **kwargs)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n_steps
+    kernels, operators = [], []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0))
+        if dev_us <= 0:
+            continue
+        row = {"name": ev.key[:48], "ms": round(dev_us / 1e3 / n_steps, 4),
+               "calls": ev.count / n_steps}
+        (kernels if ev.device_type == DeviceType.CUDA else operators).append(
+            row)
+    if not kernels:
+        return None
+    busy = sum(r["ms"] for r in kernels)
+    top = lambda rows: sorted(rows, key=lambda r: -r["ms"])[:10]  # noqa: E731
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "device_idle_share": max(0.0, 1.0 - busy / wall),
+            "kernel_launches": sum(r["calls"] for r in kernels),
+            "top_kernels": top(kernels), "top_operators": top(operators)}
+
+
+def fused_phase(torch, dev, tf, ka, kc, sweep_ops, phase5):
+    """Phase 6; returns the kernels-line entries of K-D and K-E and a summary
+    of the fused training run."""
+    import shutil
+    import numpy as np
+    from directvoxgo_tpu_torch import run as run_lib
+    from directvoxgo_tpu_torch.config import Config
+    from directvoxgo_tpu_torch.engine import checkpoint as ckpt_lib
+    from directvoxgo_tpu_torch.engine import train as train_lib
+
+    with open(FUSED_CONFIG, "w") as f:
+        f.write(f"_base_ = {TRAIN_BASE!r}\n"
+                "expname = 'train_lego_fused'\n"
+                "basedir = './logs/chip_smoke'\n"
+                f"coarse_train = {{'N_iters': {N_COARSE}}}\n"
+                f"fine_train = {{'N_iters': {N_FINE}, "
+                f"'pg_scale': {PG_SCALE}}}\n")
+    cfg = Config.fromfile(FUSED_CONFIG)
+    logdir = os.path.join(cfg.basedir, cfg.expname)
+    shutil.rmtree(logdir, ignore_errors=True)
+    os.makedirs(logdir)
+    # The coarse stage is not trained twice: phase 5's checkpoint is this
+    # run's, so run.main finds the stage done and goes on to the fine one.
+    shutil.copy(os.path.join(cfg.basedir, "train_lego", "coarse_last.tar"),
+                os.path.join(logdir, "coarse_last.tar"))
+
+    rec = StepRecorder(train_lib)
+    counter = GatedCounter(tf)
+    cap_e = Capture(tf, "train_bwd", keep=1)
+    cap_t = Capture(sweep_ops, "build_ray_tiles_blocktile", results=True)
+    tf.launches_fwd = tf.launches_bwd = ka.launches = kc.launches = 0
+    env_before = os.environ.get("DVGO_FUSED_TRAIN")
+    os.environ["DVGO_FUSED_TRAIN"] = "1"
+    t0 = time.time()
+    try:
+        run_lib.main(["--config", FUSED_CONFIG, "--i_print", "100",
+                      "--device", str(dev)])
+        torch.cuda.synchronize()
+    finally:
+        if env_before is None:
+            del os.environ["DVGO_FUSED_TRAIN"]
+        else:
+            os.environ["DVGO_FUSED_TRAIN"] = env_before
+        rec.restore()
+        counter.restore()
+        cap_e.restore()
+        cap_t.restore()
+    launches = {"train_fwd": tf.launches_fwd, "train_bwd": tf.launches_bwd,
+                "sweep_fwd": ka.launches, "sweep_bwd": kc.launches}
+    fused = [s for s in rec.steps if s[5]]
+    plain = [s for s in rec.steps if not s[5]]
+    top = max(s[1] for s in rec.steps)
+    fused_top = [s for s in fused if s[1] == top]
+    log(f"[phase 6] run.main (DVGO_FUSED_TRAIN=1) trained {len(rec.steps)} "
+        f"fine steps in {time.time() - t0:.1f} s: {len(fused)} fused, "
+        f"{len(plain)} unfused; launches {launches}")
+    if not (all(s[0] == "fine" for s in rec.steps)
+            and len(rec.steps) == N_FINE and 2 * len(fused) >= N_FINE
+            and len(fused_top) >= MIN_TOP_STEPS // 2
+            and launches["train_fwd"] == launches["train_bwd"] == len(fused)
+            and launches["sweep_fwd"] == launches["sweep_bwd"] == len(plain)):
+        raise AssertionError(
+            f"{len(rec.steps)} steps ({len(fused)} fused, {len(fused_top)} "
+            f"at the top grid) do not match the launches {launches}")
+    if not all(np.isfinite(s[3]) and np.isfinite(s[4]) for s in rec.steps):
+        raise AssertionError("a fused run's loss or PSNR is not finite")
+
+    # Tile classes per axis (the last build of each axis: the top grid) and
+    # the share of tiled rays no class covers.
+    tiles = {}
+    for (args, kw), res in zip(cap_t.calls, cap_t.results):
+        n_all = sum(v.size for v in res.values())
+        tiles[int(args[5])] = {
+            "classes": {f"{k[0]}x{k[1]}{'+' if k[2] > 0 else '-'}":
+                        int(v.shape[0]) for k, v in res.items() if k[2]},
+            "remainder_share": (res[(0, 0, 0)].size / n_all
+                                if (0, 0, 0) in res else 0.0),
+            "box": kw.get("clip_box")}
+    for ax, info in sorted(tiles.items()):
+        log(f"[phase 6] tiles of axis {ax} at the top grid: {info}")
+    step_ms = median([s[2] for s in fused_top[len(fused_top) // 10:]])
+    plain_ms = median([s[2] for s in plain]) if plain else None
+    psnr_last = float(np.mean([s[3] for s in rec.steps[-50:]]))
+    log(f"[phase 6] median fused step at {top} voxels {step_ms:.2f} ms "
+        f"(phase 5's unfused fine step {phase5['fine_step_ms']:.2f} ms; "
+        f"unfused remainder steps of this run: {plain_ms}); samples with "
+        f"w_eff > 0 per fused step, every {GATED_EVERY}th: {counter.gated}; "
+        f"train PSNR of the last 50 steps {psnr_last:.2f} dB (phase 5 "
+        f"{phase5['train_psnr_last50_fine']:.2f})")
+
+    # Where a step's time goes: a few more steps of the last fused and the
+    # last unfused (remainder) step of the run, traced (the checkpoint is
+    # written; these steps train on and are not saved).
+    profiles = {}
+    for name, key in (("fused", ("fine", True)), ("unfused", ("fine", False))):
+        if key in rec.last:
+            profiles[name] = profile_step(torch, *rec.last[key])
+            log(f"[phase 6] trace of a {name} fine step at the top grid: "
+                f"{profiles[name]}")
+
+    st = ckpt_lib.load_checkpoint_file(os.path.join(logdir, "fine_last.tar"))
+    if st["global_step"] != N_FINE:
+        raise AssertionError(f"fine_last.tar at step {st['global_step']}")
+    cap_r = Capture(run_lib, "render_viewpoints", results=True)
+    try:
+        run_lib.main(["--config", FUSED_CONFIG, "--render_test", "--device",
+                      str(dev)])
+        torch.cuda.synchronize()
+    finally:
+        cap_r.restore()
+    psnr_test = float(np.mean(cap_r.results[0][2]["psnr"]))
+    log(f"[phase 6] --render_test of the fused run's fine_last.tar: test "
+        f"PSNR {psnr_test:.2f} dB (phase 5's unfused run "
+        f"{phase5['test_psnr']:.2f} dB, a white frame "
+        f"{phase5['white_psnr']:.2f} dB)")
+    if not psnr_test >= phase5["white_psnr"] + 3.0:
+        raise AssertionError(f"fused run's test PSNR {psnr_test} is not 3 dB "
+                             f"above a white frame's {phase5['white_psnr']}")
+
+    # Both kernels on the inputs of the last fused step, against their plain
+    # versions and timed.
+    args, f_cfg = counter.last
+    (b_args, b_kw), = cap_e.calls
+    case = dict(zip(("slabs", "rays16", "sh1_t", "w1a", "w2", "b2", "w3",
+                     "b3", "desc", "uvb"), args), cfg=f_cfg, gp=b_kw["gp"],
+                cot=b_args[2])
+    with torch.no_grad():
+        err_f, err_b = check_fused(tf, case,
+                                   "training path, last fused step")
+        nums = fused_numbers(torch, tf, list(args), f_cfg, b_kw["gp"],
+                             b_args[2])
+    entries = []
+    for name, err, line, tpu in (
+            ("train_fwd", err_f, 170, "train_fwd_pallas"),
+            ("train_bwd", err_b, 396, "train_bwd_pallas")):
+        log(f"[phase 6] {name}: {nums[name]}")
+        entries.append(dict(
+            {"name": f"train_fused_{name[6:]}", "route": "cuda",
+             "source": f"directvoxgo_tpu_torch/csrc/train_fused_{name[6:]}.cu",
+             "replaces": f"directvoxgo_tpu/ops/pallas_train_fused.py:{line} "
+                         f"({tpu})",
+             "launches": launches[name], "max_abs_err": err}, **nums[name]))
+    summary = {"steps": N_FINE, "fused_steps": len(fused),
+               "unfused_steps": len(plain), "fused_steps_at_top":
+               len(fused_top), "fused_step_ms": step_ms,
+               "unfused_remainder_step_ms": plain_ms,
+               "unfused_fine_step_ms_phase5": phase5["fine_step_ms"],
+               "gated_samples_per_step": counter.gated,
+               "train_psnr_last50": psnr_last, "test_psnr": psnr_test,
+               "test_psnr_unfused_phase5": phase5["test_psnr"],
+               "white_psnr": phase5["white_psnr"], "tiles": tiles,
+               "step_traces": profiles}
     return entries, summary
 
 
@@ -854,6 +1338,7 @@ def run(dev):
     from directvoxgo_tpu_torch.ops import sweep as sweep_ops
     from directvoxgo_tpu_torch.ops import sweep_bwd as kc
     from directvoxgo_tpu_torch.ops import sweep_fwd as ka
+    from directvoxgo_tpu_torch.ops import train_fused as tf
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -867,6 +1352,7 @@ def run(dev):
     slabs, rays, k = small_sweep_case(torch, dev)
     errs["sweep_fwd"] = check_sweep(ka, slabs, rays, k, "small")
     errs.update(small_train_kernel_checks(torch, dev, ka, kc, sweep_ops))
+    errs.update(small_fused_checks(torch, dev, tf))
     for rgb_mode, f_k0, width in (("direct", 12, 128),
                                   ("logit_plus_k0", 12, 64)):
         case = small_frame_case(torch, dev, width, f_k0, rgb_mode)
@@ -1051,8 +1537,14 @@ def run(dev):
         if small:
             entry["small_shape_max_abs_err"] = errs[small]
     kernels[0]["name"] = "sweep_fwd [render]"
+    # Phase 6: the fused training path.
+    fused_entries, training["fused"] = fused_phase(torch, dev, tf, ka, kc,
+                                                   sweep_ops, training)
+    for entry in fused_entries:
+        entry["small_shape_max_abs_err"] = errs[entry["name"].replace(
+            "train_fused_", "train_")]
     return kernels[:1] + train_entries[:4] + kernels[1:] \
-        + train_entries[4:], training
+        + train_entries[4:] + fused_entries, training
 
 
 def sweep_voxels(torch, slabs, rays, k):

@@ -8,7 +8,9 @@ use):
 
   * ``ops/sweep_fwd.py``    — the per-ray station sweep (bilinear slab taps);
   * ``ops/sweep_bwd.py``    — its transpose onto the grid (the backward);
-  * ``ops/render_frame.py`` — the fused whole-frame renderer.
+  * ``ops/render_frame.py`` — the fused whole-frame renderer;
+  * ``ops/train_fused.py``  — the fused fine-stage train step, forward and
+    backward (opt-in: ``DVGO_FUSED_TRAIN``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no GPU and no explicit CPU request they raise.

@@ -30,18 +30,19 @@
 // Design: one thread per ray looping over a block of S_BLK stations
 // (blockIdx.y), like the forward kernel; red.global.add.f32 per tap value.
 
-#include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include "grid_scatter.cuh"
 
 namespace {
+
+using dvgo::hat;
+using dvgo::round_bf16;
 
 constexpr int C_MAX = 16;
 constexpr int THREADS = 128;
 constexpr int S_BLK = 8;
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
 
 // window_mode: 0 = no window, 1 = v_base[ray / tile_n], 2 = v_base[seg_idx]
 template <bool BF16>
@@ -78,35 +79,27 @@ sweep_bwd_kernel(const float* __restrict__ g, const float* __restrict__ rays,
       any = any || gs[ch] != 0.f;
     }
     if (!any) continue;
-    const int z = s / k, j = s - z * k;
-    const float f_hi = (float)((double)j / (double)k);
-    const float f_lo = (float)(1.0 - (double)j / (double)k);
+    const dvgo::SlabSplit sp = dvgo::slab_split(s, k);
     const int iu0 = (int)floorf(u), iv0 = (int)floorf(v);
-    float* slab_lo = acc + (size_t)z * slab_elems;
+    float* slab_lo = acc + (size_t)sp.z * slab_elems;
 #pragma unroll
     for (int a = 0; a < 2; ++a) {
       const int iu = iu0 + a;
       if (iu < 0 || iu >= gu) continue;
-      float wu = fmaxf(0.f, __fsub_rn(1.f, fabsf(__fsub_rn(u, (float)iu))));
+      float wu = hat(u, iu);
       if (BF16) wu = round_bf16(wu);
       if (wu == 0.f) continue;
 #pragma unroll
       for (int b = 0; b < 2; ++b) {
         const int iv = iv0 + b;
         if (iv < v_lo || iv >= v_hi) continue;
-        const float wvv =
-            fmaxf(0.f, __fsub_rn(1.f, fabsf(__fsub_rn(v, (float)iv))));
+        const float wvv = hat(v, iv);
         if (wvv == 0.f) continue;
         float* px = slab_lo + ((size_t)iu * gv + iv) * c;
 #pragma unroll
         for (int ch = 0; ch < C_MAX; ++ch) {
           if (ch >= c || gs[ch] == 0.f) continue;
-          float rhs = __fmul_rn(wvv, gs[ch]);
-          if (BF16) rhs = round_bf16(rhs);
-          const float x = __fmul_rn(wu, rhs);
-          if (x == 0.f) continue;
-          atomicAdd(px + ch, __fmul_rn(f_lo, x));
-          if (j > 0) atomicAdd(px + slab_elems + ch, __fmul_rn(f_hi, x));
+          dvgo::scatter_tap<BF16>(px + ch, slab_elems, sp, wu, wvv, gs[ch]);
         }
       }
     }

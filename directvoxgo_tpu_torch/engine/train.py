@@ -15,6 +15,15 @@ remote dispatch to hide: the JAX engine's precompile queue, compile epochs,
 step batching and guarded fetches have no counterpart here. Batches are
 drawn uniformly within an axis group; the spatial window buckets of the JAX
 engine (its ``bucket_tiles`` draws) are not ported yet.
+
+With ``DVGO_FUSED_TRAIN`` set (:func:`..ops.train_fused.fused_enabled`) a
+stage whose model supports it trains through the fused step (kernels K-D
+and K-E) instead: each axis group is cut into same-class, direction-uniform
+512-ray tiles over the clip box
+(:func:`..ops.sweep.build_ray_tiles_blocktile`), a batch is ``N_rand / 512``
+tiles of one class, drawn in proportion to the class's ray count, and tiles
+no class covers train through the unfused step. The tiles are built in
+line, when a draw first meets a new grid or clip box.
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ from ..device import resolve_device
 from ..models.dvgo import DirectVoxGO
 from ..ops import grid as grid_ops
 from ..ops import sweep as sweep_ops
+from ..ops import train_fused as fused_ops
 from ..ops import tv as tv_ops
 from ..optim import MaskedAdam
 from . import checkpoint as ckpt_lib
@@ -133,10 +143,23 @@ def make_train_step(model, optimizer, cfg_train, render_kwargs,
     ``wv > 0`` passes ``(v_base, wv)`` ray-tile windows to unclipped sweeps;
     :func:`scene_rep_reconstruction` never sets it (its draws ride the clip
     box), so it waits for a caller that draws window buckets.
+
+    ``clip_sizes = ('fblk', wu, wv, bp, bu, bv)`` selects the fused step
+    (:meth:`DirectVoxGO.forward_sweep_fused`, kernels K-D and K-E) over the
+    (bp, bu, bv) box with per-cell (wu, wv) windows, (0, 0) for none. Its
+    batches must be same-class and direction-uniform
+    (:func:`..ops.sweep.build_ray_tiles_blocktile`), and it needs region
+    mode: the kernels take the box slices of the grids.
     """
     if axis is None:
         raise NotImplementedError(
             "only the sweep train step is ported (ROADMAP A: gather forward)")
+    fused, fused_win = False, None
+    if clip_sizes is not None and clip_sizes[0] == "fblk":
+        wu_f, wv_f = int(clip_sizes[1]), int(clip_sizes[2])
+        fused_win = (wu_f, wv_f) if (wu_f or wv_f) else None
+        clip_sizes = tuple(int(x) for x in clip_sizes[3:6])
+        fused = True
     kwargs = {k: render_kwargs[k] for k in ("near", "far", "bg", "stepsize")}
     w_main = float(cfg_train.weight_main)
     w_entropy = float(cfg_train.weight_entropy_last)
@@ -151,6 +174,8 @@ def make_train_step(model, optimizer, cfg_train, render_kwargs,
     tv_boxed = apply_tv and not tv_dense
     region_mode = (clip_sizes is not None and (not apply_tv or tv_boxed)
                    and all_skip and grid_names != [])
+    assert not fused or region_mode, \
+        "fused step keys require region mode (pre-clipped box grids)"
     if region_mode:
         inv = {ax: i for i, ax in enumerate(sweep_ops._PERMS[axis])}
         sizes_xyz = tuple(int(clip_sizes[inv[a]]) for a in range(3))
@@ -174,12 +199,17 @@ def make_train_step(model, optimizer, cfg_train, render_kwargs,
             grids = (boxed["density"], boxed["k0"], model.mask[box])
 
         with torch.enable_grad():
-            ret = model.forward_sweep(
-                rays_o, rays_d, viewdirs, axis, clip_sizes=clip_sizes,
-                clip_offsets=clip_off, grids_pre_clipped=region_mode,
-                tile_windows=((v_base, wv) if wv and v_base is not None
-                              else None),
-                grids=grids, **kwargs)
+            if fused:
+                ret = model.forward_sweep_fused(
+                    rays_o, rays_d, viewdirs, axis, target, grids=grids,
+                    clip_offsets=clip_off, window=fused_win, **kwargs)
+            else:
+                ret = model.forward_sweep(
+                    rays_o, rays_d, viewdirs, axis, clip_sizes=clip_sizes,
+                    clip_offsets=clip_off, grids_pre_clipped=region_mode,
+                    tile_windows=((v_base, wv) if wv and v_base is not None
+                                  else None),
+                    grids=grids, **kwargs)
             mse = torch.mean((ret["rgb_marched"] - target) ** 2)
             loss = w_main * mse
             if w_entropy > 0:
@@ -188,10 +218,14 @@ def make_train_step(model, optimizer, cfg_train, render_kwargs,
                                       + (1 - pout) * torch.log(1 - pout))
                 loss = loss + w_entropy * entropy
             if w_rgbper > 0:
-                rgbper = torch.sum(
-                    (ret["raw_rgb_cl"] - target.t()[:, :, None]) ** 2, 0)
-                loss = loss + w_rgbper * (
-                    torch.sum(rgbper * ret["weights"].detach()) / n_rand)
+                if "rgbper_sum" in ret:   # fused step: reduced per ray
+                    rgbper_loss = torch.sum(ret["rgbper_sum"]) / n_rand
+                else:
+                    rgbper = torch.sum(
+                        (ret["raw_rgb_cl"] - target.t()[:, :, None]) ** 2, 0)
+                    rgbper_loss = torch.sum(
+                        rgbper * ret["weights"].detach()) / n_rand
+                loss = loss + w_rgbper * rgbper_loss
             flat = [p for n in trainable for p in leaves[n]]
             flat_grads = torch.autograd.grad(loss, flat, allow_unused=True)
         it = iter(flat_grads)
@@ -368,9 +402,87 @@ def scene_rep_reconstruction(args, cfg, cfg_model, cfg_train, xyz_min,
         else:
             group_gens.append(None)
 
-    def next_batch():
+    # Fused-step tile buckets: axis -> (what they were built for, {('fblk',
+    # wu, wv, sign): pool indices [n_tiles, 512]} or None). Rebuilt in line
+    # when the grid or the clip plan changed since.
+    fused_tiles = (n_rand % fused_ops.NT == 0
+                   and fused_ops.fused_enabled(device)
+                   and model.supports_fused_step())
+    buckets = {}
+    rays_o_np = np.asarray(rays_o_tr).reshape(-1, 3) if fused_tiles else None
+
+    def fused_box(ax):
+        """The box a fused step of axis ``ax`` runs over: the clip box, or
+        the whole grid at zero offsets."""
+        csz, coff = clip_plan[ax]
+        if csz is not None:
+            return tuple(int(x) for x in csz), np.asarray(coff, np.int32)
+        return (tuple(int(model.world_size[a]) for a in sweep_ops._PERMS[ax]),
+                np.zeros(3, np.int32))
+
+    def tile_buckets(ax):
+        (bp, bu, bv), offs = fused_box(ax)
+        built_for = (tuple(model.world_size), (bp, bu, bv),
+                     tuple(int(o) for o in offs))
+        if ax in buckets and buckets[ax][0] == built_for:
+            return buckets[ax][1]
+        g = group_idx[ax]
+        keep = {}
+        if len(g) >= n_rand:
+            t0 = time.time()
+            box6 = None
+            if clip_plan[ax][0] is not None:
+                box6 = tuple(float(x) for o, b in zip(offs, (bp, bu, bv))
+                             for x in (o, o + b - 1))
+            tiles = sweep_ops.build_ray_tiles_blocktile(
+                rays_o_np[g], rays_d_np[g], model.xyz_min, model.xyz_max,
+                tuple(int(x) for x in model.world_size), ax, near, far,
+                cfg_model.stepsize, nt=fused_ops.NT, clip_box=box6)
+            fdim = model.k0_dim if model.rgbnet_direct else model.k0_dim - 3
+            rest = []
+            for kk, idx in tiles.items():
+                if idx.shape[0] == 0:
+                    continue
+                # a class the fused step does not take trains unfused
+                if kk[:2] == (0, 0) or fused_ops.fused_available(
+                        n_rand, bu, bv, fdim, int(model.rgbnet_width),
+                        float(model.fast_color_thres),
+                        int(model.rgbnet_depth), wu=int(kk[0]),
+                        wv=int(kk[1]), device=device):
+                    keep[("fblk", *kk)] = g[idx]
+                else:
+                    rest.append(g[idx])
+            rk0 = ("fblk", 0, 0, 0)
+            if rest:
+                keep[rk0] = np.concatenate(rest + ([keep[rk0]] if rk0 in keep
+                                                   else []), axis=0)
+            n_tiled = sum(v.size for v in keep.values())
+            print(f"scene_rep_reconstruction ({stage}): fused tiles axis "
+                  f"{ax}, box {(bp, bu, bv)}: "
+                  f"{ {k[1:]: int(v.shape[0]) for k, v in keep.items()} } "
+                  f"tiles per class, remainder "
+                  f"{keep[rk0].size / n_tiled if rk0 in keep else 0.0:.3f} "
+                  f"of rays, built in {time.time() - t0:.1f} s")
+        buckets[ax] = (built_for, keep or None)
+        return buckets[ax][1]
+
+    def next_batch(no_window=False):
+        """(pool indices, axis, fused step key or None)."""
         ax = int(rng.choice(3, p=group_p))
-        return group_gens[ax](), ax
+        bk = tile_buckets(ax) if fused_tiles and not no_window else None
+        if not bk or all(k[1:] == (0, 0, 0) for k in bk):
+            return group_gens[ax](), ax, None
+        keys = list(bk)
+        counts = np.asarray([bk[k].size for k in keys], np.float64)
+        kk = keys[int(rng.choice(len(keys), p=counts / counts.sum()))]
+        idx = bk[kk]
+        n_draw = n_rand // fused_ops.NT
+        rows = rng.choice(idx.shape[0], size=n_draw,
+                          replace=idx.shape[0] < n_draw)
+        sel = idx[rows].reshape(-1)
+        if kk[1:] == (0, 0, 0):      # remainder tiles: the unfused step
+            return sel, ax, None
+        return sel, ax, ("fblk", kk[1], kk[2], *fused_box(ax)[0])
 
     # View-count-based per-voxel lr; voxels seen by at most two views are
     # switched off.
@@ -450,8 +562,11 @@ def scene_rep_reconstruction(args, cfg, cfg_model, cfg_train, xyz_min,
             tv_state = tv_state_of(global_step)
             train_steps = {}
 
-        sel, axis = next_batch()
+        # TV steps draw unwindowed: they need full-size gradients.
+        sel, axis, fused_key = next_batch(no_window=tv_state[0])
         clip_sizes, clip_off = clip_plan[axis]
+        if fused_key is not None:
+            clip_sizes, clip_off = fused_key, fused_box(axis)[1]
         key = (axis, clip_sizes)
         if key not in train_steps:
             train_steps[key] = make_train_step(

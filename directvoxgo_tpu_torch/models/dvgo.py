@@ -536,6 +536,90 @@ class DirectVoxGO(nn.Module):
             ret["depth"] = (torch.sum(w_eff * t_safe, 1) * d_norm).detach()
         return ret
 
+    # ------------------------------------------------ fused train forward
+
+    def supports_fused_step(self):
+        """Whether the fused train step (:mod:`..ops.train_fused`, kernels
+        K-D and K-E) can stand in for :meth:`forward_sweep` and the losses'
+        reductions: the standard fine-stage composition with a three-layer
+        split MLP over (k0 features, view embedding) and
+        ``fast_color_thres`` gates."""
+        return (self.has_rgbnet and not self.implicit_voxel_feat
+                and not self.rgbnet_full_implicit and self.posbase_pe == 0
+                and self.k0_dim > 0 and self.rgbnet_depth == 3
+                and self.fast_color_thres > 0
+                and self.sweep_dtype == torch.bfloat16
+                and (self.k0_dim if self.rgbnet_direct
+                     else self.k0_dim - 3) >= 1)
+
+    def forward_sweep_fused(self, rays_o, rays_d, viewdirs, axis, target, *,
+                            near, far, bg, stepsize, grids=None,
+                            clip_offsets=None, window=None, s_blk=None,
+                            nt=None, **_):
+        """Fused train forward: the arithmetic of :meth:`forward_sweep` and
+        the losses' per-ray reductions in one kernel (K-D; K-E backward).
+
+        ``grids`` = (density, k0, mask) already sliced to the sweep box (xyz
+        order; default: the module's whole grids) with ``clip_offsets`` the
+        box's start voxels in permuted order. The batch must be
+        direction-uniform along ``axis``. ``window`` = (wu, wv) (multiples
+        of 16 and 8): every (8-station block, 512-ray tile) cell reads only
+        its own window of the slabs; exact when every cell's support fits,
+        as for the batches of
+        :func:`..ops.sweep.build_ray_tiles_blocktile`.
+
+        Returns dict(rgb_marched [N, 3], alphainv_last [N], rgbper_sum
+        [N]); ``rgbper_sum`` is ``sum_s w_eff * |rgb_s - target|^2`` per
+        ray with the weights detached.
+        """
+        from ..ops import train_fused as tf
+
+        k = sweep_ops.substeps_for_stepsize(stepsize)
+        density, k0, mask_g = grids if grids is not None else (
+            self.density, self.k0, self.mask)
+        perm = sweep_ops._PERMS[axis]
+        density_pm = density.float().permute(*perm)
+        mask_pm = mask_g.float().permute(*perm)
+        k0_pm = k0.float().permute(*perm, 3)
+
+        o_pv, d_pv = sweep_ops.rays_to_voxel(
+            rays_o, rays_d, self.xyz_min, self.xyz_max,
+            tuple(self.world_size), axis)
+        if clip_offsets is not None:
+            offs = [float(v) for v in np.asarray(clip_offsets)]
+            o_pv = tuple(o - off for o, off in zip(o_pv, offs))
+        dp = d_pv[0]
+        dp_safe = torch.where(dp == 0, torch.full_like(dp, 1e-10), dp)
+        dev = rays_o.device
+        t_lo, t_hi = rm.ray_aabb_tminmax(
+            rays_o, rays_d, torch.as_tensor(self.xyz_min, device=dev),
+            torch.as_tensor(self.xyz_max, device=dev), near, far)
+        d_norm = torch.sqrt(torch.sum(rays_d * rays_d, -1))
+        interval = d_norm / (k * torch.clamp(dp.abs(), min=1e-10)) \
+            / self.voxel_size_base
+        zeros = torch.zeros_like(dp)
+        rays16 = torch.stack(
+            [o_pv[0], o_pv[1], o_pv[2], dp_safe, d_pv[1], d_pv[2],
+             t_lo, t_hi, interval, target[:, 0], target[:, 1], target[:, 2],
+             zeros, zeros, zeros, zeros]).float().detach()
+
+        fdim = self.k0_dim if self.rgbnet_direct else self.k0_dim - 3
+        l0 = self.rgbnet.layers[0]
+        vd_emb = mlp_lib.positional_encoding(viewdirs, self.viewbase_pe)
+        sh1_t = (vd_emb @ l0.weight.t()[fdim:] + l0.bias).t().float()
+
+        wu, wv = (int(window[0]), int(window[1])) if window else (0, 0)
+        cfg = tf.FusedCfg(
+            k=int(k), f=int(fdim), width=int(self.rgbnet_width),
+            act_shift=float(self.act_shift),
+            thres=float(self.fast_color_thres), bg=float(bg),
+            direct=bool(self.rgbnet_direct), wu=wu, wv=wv,
+            s_blk=int(s_blk or tf.S_BLK), nt=int(nt or tf.NT))
+        rgb, ainv, rgbper = tf.fused_chain(
+            cfg, density_pm, k0_pm, mask_pm, rays16, sh1_t, self.rgbnet)
+        return {"rgb_marched": rgb, "alphainv_last": ainv,
+                "rgbper_sum": rgbper}
+
     # ---------------------------------------------------- per-voxel lr init
 
     def voxel_count_views(self, rays_o_tr, rays_d_tr, imsz, near, far,

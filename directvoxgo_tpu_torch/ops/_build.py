@@ -5,8 +5,9 @@ shared library with a plain C interface and loaded with ``ctypes``. The
 build happens at first use (or ahead of time with :func:`build_all`, which
 runs one ``nvcc`` per source in parallel) into ``_kernels/`` inside the
 package directory (listed in ``.gitignore``). Libraries are keyed by a hash
-of their source, so an edited kernel is rebuilt and a stale one never
-loaded. Nothing here runs at import time.
+of their source and of the headers in ``csrc/`` (``*.cuh``, shared device
+code), so an edited kernel is rebuilt and a stale one never loaded. Nothing
+here runs at import time.
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-KERNELS = ("sweep_fwd", "render_frame", "sweep_bwd")
+KERNELS = ("sweep_fwd", "render_frame", "sweep_bwd", "train_fused_fwd",
+           "train_fused_bwd")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -45,8 +47,11 @@ def _nvcc():
 
 
 def _lib_path(name):
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            digest.update(f.read())
     return os.path.join(build_dir(), f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 

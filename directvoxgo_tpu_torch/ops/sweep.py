@@ -197,6 +197,202 @@ def dominant_axis(rays_d, xyz_min, xyz_max, world_size):
     return np.argmax(np.abs(rays_d * scale), axis=-1)
 
 
+def _round_up(x, m):
+    return (int(x) + m - 1) // m * m
+
+
+def build_ray_tiles_blocktile(rays_o, rays_d, xyz_min, xyz_max,
+                              world_size, axis, near, far, stepsize,
+                              nt=512, s_blk=8,
+                              widths_u=(32, 48, 64, 80, 96, 112, 128),
+                              widths_v=(16, 24, 32, 40, 48, 56, 64, 80,
+                                        96),
+                              max_classes=4, clip_box=None, margin=0.5):
+    """Direction-uniform ``nt``-ray tiles, classed by the (u, v) window
+    that the fused train kernels (:mod:`.train_fused`) need per cell.
+
+    A cell is one (``s_blk``-station block, ray tile) pair; the fused step
+    reads, per cell, only a ``(wu, wv)`` window of the station slabs
+    (:func:`.train_fused.blocktile_uv_bases`). One wide tile would widen
+    the window of a whole batch, so batches regroup tiles of one class: the
+    pool, sorted by the Morton code of each ray's two end points on the
+    box, is cut into tiles; a tile's class is the widest support any of
+    its cells needs; the engine draws a batch as ``N_rand / nt`` rows of
+    one class and one sweep direction.
+
+    The arithmetic mirrors :func:`.train_fused.blocktile_uv_bases` (bases
+    aligned to 16 in u and 8 in v, one voxel of hat support, the [t_lo,
+    t_hi] clamp, the grid clip) with ``margin`` voxels of slack, so that
+    f32 rounding on the device never makes a drawn cell exceed its class.
+    t_lo/t_hi follow :func:`.raymarch.ray_aabb_tminmax`. ``clip_box``:
+    inclusive (p_lo, p_hi[, u_lo, u_hi, v_lo, v_hi]) voxel bounds of the
+    occupancy box the step's grids are sliced to.
+
+    Returns ``{(wu, wv, sg): idx [n_tiles, nt] int64}`` with ``sg`` the
+    sweep direction's sign (+1/-1) plus a ``(0, 0, 0)`` key for tiles that
+    no kept class covers (the engine trains those through the unfused
+    step). At most ``max_classes`` (wu, wv) pairs are kept; narrower
+    classes fold into the kept ones that cover them.
+    """
+    n = rays_o.shape[0]
+    if n < nt:
+        return {}
+    perm = _PERMS[axis]
+    rays_o = np.asarray(rays_o, np.float64)
+    rays_d = np.asarray(rays_d, np.float64)
+    k = substeps_for_stepsize(stepsize)
+
+    # t range per ray: numpy mirror of raymarch.ray_aabb_tminmax
+    vec = np.where(rays_d == 0, 1e-6, rays_d)
+    rate_a = (np.asarray(xyz_max, np.float64) - rays_o) / vec
+    rate_b = (np.asarray(xyz_min, np.float64) - rays_o) / vec
+    tlo = np.clip(np.minimum(rate_a, rate_b).max(-1), near, far)
+    thi = np.clip(np.maximum(rate_a, rate_b).min(-1), near, far)
+
+    opv, dpv = [], []
+    for ax in perm:
+        scale = (float(world_size[ax]) - 1.0) / (float(xyz_max[ax])
+                                                 - float(xyz_min[ax]))
+        opv.append((rays_o[:, ax] - float(xyz_min[ax])) * scale)
+        dpv.append(rays_d[:, ax] * scale)
+    op, ou, ov = opv
+    dp, du, dv = dpv
+    gu = int(world_size[perm[1]])
+    gv = int(world_size[perm[2]])
+    if clip_box is None:
+        bp = int(world_size[perm[0]])
+        off_p = off_u = off_v = 0.0
+        u_hi_c, v_hi_c = float(gu), float(gv)
+    else:
+        off_p, p_hi = float(clip_box[0]), float(clip_box[1])
+        bp = int(round(p_hi - off_p)) + 1
+        if len(clip_box) >= 6:
+            off_u, u_hi_c = float(clip_box[2]), float(clip_box[3]) + 1.0
+            off_v, v_hi_c = float(clip_box[4]), float(clip_box[5]) + 1.0
+        else:
+            off_u = off_v = 0.0
+            u_hi_c, v_hi_c = float(gu), float(gv)
+    # box frame (the fused path's grids arrive pre-clipped; rays shifted)
+    op = op - off_p
+    ou = ou - off_u
+    ov = ov - off_v
+    bu = int(round(u_hi_c - off_u))
+    bv = int(round(v_hi_c - off_v))
+    gu_p = _round_up(bu, 16)
+    gv_p = _round_up(bv, 8)
+    dp_s = np.where(np.abs(dp) < 1e-10, 1e-10, dp)
+
+    # 4-endpoint Morton sort per direction sign (fused batches must be
+    # direction-uniform: the kernels march with one (p0, pstep))
+    t0e = (0.0 - op) / dp_s
+    t1e = (bp - 1.0 - op) / dp_s
+    u_ends = np.clip(np.stack([ou + t0e * du, ou + t1e * du]), 0, bu)
+    v_ends = np.clip(np.stack([ov + t0e * dv, ov + t1e * dv]), 0, bv)
+
+    def quant(x, g):
+        return np.clip((x / max(g, 1) * 1024).astype(np.int64), 0, 1023)
+
+    keys = [quant(u_ends[0], bu), quant(v_ends[0], bv),
+            quant(u_ends[1], bu), quant(v_ends[1], bv)]
+    code = np.zeros(n, np.int64)
+    for b in range(10):
+        for d_i, kk in enumerate(keys):
+            code |= ((kk >> b) & 1) << (b * 4 + d_i)
+
+    s_total = k * (bp - 1) + 1
+    s_pad = _round_up(s_total, s_blk)
+    nsb = s_pad // s_blk
+    inv_k = 1.0 / k
+    p_a = (np.arange(nsb, dtype=np.float64) * s_blk * inv_k)[:, None]
+    p_b = p_a + (s_blk - 1) * inv_k
+
+    tiles_by = {}
+    for sg in (1, -1):
+        pool = np.flatnonzero((dp >= 0) if sg > 0 else (dp < 0))
+        if pool.size < nt:
+            continue
+        order = pool[np.argsort(code[pool], kind="stable")]
+        n_tiles = order.size // nt
+        idx = order[: n_tiles * nt].reshape(n_tiles, nt)
+        # per-(block, tile) cell needs; loop tiles in chunks to bound mem
+        need_u = np.zeros(n_tiles, np.int64)
+        need_v = np.zeros(n_tiles, np.int64)
+        chunk = max(1, (1 << 22) // (nsb * nt))
+        for c0 in range(0, n_tiles, chunk):
+            sel = idx[c0: c0 + chunk].ravel()
+            ta = (p_a - op[sel][None, :]) / dp_s[sel][None, :]
+            tb = (p_b - op[sel][None, :]) / dp_s[sel][None, :]
+            lo_t = np.maximum(np.minimum(ta, tb), tlo[sel][None, :])
+            hi_t = np.minimum(np.maximum(ta, tb), thi[sel][None, :])
+            act = hi_t >= lo_t - 1e-4     # conservative vs the f32 kernel
+
+            def cell_need(o_c, d_c, g_pad, align):
+                a = o_c[sel][None, :] + lo_t * d_c[sel][None, :]
+                b2 = o_c[sel][None, :] + hi_t * d_c[sel][None, :]
+                lo = np.where(act, np.minimum(a, b2) - 1.0 - margin,
+                              np.inf)
+                hi = np.where(act, np.maximum(a, b2) + 1.0 + margin,
+                              -np.inf)
+                lo = np.clip(lo, 0.0, float(g_pad))
+                hi = np.clip(hi, 0.0, float(g_pad))
+                nc = lo.shape[1] // nt
+                lo = lo.reshape(nsb, nc, nt).min(-1)
+                hi = hi.reshape(nsb, nc, nt).max(-1)
+                need = np.ceil(hi) - (np.floor(lo).astype(np.int64)
+                                      // align) * align
+                return need.max(0).astype(np.int64)  # max over blocks
+
+            nc_ = sel.size // nt
+            need_u[c0: c0 + nc_] = cell_need(ou, du, gu_p, 16)
+            need_v[c0: c0 + nc_] = cell_need(ov, dv, gv_p, 8)
+        tiles_by[sg] = (idx, need_u, need_v)
+
+    def fit(need, widths, g_pad):
+        # g_pad itself is the terminal class: full extent in THIS axis is
+        # still a valid fused window when the other axis stays narrow
+        # (the kernel treats w >= extent as unwindowed for that dim,
+        # train_fused._window_plan), and need <= g_pad always (the
+        # cell ranges are grid-clipped), so nothing is left classless.
+        ws = [w for w in sorted(widths) if w < g_pad] + [g_pad]
+        out = np.zeros(len(need), np.int64)
+        for i, nd in enumerate(need):
+            out[i] = next(w for w in ws if nd <= w)
+        return out
+
+    # candidate classes from both sign pools, kept by ray count, tiles
+    # assigned smallest-fitting-kept-cover first
+    pair_count = {}
+    fitted = {}
+    for sg, (idx, nu, nv) in tiles_by.items():
+        wu_min = fit(nu, widths_u, gu_p)
+        wv_min = fit(nv, widths_v, gv_p)
+        fitted[sg] = (wu_min, wv_min)
+        for i in range(len(nu)):
+            if wu_min[i] and wv_min[i]:
+                key = (int(wu_min[i]), int(wv_min[i]))
+                pair_count[key] = pair_count.get(key, 0) + 1
+    kept = sorted(pair_count, key=lambda p: -pair_count[p])[:max_classes]
+    out = {}
+    rest_rows = []
+    for sg, (idx, nu, nv) in tiles_by.items():
+        wu_min, wv_min = fitted[sg]
+        assigned = np.full(len(nu), False)
+        for wu, wv in sorted(kept, key=lambda p: p[0] * p[1]):
+            sel = np.flatnonzero(~assigned & (wu_min != 0)
+                                 & (wu_min <= wu) & (wv_min != 0)
+                                 & (wv_min <= wv))
+            if sel.size == 0:
+                continue
+            assigned[sel] = True
+            out[(int(wu), int(wv), sg)] = idx[sel]
+        rest = np.flatnonzero(~assigned)
+        if rest.size:
+            rest_rows.append(idx[rest])
+    if rest_rows:
+        out[(0, 0, 0)] = np.concatenate(rest_rows, axis=0)
+    return out
+
+
 # Default gather style of topk_station_select. Both forms select exactly;
 # "gather" avoids the [N, K, S] one-hot tensor (0.5 GB at an 8192-ray
 # chunk of a 160^3 sweep).

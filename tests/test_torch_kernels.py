@@ -262,8 +262,10 @@ def test_kernel_signatures_match_their_c_prototypes(monkeypatch):
         return lib
 
     monkeypatch.setattr(_build, "load", fake_load)
-    for mod in (ka, kb, kc):
-        lib = mod._lib()
+    from directvoxgo_tpu_torch.ops import train_fused as kde
+    for load_lib in (ka._lib, kb._lib, kc._lib, kde._lib_fwd, kde._lib_bwd):
+        lib = load_lib()
+        assert lib.prototypes
         for fn, params in lib.prototypes.items():
             n = len([p for p in params.split(",") if p.strip()])
             assert len(getattr(lib, fn).argtypes) == n, fn
