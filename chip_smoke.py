@@ -8,8 +8,9 @@ Phases, each of which fails the run:
   1. hold each kernel against its plain PyTorch version on the card, at a
      small shape here (the sweep's backward in its full, segment and
      per-tile windowed forms; the fused train step in both colour modes,
-     both march directions, full and windowed) and at the main paths' full
-     shapes after phases 3, 5 and 6;
+     both march directions, full and windowed; the TV stencil on whole
+     grids and boxes) and at the main paths' full shapes after phases 3,
+     5, 6 and 7;
   2. build a full-width lego fine checkpoint (160^3 grid, k0 12, MLP
      39->128->128->3) from the fixture teacher density and seeded random
      colour weights, and save it in the checkpoint format;
@@ -42,7 +43,18 @@ Phases, each of which fails the run:
      frame's by 3 dB; print the tile classes, the remainder's share of rays,
      the fused step's time beside phase 5's unfused one and the gated
      samples per step; then both kernels against their plain versions, and
-     timed, on the inputs of the last fused step.
+     timed, on the inputs of the last fused step;
+  7. train DirectMPIGO on the forward-facing fern-width fixture
+     (configs/synthetic/fixture_ndc_fern.py with only its iteration counts
+     cut) through ``python -m directvoxgo_tpu_torch.run`` (in process), up
+     to the 352x371x128 grid with dense then sparse TV on every step, and
+     check one K-A and one K-C launch per step and two K-F launches (the TV
+     stencil: density and k0) per TV step, finite parameters, a rising
+     train PSNR, the checkpoint, and ``--render_test`` of the three
+     756x1008 test views against an all-black frame; print the median
+     step at the top grid, the stage time and a trace of top-grid steps;
+     then K-F in every form the run launched, K-A on a step and a render
+     chunk and K-C on a step, each against its plain version and timed.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line (one
 entry per kernel and form, each with the launches of the path it belongs
@@ -573,6 +585,61 @@ def small_fused_checks(torch, dev, tf):
     return errs
 
 
+# ------------------------------------------------ phase 1: the TV stencil
+
+def small_tv_checks(torch, dev, tv):
+    """K-F against its plain version: [X, Y, Z] and [X, Y, Z, C] grids,
+    dense and sparse, ``bug_compat`` on and off with anisotropic weights,
+    the whole grid and boxes touching 0, 1 and 3 faces of it, gradients
+    contiguous and strided (a channel slice, as autograd hands them over;
+    a box of the grid's gradient). Each output within 1e-6 of the largest
+    |TV| entry (both round every term the same way), zeros at the same
+    places, gated elements exactly the gradient."""
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 7)
+    worst, n_cases = 0.0, 0
+    boxes = (None, ((2, 2, 2), (4, 3, 4)), ((0, 2, 2), (4, 3, 4)),
+             ((5, 0, 4), (4, 3, 4)))
+    for shape in ((9, 7, 8), (9, 7, 8, 3)):
+        p = (torch.randn(shape, generator=gen) * 0.8).to(dev)
+        wide = (*shape[:3], 2 * (shape[3] if len(shape) > 3 else 1))
+        g_wide = (torch.randn(wide, generator=gen)
+                  * (torch.rand(wide, generator=gen) < 0.4)).to(dev)
+        g_strided = (g_wide[..., 1::2] if len(shape) > 3
+                     else g_wide[..., 1])
+        for bug in (True, False):
+            g = g_strided.contiguous() if bug else g_strided
+            for dense in (True, False):
+                for box in boxes:
+                    if box is None:
+                        args = (p, g, 0.9, 0.5, 0.2, dense, bug)
+                        out = tv.total_variation_add_grad(*args)
+                        ref = tv.total_variation_add_grad_plain(*args)
+                        g_in = g
+                    else:
+                        offs, sizes = box
+                        g_in = g[tuple(slice(o, o + z) for o, z in
+                                       zip(offs, sizes))]
+                        args = (p, g_in, offs, 0.9, 0.5, 0.2, dense, bug)
+                        out = tv.tv_add_grad_box(*args)
+                        ref = tv.tv_add_grad_box_plain(*args)
+                    torch.cuda.synchronize()
+                    scale = float((ref - g_in).abs().max())
+                    err = float((out - ref).abs().max())
+                    off = g_in == 0
+                    ok = (scale > 0 and err <= 1e-6 * scale
+                          and bool(((out == 0) == (ref == 0)).all())
+                          and (dense or bool(torch.equal(
+                              out[off], g_in[off] + 0.0))))
+                    if not ok:
+                        raise AssertionError(
+                            f"K-F {shape} bug_compat={bug} dense={dense} "
+                            f"box={box}: err {err} of {scale}")
+                    worst, n_cases = max(worst, err / scale), n_cases + 1
+    log(f"[phase 1] K-F tv_add_grad: {n_cases} small cases, largest error "
+        f"{worst:.3e} of the largest |TV| entry, zero patterns identical")
+    return worst
+
+
 # ----------------------------------------------------------------- phase 5
 
 def write_train_config():
@@ -597,6 +664,8 @@ class StepRecorder:
         self.orig = train_lib.make_train_step
         self.steps = []   # (stage, voxels, ms, psnr, loss, fused step?)
         self.last = {}    # (stage, fused step?) -> (step, args, kwargs)
+        self.last_tv = {}   # TV form of a step ("dense", "sparse", "none")
+        #                     -> (step, args, kwargs, voxels)
         self.inside = None   # stage of the step being taken, if any
         train_lib.make_train_step = self
 
@@ -611,9 +680,12 @@ class StepRecorder:
         stage = "fine" if model.rgbnet is not None else "coarse"
         clip = kw.get("clip_sizes")
         fused = clip is not None and clip[0] == "fblk"
+        apply_tv, tv_dense = args[3], args[4]
+        tv = ("dense" if tv_dense else "sparse") if apply_tv else "none"
 
         def timed(*a, **k):
             self.last[(stage, fused)] = (step, a, k)
+            self.last_tv[tv] = (step, a, k, int(np_prod(model.world_size)))
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             self.inside = stage
@@ -1112,13 +1184,14 @@ def fused_numbers(torch, tf, args, cfg, gp, cot):
     return out
 
 
-def profile_step(torch, step, args, kwargs, n_steps=3):
+def profile_step(torch, step, args, kwargs, n_steps=3, share_of=()):
     """``n_steps`` more calls of a train step under ``torch.profiler``: per
     step the host wall time (with the profiler's own cost in it), the
     device's busy time (the sum of its kernels and copies) and idle share,
-    the kernel count, and the ten kernels and the ten operators with the most
-    device time (ms per step). None when the profiler records no device
-    time."""
+    the kernel count, the ten kernels and the ten operators with the most
+    device time (ms per step) and, for each name in ``share_of``, the share
+    of the busy time in kernels whose name holds it. None when the profiler
+    records no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     step(*args, **kwargs)
@@ -1137,17 +1210,22 @@ def profile_step(torch, step, args, kwargs, n_steps=3):
         if dev_us <= 0:
             continue
         row = {"name": ev.key[:48], "ms": round(dev_us / 1e3 / n_steps, 4),
-               "calls": ev.count / n_steps}
+               "calls": ev.count / n_steps, "key": ev.key}
         (kernels if ev.device_type == DeviceType.CUDA else operators).append(
             row)
     if not kernels:
         return None
     busy = sum(r["ms"] for r in kernels)
+    shares = {name: sum(r["ms"] for r in kernels if name in r["key"]) / busy
+              for name in share_of}
+    for r in kernels + operators:
+        del r["key"]
     top = lambda rows: sorted(rows, key=lambda r: -r["ms"])[:10]  # noqa: E731
     return {"wall_ms": wall, "device_busy_ms": busy,
             "device_idle_share": max(0.0, 1.0 - busy / wall),
             "kernel_launches": sum(r["calls"] for r in kernels),
-            "top_kernels": top(kernels), "top_operators": top(operators)}
+            "top_kernels": top(kernels), "top_operators": top(operators),
+            **({"busy_share_of": shares} if share_of else {})}
 
 
 def fused_phase(torch, dev, tf, ka, kc, sweep_ops, phase5):
@@ -1305,6 +1383,438 @@ def fused_phase(torch, dev, tf, ka, kc, sweep_ops, phase5):
     return entries, summary
 
 
+# ----------------------------------------------------------------- phase 7
+
+FERN_CONFIG = os.path.join(CKPT_DIR, "train_fern.py")
+FERN_BASE = '../../configs/synthetic/fixture_ndc_fern.py'
+# The cuts of configs/synthetic/fixture_ndc_fern.py, iteration counts only:
+# fine N_iters 25000 -> 1000, pg_scale [2000, 4000, 6000, 8000] -> [100,
+# 200, 300, 400], tv_dense_before 10000 -> 700 (so both TV phases run at
+# the top grid). Everything else is the config's: 17 views at 756x1008,
+# N_rand 4096, 256^3 voxels at mpi_depth 128 (88x92x128 growing to
+# 352x371x128), rgbnet_dim 9, width 64, top-K 64, TV weights 1e-5 on every
+# step.
+FERN_ITERS = 1000
+FERN_PG_SCALE = [100, 200, 300, 400]
+FERN_TV_DENSE_BEFORE = 700
+
+
+def write_fern_config():
+    os.makedirs(CKPT_DIR, exist_ok=True)
+    with open(FERN_CONFIG, "w") as f:
+        f.write(f"_base_ = {FERN_BASE!r}\n"
+                "expname = 'train_fern'\n"
+                "basedir = './logs/chip_smoke'\n"
+                f"fine_train = {{'N_iters': {FERN_ITERS}, "
+                f"'pg_scale': {FERN_PG_SCALE}, "
+                f"'tv_dense_before': {FERN_TV_DENSE_BEFORE}}}\n")
+    return FERN_CONFIG
+
+
+class CallTimer:
+    """Wraps functions in their module (or class) namespace and keeps the
+    seconds of every call, ending in a device sync (``seconds``: name ->
+    list); the calls still run as before."""
+
+    def __init__(self, torch, targets):
+        self.seconds = {}
+        self.wrapped = []
+        for owner, name in targets:
+            orig = getattr(owner, name)
+            self.wrapped.append((owner, name, orig))
+            setattr(owner, name, self._wrap(torch, name, orig))
+
+    def _wrap(self, torch, name, orig):
+        def call(*a, **k):
+            t0 = time.time()
+            out = orig(*a, **k)
+            torch.cuda.synchronize()
+            self.seconds.setdefault(name, []).append(
+                round(time.time() - t0, 4))
+            return out
+        return call
+
+    def restore(self):
+        for owner, name, orig in self.wrapped:
+            setattr(owner, name, orig)
+
+
+class TVRecorder:
+    """Wraps the two entry points of K-F where the engine reaches them (the
+    whole-grid ``total_variation_add_grad`` as the MPI model imported it,
+    the boxed ``tv_add_grad_box`` in its module): every call still launches
+    (and counts) as before; calls are counted by form (dense or sparse,
+    whole grid or box, k0 or density), and the inputs of the calls made
+    during the steps in ``keep_steps`` (1-based) are cloned, so that the
+    last call of every form can be replayed exactly."""
+
+    def __init__(self, torch, tv_mod, mpi_mod, rec, keep_steps):
+        self.torch, self.rec, self.keep_steps = torch, rec, set(keep_steps)
+        self.counts = collections.Counter()
+        self.kept = {}      # form -> (entry, args, kwargs)
+        self.wrapped = []
+        for mod, name in ((mpi_mod, "total_variation_add_grad"),
+                          (tv_mod, "tv_add_grad_box")):
+            orig = getattr(mod, name)
+            self.wrapped.append((mod, name, orig))
+            setattr(mod, name, self._wrap(name, orig))
+
+    def _wrap(self, name, orig):
+        boxed = name == "tv_add_grad_box"
+
+        def call(param, grad, *args, **kw):
+            # (wx, wy, wz, dense_mode) / (offs, wx, wy, wz[, dense_mode])
+            dense = kw.get("dense_mode", args[3] if not boxed
+                           else (args[4] if len(args) > 4 else False))
+            form = (f"{'dense' if dense else 'sparse'}"
+                    f"{' box' if boxed else ''} "
+                    f"{'k0' if param.dim() == 4 else 'density'}")
+            self.counts[form] += 1
+            if len(self.rec.steps) + 1 in self.keep_steps:
+                self.kept[form] = (name, (param.detach().clone(),
+                                          grad.clone(), *args), dict(kw))
+            return orig(param, grad, *args, **kw)
+
+        return call
+
+    def restore(self):
+        for mod, name, orig in self.wrapped:
+            setattr(mod, name, orig)
+
+
+def tv_numbers(torch, tv, name, args, kw):
+    """K-F on these inputs, against its plain version and timed: the
+    largest error beside the largest |TV| entry (the plain output minus the
+    gradient), the zero patterns, and the bound: the gradient read and the
+    output written once, and the parameter once where the stencil needs it
+    (dense: the box and its 1-voxel halo inside the grid; sparse: the
+    elements whose gradient is nonzero and their six neighbours), about 27
+    f32 operations per element that takes the term."""
+    param, grad = args[0], args[1]
+    fn = getattr(tv, name)
+    plain = getattr(tv, name + "_plain")
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    ref = plain(*args, **kw)
+    term = (ref - grad).abs()
+    err = float((out - ref).abs().max())
+    scale = float(term.max())
+    zeros_differ = int(((out == 0) != (ref == 0)).sum())
+    boxed = name == "tv_add_grad_box"
+    dense = kw.get("dense_mode", args[5] if not boxed else
+                   (args[6] if len(args) > 6 else False))
+    gated_exact = True
+    if not dense:
+        off = grad == 0
+        gated_exact = bool(torch.equal(out[off], grad[off] + 0.0))
+    offs = tuple(int(o) for o in args[2]) if boxed else (0, 0, 0)
+    c = int(param.shape[3]) if param.dim() == 4 else 1
+    g4 = grad.reshape(*grad.shape[:3], c)
+    dims = tuple(int(d) for d in param.shape[:3])
+    sizes = tuple(int(d) for d in grad.shape[:3])
+    start, hs = tv._halo_box(dims, offs, sizes)
+    if dense:
+        n_param = int(np_prod(hs)) * c
+        n_term = grad.numel()
+    else:
+        need = torch.zeros((*hs, c), dtype=torch.bool, device=grad.device)
+        inner = tuple(slice(o - s, o - s + z)
+                      for o, s, z in zip(offs, start, sizes))
+        need[inner] = g4 != 0
+        core = need.clone()
+        for ax in range(3):
+            n = hs[ax]
+            if n > 1:
+                need.narrow(ax, 1, n - 1).logical_or_(core.narrow(ax, 0, n - 1))
+                need.narrow(ax, 0, n - 1).logical_or_(core.narrow(ax, 1, n - 1))
+        n_param = int(need.sum())
+        n_term = int(core.sum())
+    n_bytes = 4 * (n_param + 2 * grad.numel())
+    ops = 27 * n_term + grad.numel()
+    ms = cuda_time(lambda: fn(*args, **kw), 20)
+    plain_ms = cuda_time(lambda: plain(*args, **kw), 5)
+    by = "bytes" if n_bytes / HBM_BPS >= ops / F32_FLOPS else "operations"
+    log(f"[phase 7] K-F tv_add_grad {'box' if boxed else 'grid'} "
+        f"{'dense' if dense else 'sparse'} param {tuple(param.shape)} box "
+        f"{sizes} at {offs}: max|kernel-plain|={err:.3e} of the largest "
+        f"|TV| {scale:.3e}, zero pattern differs at {zeros_differ}, gated "
+        f"elements exactly the gradient: {gated_exact}, gradient nonzero "
+        f"share {float((grad != 0).float().mean()):.4f}")
+    if not (err <= 1e-6 * scale and scale > 0 and zeros_differ == 0
+            and gated_exact and bool(torch.isfinite(out).all())):
+        raise AssertionError(f"K-F: err {err} of {scale}, zero pattern "
+                             f"differs at {zeros_differ}, gated exact "
+                             f"{gated_exact}")
+    return err, {"ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": max(n_bytes / HBM_BPS, ops / F32_FLOPS) * 1e3,
+                 "bound_by": by, "library_ms": None, "bytes": n_bytes,
+                 "param_elements_read": n_param,
+                 "elements_with_term": n_term, "largest_tv": scale,
+                 "shape": f"param {tuple(param.shape)} box {sizes} at "
+                          f"{offs}, gradient nonzero "
+                          f"{float((grad != 0).float().mean()):.4f}"}
+
+
+def mpi_phase(torch, dev, tv, ka, kc, sweep_ops):
+    """Phase 7; returns the kernels-line entries of the NDC path (K-F in
+    each form the run launched, K-A on a step and a render chunk, K-C on a
+    step) and a summary of the run."""
+    import numpy as np
+    from directvoxgo_tpu_torch import convert
+    from directvoxgo_tpu_torch import run as run_lib
+    from directvoxgo_tpu_torch.config import Config
+    from directvoxgo_tpu_torch.data import load_everything
+    from directvoxgo_tpu_torch.engine import checkpoint as ckpt_lib
+    from directvoxgo_tpu_torch.engine import train as train_lib
+    from directvoxgo_tpu_torch.models import dmpigo as mpi_mod
+
+    cfg_path = write_fern_config()
+    cfg = Config.fromfile(cfg_path)
+    logdir = os.path.join(cfg.basedir, cfg.expname)
+
+    rec = StepRecorder(train_lib)
+    tvr = TVRecorder(torch, tv, mpi_mod, rec,
+                     (FERN_TV_DENSE_BEFORE - 1, FERN_ITERS))
+    cap_a = Capture(sweep_ops, "sweep_fwd", keep=1)
+    cap_c = Capture(sweep_ops, "sweep_bwd", keep=1)
+    stage_s = []
+    orig_stage = train_lib.scene_rep_reconstruction
+
+    def timed_stage(*a, **k):
+        t_s = time.time()
+        out = orig_stage(*a, **k)
+        torch.cuda.synchronize()
+        stage_s.append(time.time() - t_s)
+        return out
+
+    # Seconds of the work between steps: the state surgery (pg events,
+    # renewals) and the checkpoint's parts (optimizer state to the host,
+    # the f16 compaction, the pickled write of which it is a part, reads).
+    timer = CallTimer(torch, [
+        (mpi_mod.DirectMPIGO, "scale_volume_grid"),
+        (mpi_mod.DirectMPIGO, "update_occupancy_cache"),
+        (convert, "opt_state_to_jax"), (ckpt_lib, "_compact"),
+        (ckpt_lib, "save_checkpoint_file"),
+        (ckpt_lib, "load_checkpoint_file")])
+    train_lib.scene_rep_reconstruction = timed_stage
+    ka.launches = kc.launches = tv.launches = 0
+    t0 = time.time()
+    try:
+        run_lib.main(["--config", cfg_path, "--no_reload", "--i_print",
+                      "100", "--device", str(dev)])
+        torch.cuda.synchronize()
+    finally:
+        timer.restore()
+        train_lib.scene_rep_reconstruction = orig_stage
+        rec.restore()
+        tvr.restore()
+        cap_a.restore()
+        cap_c.restore()
+    wall_s = time.time() - t0
+    launches = {"sweep_fwd": ka.launches, "sweep_bwd": kc.launches,
+                "tv_add_grad": tv.launches}
+    steps = rec.steps
+    top = max(s[1] for s in steps)
+    top_steps = [s for s in steps if s[1] == top]
+    steps_s = sum(s[2] for s in steps) / 1e3
+    log(f"[phase 7] run.main trained {len(steps)} MPI steps (pg_scale "
+        f"{FERN_PG_SCALE}, {len(top_steps)} at {top} voxels) in "
+        f"{wall_s:.1f} s, the stage in {stage_s} s: steps {steps_s:.1f} s, "
+        f"between steps {timer.seconds} s; launches {launches}; K-F calls "
+        f"by form {dict(tvr.counts)}")
+    # One K-A and one K-C launch per step, two K-F launches per TV step
+    # (every step of this schedule): density and k0.
+    if not (len(steps) == FERN_ITERS and launches["sweep_fwd"] == FERN_ITERS
+            and launches["sweep_bwd"] == FERN_ITERS
+            and launches["tv_add_grad"] == 2 * FERN_ITERS
+            and sum(tvr.counts.values()) == 2 * FERN_ITERS
+            and len(top_steps) >= FERN_ITERS - FERN_PG_SCALE[-1]):
+        raise AssertionError(f"{len(steps)} steps do not match the launches "
+                             f"{launches} (K-F by form {dict(tvr.counts)})")
+    if not all(np.isfinite(s[3]) and np.isfinite(s[4]) for s in steps):
+        raise AssertionError("an MPI step's loss or PSNR is not finite")
+    psnr_first = float(np.mean([s[3] for s in steps[:50]]))
+    psnr_last = float(np.mean([s[3] for s in steps[-50:]]))
+    dense_top = [s[2] for i, s in enumerate(steps)
+                 if s[1] == top and i + 1 < FERN_TV_DENSE_BEFORE]
+    sparse_top = [s[2] for i, s in enumerate(steps)
+                  if s[1] == top and i + 1 >= FERN_TV_DENSE_BEFORE]
+    step_ms = {"dense_tv": median(dense_top[len(dense_top) // 10:]),
+               "sparse_tv": median(sparse_top[len(sparse_top) // 10:])}
+    log(f"[phase 7] train PSNR: first 50 steps {psnr_first:.2f} dB, last 50 "
+        f"{psnr_last:.2f} dB; median step at {top} voxels "
+        f"{step_ms['dense_tv']:.2f} ms with dense TV ({len(dense_top)} "
+        f"steps), {step_ms['sparse_tv']:.2f} ms with sparse TV "
+        f"({len(sparse_top)} steps) (host clock around a synced step)")
+    if not psnr_last > psnr_first:
+        raise AssertionError(f"train PSNR did not rise: {psnr_first} -> "
+                             f"{psnr_last}")
+
+    # The checkpoint loads back, with finite parameters at the top grid.
+    path = os.path.join(logdir, "fine_last.tar")
+    st = ckpt_lib.load_checkpoint_file(path)
+    model = ckpt_lib.load_model(mpi_mod.DirectMPIGO, path, device=dev)
+    finite = all(bool(torch.isfinite(p).all()) for p in model.parameters())
+    world_size = [int(x) for x in model.world_size]
+    log(f"[phase 7] {path}: step {st['global_step']}, world_size "
+        f"{model.world_size}, optimizer step "
+        f"{int(st['optimizer_state_dict']['step'])}, finite {finite}")
+    if not (finite and st["global_step"] == FERN_ITERS
+            and np_prod(model.world_size) == top):
+        raise AssertionError(f"{path}: step {st['global_step']}, world_size "
+                             f"{model.world_size}, finite {finite}")
+    del model
+
+    # Where a step's time goes: three more steps of the last dense-TV and
+    # the last sparse-TV step at the top grid, traced (the checkpoint is
+    # written; these steps train on and are not saved).
+    profiles = {}
+    for tv_form in ("dense", "sparse"):
+        step, a, k, vox = rec.last_tv[tv_form]
+        if vox == top:
+            profiles[f"{tv_form} TV"] = profile_step(
+                torch, step, a, k, share_of=("tv_add_grad",
+                                             "sweep_fwd", "sweep_bwd"))
+            log(f"[phase 7] trace of an MPI step with {tv_form} TV at the "
+                f"top grid: {profiles[f'{tv_form} TV']}")
+
+    # --render_test of the trained model: every test view per ray along z.
+    data = load_everything(None, cfg)
+    cap_r = Capture(run_lib, "render_viewpoints", results=True)
+    cap_ar = Capture(sweep_ops, "sweep_fwd")
+    rtimer = CallTimer(torch, [(ckpt_lib, "load_checkpoint_file")])
+    ka.launches = kc.launches = tv.launches = 0
+    t0 = time.time()
+    try:
+        run_lib.main(["--config", cfg_path, "--render_test", "--device",
+                      str(dev)])
+        torch.cuda.synchronize()
+    finally:
+        rtimer.restore()
+        cap_r.restore()
+        cap_ar.restore()
+    render_s = time.time() - t0
+    rgbs, _, stats = cap_r.results[0]
+    render_launches = ka.launches
+    psnr_test = float(np.mean(stats["psnr"]))
+    black = float(np.mean([-10.0 * np.log10(np.mean(np.asarray(
+        data["images"][i], np.float32) ** 2)) for i in data["i_test"]]))
+    log(f"[phase 7] --render_test of fine_last.tar: {len(stats['psnr'])} "
+        f"views at {rgbs.shape[1]}x{rgbs.shape[2]} in {render_s:.1f} s "
+        f"(checkpoint reads {rtimer.seconds} s), "
+        f"paths {stats['path']}, K-A launches {render_launches}, K-C "
+        f"{kc.launches}; test PSNR {psnr_test:.2f} dB, an all-black frame "
+        f"scores {black:.2f} dB")
+    if not (np.isfinite(rgbs).all() and kc.launches == 0
+            and render_launches > 0 and psnr_test >= black + 3.0):
+        raise AssertionError(f"render of the MPI model: PSNR {psnr_test} vs "
+                             f"black {black}, launches K-A "
+                             f"{render_launches}, K-C {kc.launches}")
+
+    # Where a view's time goes: one test view rendered as run.py renders it,
+    # and a trace of one 8192-ray chunk through the same render function.
+    from directvoxgo_tpu_torch import rays as ray_lib
+    from directvoxgo_tpu_torch.engine import render as render_lib
+    model = ckpt_lib.load_model(mpi_mod.DirectMPIGO, path, device=dev)
+    v = int(data["i_test"][-1])
+    H, W = (int(x) for x in data["HW"][v])
+    rk = {"near": data["near"], "far": data["far"], "bg": 0,
+          "stepsize": cfg.fine_model_and_render.stepsize,
+          "inverse_y": False, "render_depth": True}
+    view_ms = host_time(lambda: render_lib.render_viewpoints(
+        model, data["poses"][[v]], data["HW"][[v]], data["Ks"][[v]], True,
+        rk, verbose=False), 2)
+    ro, rd, vd = (torch.as_tensor(x.reshape(-1, 3)[H * W // 2:][:8192],
+                                  device=dev)
+                  for x in ray_lib.get_rays_of_a_view(
+                      H, W, data["Ks"][v], data["poses"][v], True, False,
+                      False, False))
+    render_fn = render_lib.make_render_fn(model, rk)
+    clip = model.sweep_clip_for_axis(2)
+    chunk_trace = profile_step(
+        torch, render_fn, (ro, rd, vd, 2, *clip), {},
+        share_of=("sweep_fwd",))
+    log(f"[phase 7] one {H}x{W} view per ray: {view_ms:.1f} ms; trace of "
+        f"one 8192-ray render chunk: {chunk_trace}")
+    del model
+
+    summary = {"config": "configs/synthetic/fixture_ndc_fern.py",
+               "steps": FERN_ITERS, "pg_scale": FERN_PG_SCALE,
+               "tv_dense_before": FERN_TV_DENSE_BEFORE, "top_voxels": top,
+               "top_world_size": world_size,
+               "steps_at_top": len(top_steps), "step_ms_at_top": step_ms,
+               "stage_s": stage_s, "train_wall_s": wall_s,
+               "train_psnr_first50": psnr_first,
+               "train_psnr_last50": psnr_last, "test_psnr": psnr_test,
+               "black_psnr": black, "render_s": render_s,
+               "render_checkpoint_reads_s": rtimer.seconds,
+               "steps_s": steps_s, "between_steps_s": timer.seconds,
+               "view_ms": view_ms, "render_chunk_trace": chunk_trace,
+               "render_sweep_launches": render_launches,
+               "tv_calls_by_form": dict(tvr.counts),
+               "step_traces": profiles}
+    return mpi_kernel_checks(torch, tv, ka, kc, tvr, cap_a, cap_ar, cap_c,
+                             launches, render_launches,
+                             len(stats["psnr"])), summary
+
+
+def mpi_kernel_checks(torch, tv, ka, kc, tvr, cap_a, cap_ar, cap_c,
+                      launches, render_launches, n_views):
+    """Phase 7's kernel checks: each kernel of the NDC path against its
+    plain version and timed, on the inputs of the run's calls."""
+    entries = []
+    # K-F in every form the run launched, on the inputs of its last call.
+    for form, (name, args, kw) in sorted(tvr.kept.items()):
+        err, nums = tv_numbers(torch, tv, name, args, kw)
+        log(f"[phase 7] K-F {form}: {nums}")
+        entries.append(dict(
+            {"name": f"tv_add_grad [{form}]", "route": "cuda",
+             "source": "directvoxgo_tpu_torch/csrc/tv_add_grad.cu",
+             "replaces": "directvoxgo_tpu/ops/tv.py:64 (_tv_rows_pallas)",
+             "launches": tvr.counts[form], "max_abs_err": err}, **nums))
+    missing = set(tvr.counts) - set(tvr.kept)
+    if missing:
+        raise AssertionError(f"K-F forms {missing} ran, but not on the last "
+                             "dense or the last sparse step")
+    # K-A and K-C on the last step's inputs, K-A on the middle render chunk
+    # of the last test view.
+    (slabs, a_rays, a_k, a_vb, a_wv), _ = cap_a.calls[-1]
+    slabs = slabs.detach()     # at k = 1 the slabs are the step's grid
+    err_a = check_sweep_rel(ka, slabs, a_rays, a_k, a_vb, a_wv,
+                            "MPI step, last step")
+    nums = fwd_numbers(torch, ka, slabs, a_rays, a_k, a_vb, a_wv)
+    log(f"[phase 7] K-A mpi step: {nums}")
+    entries.append(dict(
+        {"name": "sweep_fwd [mpi step]", "route": "cuda",
+         "source": "directvoxgo_tpu_torch/csrc/sweep_fwd.cu",
+         "replaces": "directvoxgo_tpu/ops/pallas_sweep_train.py:85",
+         "launches": launches["sweep_fwd"], "max_abs_err": err_a}, **nums))
+    r_slabs, r_rays, r_k = cap_ar.calls[len(cap_ar.calls) - 1 - len(
+        cap_ar.calls) // (2 * n_views)][0]
+    err_r = check_sweep_rel(ka, r_slabs, r_rays, r_k, None, 0,
+                            "MPI render chunk, middle of the last view")
+    nums = fwd_numbers(torch, ka, r_slabs, r_rays, r_k)
+    log(f"[phase 7] K-A mpi render: {nums}")
+    entries.append(dict(
+        {"name": "sweep_fwd [mpi render]", "route": "cuda",
+         "source": "directvoxgo_tpu_torch/csrc/sweep_fwd.cu",
+         "replaces": "directvoxgo_tpu/ops/pallas_sweep_train.py:85",
+         "launches": render_launches, "max_abs_err": err_r}, **nums))
+    (g, c_rays, c_k, c_shape, c_dtype, c_vb, c_wv), _ = cap_c.calls[-1]
+    err_c = check_bwd(kc, g, c_rays, c_k, c_shape, c_dtype, c_vb, c_wv,
+                      "MPI step, last step")
+    nums = bwd_numbers(torch, kc, g, c_rays, c_k, c_shape, c_dtype, c_vb,
+                       c_wv)
+    log(f"[phase 7] K-C mpi step: {nums}")
+    entries.append(dict(
+        {"name": "sweep_bwd [mpi step]", "route": "cuda",
+         "source": "directvoxgo_tpu_torch/csrc/sweep_bwd.cu",
+         "replaces": "directvoxgo_tpu/ops/pallas_sweep_train.py:247 "
+                     "(fold_bwd_partials :356)",
+         "launches": launches["sweep_bwd"], "max_abs_err": err_c}, **nums))
+    return entries
+
+
 def grid_sample_backward_call(torch, g, rays, k, grid_shape):
     """The backward of one ``grid_sample`` call over the station slabs: the
     library yardstick of K-C (per-station slab cotangents [S, C, Gu, Gv]
@@ -1339,6 +1849,7 @@ def run(dev):
     from directvoxgo_tpu_torch.ops import sweep_bwd as kc
     from directvoxgo_tpu_torch.ops import sweep_fwd as ka
     from directvoxgo_tpu_torch.ops import train_fused as tf
+    from directvoxgo_tpu_torch.ops import tv
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1353,6 +1864,7 @@ def run(dev):
     errs["sweep_fwd"] = check_sweep(ka, slabs, rays, k, "small")
     errs.update(small_train_kernel_checks(torch, dev, ka, kc, sweep_ops))
     errs.update(small_fused_checks(torch, dev, tf))
+    errs["tv_add_grad"] = small_tv_checks(torch, dev, tv)
     for rgb_mode, f_k0, width in (("direct", 12, 128),
                                   ("logit_plus_k0", 12, 64)):
         case = small_frame_case(torch, dev, width, f_k0, rgb_mode)
@@ -1543,8 +2055,14 @@ def run(dev):
     for entry in fused_entries:
         entry["small_shape_max_abs_err"] = errs[entry["name"].replace(
             "train_fused_", "train_")]
+    # Phase 7: the NDC path (DirectMPIGO at fern width).
+    mpi_entries, training["mpi"] = mpi_phase(torch, dev, tv, ka, kc,
+                                             sweep_ops)
+    for entry in mpi_entries:
+        if entry["name"].startswith("tv_add_grad"):
+            entry["small_shape_max_rel_err"] = errs["tv_add_grad"]
     return kernels[:1] + train_entries[:4] + kernels[1:] \
-        + train_entries[4:] + fused_entries, training
+        + train_entries[4:] + fused_entries + mpi_entries, training
 
 
 def sweep_voxels(torch, slabs, rays, k):

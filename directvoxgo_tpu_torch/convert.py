@@ -4,7 +4,8 @@ state.
 The JAX pytree is ``{"density": [X, Y, Z], "k0": [X, Y, Z, C],
 "rgbnet": {"layers": [{"w": [in, out], "b": [out]}, ...]}}`` with the
 occupancy mask beside it; the port's :class:`..models.dvgo.DirectVoxGO`
-holds ``density``, ``k0``, ``mask`` and ``rgbnet.layers.{i}.{weight, bias}``
+and :class:`..models.dmpigo.DirectMPIGO` hold ``density``, ``k0``, ``mask``
+and ``rgbnet.layers.{i}.{weight, bias}`` (no ``rgbnet`` without a colour MLP)
 with ``nn.Linear``'s ``[out, in]`` weights, so each ``w`` is transposed
 exactly once in either direction.
 """

@@ -1,5 +1,6 @@
-"""Dataset hub: dispatch by ``dataset_type`` (blender and the procedural
-fixture so far) and normalize near/far and the background policy."""
+"""Dataset hub: dispatch by ``dataset_type`` (blender, llff and the two
+procedural fixtures so far) and normalize near/far and the background
+policy (llff: from the bounds, or NDC's 0/1)."""
 
 from __future__ import annotations
 
@@ -12,8 +13,6 @@ _NOT_PORTED = {
     "tankstemple": "A10 (remaining loaders)",
     "deepvoxels": "A10 (remaining loaders)",
     "co3d": "A10 (remaining loaders)",
-    "llff": "A9 (DMPIGO and NDC)",
-    "ndc_fixture": "A9 (DMPIGO and NDC)",
 }
 
 
@@ -35,10 +34,38 @@ def load_data(args):
         i_train, i_val, i_test = i_split
         near, far = 2.0, 6.0
         images = _composite_bg(images, args.white_bkgd)
+    elif args.dataset_type == "llff":
+        from .load_llff import load_llff_data
+        images, depths, poses, bds, render_poses, i_test = load_llff_data(
+            args.datadir, args.factor, args.width, args.height,
+            recenter=True, bd_factor=0.75, spherify=args.spherify,
+            load_depths=args.load_depths)
+        hwf = poses[0, :3, -1]
+        poses = poses[:, :3, :4]
+        print("Loaded llff", images.shape, render_poses.shape, hwf,
+              args.datadir)
+        if not isinstance(i_test, (list, np.ndarray)):
+            i_test = [i_test]
+        if args.llffhold > 0:
+            print("Auto LLFF holdout,", args.llffhold)
+            i_test = np.arange(images.shape[0])[::args.llffhold]
+        i_val = i_test
+        i_train = np.array([i for i in np.arange(int(images.shape[0]))
+                            if i not in i_test and i not in i_val])
+        if args.ndc:
+            near, far = 0.0, 1.0
+        else:
+            near = float(np.min(bds)) * 0.9
+            far = float(np.max(bds)) * 1.0
+        print("NEAR FAR", near, far)
     elif args.dataset_type == "synthetic_fixture":
         from .synthetic import make_synthetic_dataset
         return make_synthetic_dataset(
             white_bkgd=args.white_bkgd,
+            **dict(getattr(args, "fixture_kwargs", None) or {}))
+    elif args.dataset_type == "ndc_fixture":
+        from .synthetic import make_ndc_fixture_dataset
+        return make_ndc_fixture_dataset(
             **dict(getattr(args, "fixture_kwargs", None) or {}))
     elif args.dataset_type == "blender":
         raise NotImplementedError(

@@ -1,6 +1,7 @@
-"""Procedural synthetic scene fixture (no external dataset needed).
+"""Procedural synthetic scene fixtures (no external dataset needed): the
+inward-facing blob scene and its forward-facing (NDC) variant.
 
-Same scene, poses and cache keys as the JAX package's fixture: the ground
+Same scenes, poses and cache keys as the JAX package's fixtures: the ground
 truth images are read from the committed ``fixture_cache/*.npz`` files.
 Generating missing ground truth (the teacher volume render) is not ported
 yet (ROADMAP queue A, "GT generation"); a missing cache file raises.
@@ -108,6 +109,53 @@ def make_synthetic_dataset(n_train=16, n_val=2, n_test=4, H=64, W=64,
         "HW": np.array([[H, W]] * n_total),
         "Ks": np.repeat(K[None], n_total, 0),
         "near": near, "far": far,
+        "i_train": idx[:n_train],
+        "i_val": idx[n_train:n_train + n_val],
+        "i_test": idx[n_train + n_val:],
+        "poses": poses[:, :3, :4].astype(np.float32),
+        "render_poses": render_poses[:, :3, :4].astype(np.float32),
+        "images": images,
+        "irregular_shape": False,
+    }
+
+
+def make_ndc_fixture_dataset(n_train=12, n_val=2, n_test=3, H=64, W=64,
+                             teacher_res=64, seed=0, cache_dir=None):
+    """The forward-facing (LLFF-style) fixture of the NDC pipeline: cameras
+    near the z = 0 plane with small x/y offsets looking down -z at the
+    teacher blobs; ``near``/``far`` are NDC's 0/1 (rays are reparameterized
+    by :func:`..rays.ndc_rays` downstream). A data_dict with the keys of
+    :func:`..load_data.load_everything`; ``cache_dir`` defaults to the
+    repository's ``fixture_cache/``. The ground truth is rendered in world
+    space by the JAX package; a missing cache file raises."""
+    rng = np.random.default_rng(seed)
+    focal = 0.8 * W
+    K = np.array([[focal, 0, 0.5 * W], [0, focal, 0.5 * H], [0, 0, 1]],
+                 np.float32)
+    n_total = n_train + n_val + n_test
+    poses = []
+    for _ in range(n_total):
+        c2w = np.eye(4, dtype=np.float32)
+        c2w[0, 3] = rng.uniform(-0.25, 0.25)
+        c2w[1, 3] = rng.uniform(-0.25, 0.25)
+        c2w[2, 3] = rng.uniform(-0.05, 0.05)
+        poses.append(c2w)
+    poses = np.stack(poses, 0)
+    key = f"ndc_{n_train}_{n_val}_{n_test}_{H}_{W}_{teacher_res}_{seed}_v1"
+    images = cache_load(f"fixture_{key}.npz", cache_dir)
+
+    idx = np.arange(n_total)
+    render_poses = []
+    for t in np.linspace(-0.2, 0.2, 8):
+        c2w = np.eye(4, dtype=np.float32)
+        c2w[0, 3] = t
+        render_poses.append(c2w)
+    render_poses = np.stack(render_poses, 0)
+    return {
+        "hwf": [H, W, focal],
+        "HW": np.array([[H, W]] * n_total),
+        "Ks": np.repeat(K[None], n_total, 0),
+        "near": 0.0, "far": 1.0,
         "i_train": idx[:n_train],
         "i_val": idx[n_train:n_train + n_val],
         "i_test": idx[n_train + n_val:],

@@ -23,6 +23,7 @@ import os
 import pickle
 
 import numpy as np
+import torch
 
 from .. import convert
 
@@ -63,15 +64,23 @@ def _map(tree, fn):
     return fn(tree)
 
 
+def _cast(x, dtype):
+    """``x.astype(dtype)`` between float32 and float16 through PyTorch's
+    vectorised CPU cast: the same IEEE round-to-nearest-even, but numpy's
+    half-precision cast takes tens of seconds for a fern-width grid and its
+    Adam moments."""
+    return torch.from_numpy(np.ascontiguousarray(x)).to(dtype).numpy()
+
+
 def _restore_f32(tree):
     """Widen float16 arrays (compacted grids) back to float32."""
-    return _map(tree, lambda x: x.astype(np.float32)
+    return _map(tree, lambda x: _cast(x, torch.float32)
                 if isinstance(x, np.ndarray) and x.dtype == np.float16
                 else x)
 
 
 def _compact(tree):
-    return _map(tree, lambda x: x.astype(np.float16)
+    return _map(tree, lambda x: _cast(x, torch.float16)
                 if isinstance(x, np.ndarray) and x.dtype == np.float32
                 and x.size >= _COMPACT_MIN_ELEMS else x)
 

@@ -4,7 +4,10 @@
 whole-frame camera sweep (:mod:`.render_sweep`, kernel K-B) and falls back
 to per-ray rendering (:func:`render_rays_chunked` over
 ``DirectVoxGO.forward_sweep``, kernel K-A) when the sweep plan rejects the
-camera.
+camera. NDC (forward-facing) views render per ray, every ray along the
+model's forced sweep axis (``DirectMPIGO.forward_sweep``, kernel K-A) in
+chunks over the occupancy clip box; the JAX package's 2D (u, v) windowed
+tiles are not ported (ROADMAP queue item 1).
 """
 
 from __future__ import annotations
@@ -66,14 +69,14 @@ def make_render_fn(model, render_kwargs):
 
 def render_rays_chunked(render_fn, model, rays_o, rays_d, viewdirs, chunk):
     """Render a flat numpy ray list in fixed-size padded chunks, grouped by
-    dominant axis (each chunk must share one); results return in input
-    order as numpy arrays."""
+    dominant axis (each chunk must share one; a model's
+    ``forced_sweep_axis`` takes every ray); results return in input order
+    as numpy arrays."""
     n = rays_o.shape[0]
     dev = model.device
     rgb_out = np.empty((n, 3), np.float32)
     dep_out = np.empty((n,), np.float32)
-    groups = sweep_ops.dominant_axis(rays_d, model.xyz_min, model.xyz_max,
-                                     model.world_size)
+    groups = sweep_ops.sweep_axes(model, rays_d)
     for axis in range(3):
         idx = np.flatnonzero(groups == axis)
         if not len(idx):
@@ -102,12 +105,8 @@ def render_viewpoints(model, render_poses, HW, Ks, ndc, render_kwargs,
     """Render a list of poses; compute PSNR (and SSIM) against ``gt_imgs``
     when given; write PNGs to ``savedir``. Returns (rgbs, depths, stats);
     ``stats["path"]`` names each view's path: "frame" (the camera sweep)
-    or "rays" (the per-ray fallback).
+    or "rays" (per ray: the fallback, and every NDC view).
     """
-    if ndc:
-        raise NotImplementedError(
-            "NDC (forward-facing) rendering is not ported yet "
-            "(ROADMAP A: DMPIGO and NDC)")
     assert len(render_poses) == len(HW) and len(HW) == len(Ks)
     if render_factor != 0:
         HW = np.copy(HW) // render_factor
@@ -119,7 +118,7 @@ def render_viewpoints(model, render_poses, HW, Ks, ndc, render_kwargs,
     for i, c2w in enumerate(render_poses):
         H, W = (int(x) for x in HW[i])
         K = Ks[i]
-        out = render_sweep_lib.render_frame_sweep(
+        out = None if ndc else render_sweep_lib.render_frame_sweep(
             model, H, W, np.asarray(K), np.asarray(c2w), render_kwargs)
         if out is not None:
             rgb, depth = out

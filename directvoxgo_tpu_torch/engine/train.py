@@ -24,6 +24,18 @@ and K-E) instead: each axis group is cut into same-class, direction-uniform
 tiles of one class, drawn in proportion to the class's ray count, and tiles
 no class covers train through the unfused step. The tiles are built in
 line, when a draw first meets a new grid or clip box.
+
+Forward-facing (NDC) configs train :class:`..models.dmpigo.DirectMPIGO`,
+whose rays all sweep along z (``forced_sweep_axis``); its LLFF schedule
+adds the TV gradient on every step (kernel K-F: dense over the whole grid,
+sparse over the whole grid, or sparse over the drawn clip box).
+
+Not ported yet from the JAX engine: the spatial window buckets and segment
+draws (``bucket_tiles``, ``build_ray_segments(_2d|_blocked)``, the blocked
+step and the 2D (u, v) windowed MPI draws; ROADMAP queue item 1), step
+batching (item 2), the gather forward and the exact view count (item 3),
+the re-bucketing of the fused trainer's remainder (item 1),
+``--data_parallel`` (item 6), and the profiling and export flags.
 """
 
 from __future__ import annotations
@@ -38,6 +50,7 @@ import torch
 from .. import convert
 from .. import rays as ray_lib
 from ..device import resolve_device
+from ..models.dmpigo import DirectMPIGO
 from ..models.dvgo import DirectVoxGO
 from ..ops import grid as grid_ops
 from ..ops import sweep as sweep_ops
@@ -88,6 +101,11 @@ def compute_bbox_by_coarse_geo(model_class, model_path, thres, device=None):
     print("compute_bbox_by_coarse_geo: xyz_min", xyz_min)
     print("compute_bbox_by_coarse_geo: xyz_max", xyz_max)
     return xyz_min, xyz_max
+
+
+def model_class_for(cfg):
+    """DirectMPIGO for forward-facing (NDC) configs, else DirectVoxGO."""
+    return DirectMPIGO if cfg.data.ndc else DirectVoxGO
 
 
 def _param_groups(model):
@@ -234,27 +252,17 @@ def make_train_step(model, optimizer, cfg_train, render_kwargs,
 
         with torch.no_grad():
             if apply_tv and region_mode:
-                # Boxed sparse TV: the term on a 1-voxel-haloed slice of the
-                # box read from the full grid (edge voxels of the box need
-                # their true neighbours), gated by the batch gradient.
+                # Boxed sparse TV: the term on the box, its neighbours read
+                # from the full grid (edge voxels of the box need their
+                # true neighbours), gated by the batch gradient.
                 sx, sy, sz = model.tv_axis_scales()
                 for name, wn in (("density", w_tv_density), ("k0", w_tv_k0)):
                     if wn <= 0 or name not in grads:
                         continue
-                    full = getattr(model, name)
-                    g3 = tuple(int(d) for d in full.shape[:3])
-                    hs = tuple(min(s + 2, g) for s, g in zip(sizes_xyz, g3))
-                    start = tuple(int(np.clip(o - 1, 0, g - h))
-                                  for o, g, h in zip(offs_xyz, g3, hs))
-                    halo = full[tuple(slice(s, s + h)
-                                      for s, h in zip(start, hs))]
-                    tv_h = tv_ops.tv_term(halo, wn / n_rand * sx,
-                                          wn / n_rand * sy, wn / n_rand * sz)
-                    tv_box = tv_h[tuple(slice(o - s, o - s + z) for o, s, z
-                                        in zip(offs_xyz, start, sizes_xyz))]
-                    g = grads[name][0]
-                    grads[name] = [g + torch.where(
-                        g != 0, tv_box, torch.zeros_like(tv_box))]
+                    grads[name] = [tv_ops.tv_add_grad_box(
+                        getattr(model, name).detach(), grads[name][0],
+                        offs_xyz, wn / n_rand * sx, wn / n_rand * sy,
+                        wn / n_rand * sz)]
             elif apply_tv:
                 if w_tv_density > 0 and "density" in grads:
                     grads["density"] = [model.density_total_variation_grad(
@@ -338,7 +346,7 @@ def scene_rep_reconstruction(args, cfg, cfg_model, cfg_train, xyz_min,
         num_voxels = model_kwargs.pop("num_voxels")
         if len(cfg_train.pg_scale):
             num_voxels = int(num_voxels / (2 ** len(cfg_train.pg_scale)))
-        model = DirectVoxGO(
+        model = model_class_for(cfg)(
             xyz_min=xyz_min, xyz_max=xyz_max, num_voxels=num_voxels,
             mask_cache_path=coarse_ckpt_path, device=device,
             generator=torch.Generator().manual_seed(
@@ -350,7 +358,7 @@ def scene_rep_reconstruction(args, cfg, cfg_model, cfg_train, xyz_min,
         print(f"scene_rep_reconstruction ({stage}): reload from "
               f"{reload_ckpt_path}")
         st = ckpt_lib.load_checkpoint_file(reload_ckpt_path)
-        model = ckpt_lib.load_model(DirectVoxGO, reload_ckpt_path,
+        model = ckpt_lib.load_model(model_class_for(cfg), reload_ckpt_path,
                                     device=device)
         optimizer = create_optimizer_or_freeze_model(model, cfg_train)
         start = int(st["global_step"])
@@ -382,10 +390,9 @@ def scene_rep_reconstruction(args, cfg, cfg_model, cfg_train, xyz_min,
     rng = np.random.default_rng(getattr(args, "seed", 777))
 
     # Group the pool by each ray's dominant axis so that every batch shares
-    # one sweep axis; the axis of a step is drawn with probability
-    # proportional to its group's size.
-    groups = sweep_ops.dominant_axis(rays_d_np, model.xyz_min, model.xyz_max,
-                                     model.world_size)
+    # one sweep axis (MPI grids: every ray to z); the axis of a step is
+    # drawn with probability proportional to its group's size.
+    groups = sweep_ops.sweep_axes(model, rays_d_np)
     group_idx = [np.flatnonzero(groups == ax) for ax in range(3)]
     group_p = np.array([len(g) for g in group_idx], np.float64)
     group_p = group_p / group_p.sum()
@@ -550,7 +557,10 @@ def scene_rep_reconstruction(args, cfg, cfg_model, cfg_train, xyz_min,
             n_rest_scales = len(cfg_train.pg_scale) \
                 - list(cfg_train.pg_scale).index(global_step) - 1
             cur_voxels = int(cfg_model.num_voxels / (2 ** n_rest_scales))
-            model.scale_volume_grid(cur_voxels)
+            if hasattr(model, "mpi_depth"):
+                model.scale_volume_grid(cur_voxels, model.mpi_depth)
+            else:
+                model.scale_volume_grid(cur_voxels)
             optimizer = create_optimizer_or_freeze_model(model, cfg_train)
             with torch.no_grad():
                 model.density.sub_(1.0)

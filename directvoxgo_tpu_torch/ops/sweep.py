@@ -155,12 +155,14 @@ def sweep_samples(grid, rays_o, rays_d, xyz_min, xyz_max, axis, k,
 
     Returns dict: vals [C, N, S], t [N, S], forward [N] (True where t
     ascends with the station index), interval [N] (world distance between
-    consecutive stations).
+    consecutive stations), p_offset (float: the sweep-axis voxel of station
+    0, the clip box's start; 0 unclipped).
     """
     if world_size is None:
         world_size = grid.shape[:3]
     o_pv, d_pv = rays_to_voxel(rays_o, rays_d, xyz_min, xyz_max,
                                world_size, axis)
+    p_offset = 0.0
     if clip_sizes is not None:
         offs = [int(v) for v in np.asarray(clip_offsets)]
         if slabs is None and not pre_clipped:
@@ -169,6 +171,7 @@ def sweep_samples(grid, rays_o, rays_d, xyz_min, xyz_max, axis, k,
                                     + int(clip_sizes[inv[a]]))
                               for a in range(3))]
         o_pv = tuple(o - float(off) for o, off in zip(o_pv, offs))
+        p_offset = float(offs[0])
     if slabs is not None:
         vals, t = station_sweep_slabs(slabs, (o_pv, d_pv), k)
     else:
@@ -186,7 +189,8 @@ def sweep_samples(grid, rays_o, rays_d, xyz_min, xyz_max, axis, k,
     forward = d_pv[0] >= 0
     d_norm = torch.sqrt(torch.sum(rays_d * rays_d, -1))
     interval = d_norm / (k * torch.clamp(d_pv[0].abs(), min=1e-10))
-    return {"vals": vals, "t": t, "forward": forward, "interval": interval}
+    return {"vals": vals, "t": t, "forward": forward, "interval": interval,
+            "p_offset": p_offset}
 
 
 def dominant_axis(rays_d, xyz_min, xyz_max, world_size):
@@ -195,6 +199,16 @@ def dominant_axis(rays_d, xyz_min, xyz_max, world_size):
     scale = (np.asarray(world_size) - 1.0) / (
         np.asarray(xyz_max, np.float64) - np.asarray(xyz_min, np.float64))
     return np.argmax(np.abs(rays_d * scale), axis=-1)
+
+
+def sweep_axes(model, rays_d):
+    """[N] sweep axis of each ray of ``model``: its ``forced_sweep_axis``
+    for every ray (MPI grids: z), else each ray's dominant axis."""
+    forced = getattr(model, "forced_sweep_axis", None)
+    if forced is not None:
+        return np.full(np.shape(rays_d)[0], forced, np.int64)
+    return dominant_axis(rays_d, model.xyz_min, model.xyz_max,
+                         model.world_size)
 
 
 def _round_up(x, m):

@@ -1,5 +1,7 @@
 """Command line of the port: trains a scene coarse then fine and
-renders the result, or renders a trained checkpoint.
+renders the result, or renders a trained checkpoint. Forward-facing
+(``data.ndc``) configs train and render DirectMPIGO, the others
+DirectVoxGO.
 
 Takes the same flags as the JAX package's ``run.py``. Training
 (``--no_reload``, ``--no_reload_optimizer``, ``--ft_path``, ``--i_print``,
@@ -12,6 +14,8 @@ until their slice is ported. Usage::
       --config configs/synthetic/fixture_lego_sparse.py --render_test
   python -m directvoxgo_tpu_torch.run --config configs/nerf/lego.py \\
       --render_only --render_test [--ft_path ckpt.tar] [--device cuda]
+  python -m directvoxgo_tpu_torch.run \\
+      --config configs/synthetic/fixture_ndc_tiny.py --device cpu --render_test
 """
 
 from __future__ import annotations
@@ -30,7 +34,6 @@ from .engine import checkpoint as ckpt_lib
 from .engine import metrics as metrics_lib
 from .engine import train as train_lib
 from .engine.render import render_viewpoints, write_png
-from .models.dvgo import DirectVoxGO
 
 # flag -> the ROADMAP item that ports it
 _NOT_PORTED = {
@@ -80,15 +83,11 @@ def config_parser():
     return parser
 
 
-def _check_supported(args, cfg):
+def _check_supported(args):
     for flag, item in _NOT_PORTED.items():
         if getattr(args, flag):
             raise NotImplementedError(
                 f"--{flag} is not ported yet ({item})")
-    if cfg.data.ndc:
-        raise NotImplementedError(
-            "ndc configs (DMPIGO) are not ported yet (ROADMAP A9: DMPIGO "
-            "and NDC)")
 
 
 def _write_frames(savedir, rgbs, depths):
@@ -108,7 +107,7 @@ def _write_frames(savedir, rgbs, depths):
 def main(argv=None):
     args = config_parser().parse_args(argv)
     cfg = Config.fromfile(args.config)
-    _check_supported(args, cfg)
+    _check_supported(args)
     device = resolve_device(args.device)
     np.random.seed(args.seed)
     random.seed(args.seed)
@@ -125,7 +124,8 @@ def main(argv=None):
     else:
         ckpt_path = os.path.join(cfg.basedir, cfg.expname, 'fine_last.tar')
     ckpt_name = os.path.basename(ckpt_path)[:-4]
-    model = ckpt_lib.load_model(DirectVoxGO, ckpt_path, device=device)
+    model = ckpt_lib.load_model(train_lib.model_class_for(cfg), ckpt_path,
+                                device=device)
     common = {
         'model': model,
         'ndc': cfg.data.ndc,

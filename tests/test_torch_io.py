@@ -113,7 +113,7 @@ def test_blender_data_matches_jax(tmp_path):
 
 
 def test_other_loaders_name_their_roadmap_item():
-    args = jax_config.ConfigDict(dataset_type="llff")
+    args = jax_config.ConfigDict(dataset_type="nsvf")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         torch_load_data.load_data(args)
 
@@ -209,6 +209,26 @@ def test_checkpoint_port_to_jax_compact(tmp_path):
     tm2 = torch_ckpt.load_model(TorchDVGO, path, device="cpu")
     np.testing.assert_array_equal(tm2.k0.detach().numpy(),
                                   np.asarray(jm.params["k0"]))
+
+
+def test_checkpoint_half_casts_match_numpy():
+    """The compaction's float32 -> float16 cast and the load's widening
+    give numpy's ``astype`` bit for bit: normal, subnormal, overflowing,
+    halfway and signed-zero values."""
+    rng = np.random.default_rng(3)
+    # big enough to be compacted (_COMPACT_MIN_ELEMS)
+    x = np.concatenate([
+        rng.normal(0, 3, 1_000_000), rng.normal(0, 1e-6, 10_000),
+        [0.0, -0.0, 6.5e4, 6.6e4, -1e6, np.inf, -np.inf, 2.0 ** -25,
+         2.0 ** -24, 1.0 + 2.0 ** -11, 1.0 + 3 * 2.0 ** -11]]).astype(
+        np.float32)
+    half = torch_ckpt._compact({"g": x})["g"]
+    assert half.dtype == np.float16
+    np.testing.assert_array_equal(half.view(np.uint16),
+                                  x.astype(np.float16).view(np.uint16))
+    wide = torch_ckpt._restore_f32({"g": half})["g"]
+    np.testing.assert_array_equal(wide.view(np.uint32),
+                                  half.astype(np.float32).view(np.uint32))
 
 
 def test_checkpoint_loader_refuses_code(tmp_path):

@@ -263,7 +263,9 @@ def test_kernel_signatures_match_their_c_prototypes(monkeypatch):
 
     monkeypatch.setattr(_build, "load", fake_load)
     from directvoxgo_tpu_torch.ops import train_fused as kde
-    for load_lib in (ka._lib, kb._lib, kc._lib, kde._lib_fwd, kde._lib_bwd):
+    from directvoxgo_tpu_torch.ops import tv as kf
+    for load_lib in (ka._lib, kb._lib, kc._lib, kde._lib_fwd, kde._lib_bwd,
+                     kf._lib):
         lib = load_lib()
         assert lib.prototypes
         for fn, params in lib.prototypes.items():
