@@ -54,7 +54,19 @@ Phases, each of which fails the run:
      756x1008 test views against an all-black frame; print the median
      step at the top grid, the stage time and a trace of top-grid steps;
      then K-F in every form the run launched, K-A on a step and a render
-     chunk and K-C on a step, each against its plain version and timed.
+     chunk and K-C on a step, each against its plain version and timed;
+  8. run the frame-kernel harness (``python -m
+     directvoxgo_tpu_torch.tools.bench_framekernel``, in process): check
+     (three colour modes at 128x256, S=32, 48x40 slabs; v1 against v3, v3
+     against v4, and every form's kernel against its plain version) and
+     perf (v3, v3+gate, v4, v4+gate, v3+gate geo-only, v1 at 1024^2,
+     S=192, 160x160 slabs, F 12, W 128, occupancy 0.05), then the op probe
+     (``directvoxgo_tpu_torch.tools.probe_ops``: eleven op classes and the
+     null body through K-G, each digest against its plain version, per-op
+     cost against its bound and one library call), and check that K-B ran
+     in its v1, v3 and v4 forms and K-G for every class; then the v1 and
+     v3 forms against their plain versions at the bench shape, timed with
+     their layout adapters apart.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line (one
 entry per kernel and form, each with the launches of the path it belongs
@@ -1838,6 +1850,119 @@ def grid_sample_backward_call(torch, g, rays, k, grid_shape):
 
 
 
+# ----------------------------------------------------------------- phase 8
+
+HARNESS_TIMED = 10      # CUDA-event runs of each full-shape frame timing
+
+
+def harness_phase(torch, dev, kb):
+    """Phase 8: the port's second entry point into the frame kernels, the
+    frame-kernel harness, and the op probe. Runs ``bench_framekernel``
+    check (the three colour modes, every form against its plain version)
+    and perf (six variants at the bench shape) and ``probe_ops`` (every
+    class's digest against its plain version, per-op costs), with the
+    launch counts set to 0 just before; then holds the v1 and v3 forms
+    against their plain versions at the bench shape and times them.
+    Returns the ``kernels`` entries of the two forms and the twelve probe
+    classes, and the harness's own numbers."""
+    from directvoxgo_tpu_torch.ops import probe_ops as kg
+    from directvoxgo_tpu_torch.tools import bench_framekernel as bench
+    from directvoxgo_tpu_torch.tools import probe_ops as probe_tool
+
+    for form in kb.launches_by_form:
+        kb.launches_by_form[form] = 0
+    for name in kg.launches:
+        kg.launches[name] = 0
+    t0 = time.time()
+    held = bench.check(dev)
+    perf = bench.perf(dev)
+    rows = probe_tool.measure(dev)
+    torch.cuda.synchronize()
+    forms, probes = dict(kb.launches_by_form), dict(kg.launches)
+    log(f"[phase 8] harness check + perf and probe in {time.time() - t0:.1f}"
+        f" s; K-B launches by form {forms}, K-G launches {probes}")
+    missing = [f for f in ("v1", "v3", "v4") if forms[f] < 1] \
+        + [n for n, c in probes.items() if c < 1]
+    if missing:
+        raise AssertionError(f"phase 8 launched no kernel for {missing}")
+
+    case = bench.to_device(bench.make_case(**bench.PERF_SHAPE), dev)
+    shape = (f"{bench.PERF_SHAPE['hi']}x{bench.PERF_SHAPE['wi']} "
+             f"intermediate, S={bench.PERF_SHAPE['s_total']}, slab "
+             f"{bench.PERF_SHAPE['gu']}x{bench.PERF_SHAPE['gv']}, F 12, W 128,"
+             f" occupancy {bench.PERF_SHAPE['occupancy']}")
+    entries = []
+    for form, name, replaces, args_fn, entry_fn in (
+            ("v1", "render_frame [v1]",
+             "directvoxgo_tpu/ops/pallas_render.py:49", bench.v1_args,
+             bench.run_v1),
+            ("v3", "render_frame [v3 shared1]",
+             "directvoxgo_tpu/ops/pallas_render3.py:51", bench.v3_args,
+             bench.run_v3)):
+        args = args_fn(case)
+        errs, stats = bench.hold_kernel(args)
+        log(f"[phase 8] K-B {form} at the bench shape: kernel-plain "
+            + " ".join(f"{k}={v:.3e}" for k, v in errs.items())
+            + f", visible samples {stats['visible_samples']}")
+        if not bench.within_tol(errs):
+            raise AssertionError(f"K-B {form}: {errs} outside "
+                                 f"{bench.KERNEL_TOL}")
+        ms = cuda_time(lambda: kb.render_frame(**args), HARNESS_TIMED)
+        adapter_ms = cuda_time(lambda: args_fn(case), HARNESS_TIMED)
+        entry_ms = cuda_time(lambda: entry_fn(case), HARNESS_TIMED)
+        plain_ms = cuda_time(lambda: kb.render_frame_plain(**args), 3,
+                             warmup=1)
+        bound, by, n_bytes, mlp_flops, geo_flops = frame_bound(args, stats)
+        small = max((max(errs_f[form]["rgb"], errs_f[form]["tcum"])
+                     for errs_f in held.values()), default=None)
+        entries.append(
+            {"name": name, "route": "cuda",
+             "source": "directvoxgo_tpu_torch/csrc/render_frame.cu",
+             "replaces": replaces, "launches": forms[form],
+             "max_abs_err": max(errs["rgb"], errs["tcum"]), "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+             "library_ms": None,
+             "library": "none: no single PyTorch call computes the march, "
+                        "the gates and the MLP",
+             "adapter_ms": adapter_ms, "entry_ms": entry_ms,
+             "depth_rel_err": errs["depth_rel"],
+             "small_shape_max_abs_err": small, "bytes": n_bytes,
+             "mlp_operations": mlp_flops, "geo_operations": geo_flops,
+             "visible_samples": stats["visible_samples"],
+             "live_samples": stats["live_samples"], "shape": shape})
+        log(f"[phase 8] K-B {form}: kernel {ms:.3f} ms, adapter "
+            f"{adapter_ms:.3f} ms, entry {entry_ms:.3f} ms, plain "
+            f"{plain_ms:.1f} ms, bound {bound:.4f} ms ({by})")
+    for cls, row in rows.items():
+        per = "launch" if cls == "null" else "op"
+        scale = 1.0 if per == "launch" else row["g"] * row["reps"]
+        entry = {"name": f"probe_ops [{cls}]", "route": "cuda",
+                 "source": "directvoxgo_tpu_torch/csrc/probe_ops.cu",
+                 "replaces": "tools/probe_mosaic.py:44",
+                 "launches": probes[cls],
+                 "max_abs_err": abs(row["digest"] - row["plain_digest"]),
+                 "rel_err": row["rel_err"], "per": per,
+                 "ms": (row["launch_ms"] if per == "launch"
+                        else row["op_us"] / 1e3),
+                 "plain_ms": row["plain_ms"] / (1.0 if per == "launch"
+                                                else row["reps"]),
+                 "bound_ms": row["bound_ms"] / scale,
+                 "bound_by": row["bound_by"],
+                 "library_ms": row["library_op_us"] / 1e3,
+                 "launch_ms": row["launch_ms"], "g": row["g"],
+                 "reps": row["reps"]}
+        if cls == "null":
+            entry.update(null_ms=row["null_ms"],
+                         per_block_us=row["per_block_us"])
+        entries.append(entry)
+    log(f"[phase 8] probe, per op (us): " + ", ".join(
+        f"{c} {r['op_us']:.3f} (bound {r['bound_op_us']:.3f}, library "
+        f"{r['library_op_us']:.3f})" for c, r in rows.items() if c != "null"))
+    harness = {"perf": perf, "check": {f"{m} mlp={h}": v
+                                       for (m, h), v in held.items()}}
+    return entries, harness
+
+
 # ----------------------------------------------------------------- main
 
 def run(dev):
@@ -1993,24 +2118,7 @@ def run(dev):
     bound_a = max(bytes_a / HBM_BPS, ops_a / F32_FLOPS) * 1e3
     by_a = "bytes" if bytes_a / HBM_BPS >= ops_a / F32_FLOPS else "operations"
     hi, wi = f800["dnorm"].shape
-    width = f800["layers"][1][0].shape[0]
-    emb = f800["vd_emb"].shape[-1]
-    f_mlp = f800["layers"][0][0].shape[0] - emb
-    f_k0 = f800["d_k0"].shape[-1]
-    bytes_b = (stats["geo_voxels"] * 2 * 2                 # density, mask
-               + stats["k0_voxels"] * f_k0 * 2
-               + stats["visible_pixels"] * emb * 2         # vd_emb
-               + stats["live_pixels"] * 2 * 4              # dnorm, dclip
-               + (hi + wi) * 4 + f800["activity"].numel() * 4
-               + sum(w.numel() * 2 + b.numel() * 4 for w, b in f800["layers"])
-               + hi * wi * 5 * 4)                          # rgb, depth, T
-    mlp_flops = 2 * (stats["visible_samples"] * (f_mlp * width
-                                                 + width * width + 3 * width)
-                     + stats["visible_pixels"] * emb * width)
-    geo_flops = stats["live_samples"] * 40
-    t_ops_b = mlp_flops / BF16_FLOPS + geo_flops / F32_FLOPS
-    bound_b = max(bytes_b / HBM_BPS, t_ops_b) * 1e3
-    by_b = "bytes" if bytes_b / HBM_BPS >= t_ops_b else "operations"
+    bound_b, by_b, bytes_b, mlp_flops, geo_flops = frame_bound(f800, stats)
     log(f"[phase 4] 800^2 frame: inter {hi}x{wi}, S={f800['d_geo'].shape[0]},"
         f" {stats}; K-B {ms_b:.4f} ms, plain {plain_b:.1f} ms, whole frame "
         f"{frame_ms:.2f} ms; K-B bound {bound_b:.5f} ms ({by_b}: "
@@ -2030,8 +2138,7 @@ def run(dev):
          "shape": f"S={s_total} slab={gu}x{gv}x{c} N={n}"},
         {"name": "render_frame", "route": "cuda",
          "source": "directvoxgo_tpu_torch/csrc/render_frame.cu",
-         "replaces": "directvoxgo_tpu/ops/pallas_render4.py:74 and "
-                     "directvoxgo_tpu/ops/pallas_render3.py:51",
+         "replaces": "directvoxgo_tpu/ops/pallas_render4.py:74",
          "launches": launches["render_frame"],
          "max_abs_err": errs["render_frame"], "ms": ms_b,
          "plain_ms": plain_b, "bound_ms": bound_b, "bound_by": by_b,
@@ -2061,8 +2168,49 @@ def run(dev):
     for entry in mpi_entries:
         if entry["name"].startswith("tv_add_grad"):
             entry["small_shape_max_rel_err"] = errs["tv_add_grad"]
+    # Phase 8: the frame-kernel harness (v1, v3, v4) and the op probe.
+    harness_entries, training["harness"] = harness_phase(torch, dev, kb)
     return kernels[:1] + train_entries[:4] + kernels[1:] \
-        + train_entries[4:] + fused_entries + mpi_entries, training
+        + train_entries[4:] + fused_entries + mpi_entries \
+        + harness_entries, training
+
+
+def frame_bound(f, stats):
+    """K-B's bound on the frame ``f`` (``render_frame``'s keyword
+    arguments), from its plain version's ``stats``: (ms, "bytes" or
+    "operations", bytes, MLP operations, f32 geometry operations). Bytes:
+    the slab voxels the live and visible samples read, the view input of
+    the visible pixels (the embedding, or ``shared1`` in the v3 and v1
+    forms), the per-pixel inputs of the live pixels, the weights and the
+    outputs once. Operations: the MLP of the visible samples at the bf16
+    rate (with the embedding's layer-1 half per visible pixel in the v4
+    form) and ~40 f32 operations per live sample."""
+    hi, wi = f["dnorm"].shape
+    layers = f["layers"]
+    width = layers[1][0].shape[0]
+    if f.get("shared1") is None:
+        view = f["vd_emb"].shape[-1]
+        f_mlp = layers[0][0].shape[0] - view
+        view_flops = stats["visible_pixels"] * view * width
+    else:
+        view, f_mlp, view_flops = width, layers[0][0].shape[0], 0
+    f_k0 = f["d_k0"].shape[-1]
+    n_bytes = (stats["geo_voxels"] * 2 * 2                 # density, mask
+               + stats["k0_voxels"] * f_k0 * 2
+               + stats["visible_pixels"] * view * 2        # vd_emb / shared1
+               + stats["live_pixels"] * 2 * 4              # dnorm, dclip
+               + (hi + wi) * 4 + f["activity"].numel() * 4
+               + sum(w.numel() * 2 + (0 if b is None else b.numel() * 4)
+                     for w, b in layers)
+               + hi * wi * 5 * 4)                          # rgb, depth, T
+    mlp_flops = 2 * (stats["visible_samples"] * (f_mlp * width
+                                                 + width * width + 3 * width)
+                     + view_flops)
+    geo_flops = stats["live_samples"] * 40
+    t_ops = mlp_flops / BF16_FLOPS + geo_flops / F32_FLOPS
+    return (max(n_bytes / HBM_BPS, t_ops) * 1e3,
+            "bytes" if n_bytes / HBM_BPS >= t_ops else "operations",
+            n_bytes, mlp_flops, geo_flops)
 
 
 def sweep_voxels(torch, slabs, rays, k):

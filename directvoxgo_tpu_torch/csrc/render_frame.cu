@@ -2,10 +2,15 @@
 // pixel, march the station slabs front to back (density/mask warp, alpha,
 // transmittance, the colour MLP where a sample is visible).
 //
-// Replaces: directvoxgo_tpu/ops/pallas_render4.py::render_frame_pallas4 and
-// directvoxgo_tpu/ops/pallas_render3.py::render_frame_pallas3 (the same
-// function with tiles outermost; this kernel keeps layer 1's view half in
-// f32, as v4 does).
+// Replaces: directvoxgo_tpu/ops/pallas_render4.py::render_frame_pallas4 (v4),
+// directvoxgo_tpu/ops/pallas_render3.py::render_frame_pallas3 (v3) and
+// directvoxgo_tpu/ops/pallas_render.py::render_frame_pallas (v1). Two
+// compile-time switches give each its exact function:
+//   view term: EMB (v4) recomputes layer 1's view half in f32 from the
+//     per-pixel embedding, emb . W1b + b1; SHARED1 (v3, v1) takes that half
+//     as a bf16 input shared1 [Hi, Wi, W] and adds it widened to f32.
+//   k0 order: V_FIRST (v4, v3) contracts the colour slab along v first,
+//     U_FIRST (v1) along u first, as the geometry warp does.
 //
 // Per pixel (i, j) and station s (lam = (p_s - op) * inv_span):
 //   u = ou + lam*(ur[i] - ou), v = ov + lam*(vr[j] - ov)
@@ -14,8 +19,10 @@
 //   alpha = 1 - exp(-softplus(density + act_shift) * dnorm * interval_scale)
 //   ok = near <= lam*dclip <= far && mask > 0 && alpha > fast_thres
 //        && T >= 1e-3;  w = T * (ok ? alpha : 0)
-//   if w > 0: k0_c = sum_a au_a * bf16(sum_b av_b * K[s, u_a, v_b, c]);
+//   if w > 0: k0_c = sum_a au_a * bf16(sum_b av_b * K[s, u_a, v_b, c])
+//             (U_FIRST: sum_b av_b * bf16(sum_a au_a * K[s, u_a, v_b, c]));
 //             h1 = bf16(relu(k0[c0:] . W1a + (emb . W1b + b1)))
+//             (SHARED1: bf16(relu(k0[c0:] . W1a + f32(shared1))));
 //             h2 = bf16(relu(h1 . W2 + b2)); logit = h2 . W3 + b3 (+k0[:3])
 //             rgb += w * sigmoid(logit); depth += w * lam * dnorm
 //   T *= (1 - alpha) + 1e-10
@@ -80,7 +87,7 @@ struct Scalars {
       fast_thres, near, far, bg;
 };
 
-template <int W>
+template <int W, bool SHARED1, bool U_FIRST>
 __global__ void __launch_bounds__(TILE_U * TILE_V)
 render_frame_kernel(const __nv_bfloat16* __restrict__ d_geo,
                     const __nv_bfloat16* __restrict__ d_k0,
@@ -100,7 +107,8 @@ render_frame_kernel(const __nv_bfloat16* __restrict__ d_geo,
   const int f_mlp = f_k0 - c0;
   // Shared layout (floats): w1a [F, W], w1bt [W, E4] (E padded to a
   // multiple of 4 with zeros), b1 [W], b2 [W], w2t [W, W], w3 [W, 3],
-  // b3 [3]; every block offset is a multiple of 4.
+  // b3 [3]; every block offset is a multiple of 4. SHARED1: E is 0 and b1
+  // is not read.
   const int e_pad = (e_dim + 3) / 4 * 4;
   const float* w1a = smem;
   const float* w1bt = w1a + f_mlp * W;
@@ -180,33 +188,37 @@ render_frame_kernel(const __nv_bfloat16* __restrict__ d_geo,
 
       float cr = 0.5f, cg = 0.5f, cb = 0.5f;
       if (d_k0 != nullptr) {
-        // v-contraction per tap row, rounded to bf16, then u.
+        // One axis contracted per tap of the other, rounded to bf16, then
+        // the other axis: v first (v3, v4) or u first (v1).
         float cl[F_MAX];
 #pragma unroll
         for (int c = 0; c < F_MAX; ++c) cl[c] = 0.f;
         const __nv_bfloat16* kk = d_k0 + (size_t)s * slab * f_k0;
 #pragma unroll
-        for (int a = 0; a < 2; ++a) {
-          if (au[a] == 0.f) continue;
-          float tv[F_MAX];
+        for (int o = 0; o < 2; ++o) {
+          const float w_out = U_FIRST ? av[o] : au[o];
+          if (w_out == 0.f) continue;
+          float tp[F_MAX];
 #pragma unroll
-          for (int c = 0; c < F_MAX; ++c) tv[c] = 0.f;
+          for (int c = 0; c < F_MAX; ++c) tp[c] = 0.f;
 #pragma unroll
-          for (int b = 0; b < 2; ++b) {
-            if (av[b] == 0.f) continue;
+          for (int n = 0; n < 2; ++n) {
+            const float w_in = U_FIRST ? au[n] : av[n];
+            if (w_in == 0.f) continue;
+            const int a = U_FIRST ? n : o, b = U_FIRST ? o : n;
             const __nv_bfloat16* px =
                 kk + ((size_t)iu[a] * gv + iv[b]) * f_k0;
 #pragma unroll
             for (int c = 0; c < F_MAX; ++c)
               if (c < f_k0)
-                tv[c] = __fadd_rn(tv[c], __fmul_rn(av[b], ld(px + c)));
+                tp[c] = __fadd_rn(tp[c], __fmul_rn(w_in, ld(px + c)));
           }
 #pragma unroll
           for (int c = 0; c < F_MAX; ++c)
-            cl[c] = __fadd_rn(cl[c], __fmul_rn(au[a], bf(tv[c])));
+            cl[c] = __fadd_rn(cl[c], __fmul_rn(w_out, bf(tp[c])));
         }
         if (has_mlp) {
-          // Layer 1: h = bf16(relu(k0 . W1a + (emb . W1b + b1))).
+          // Layer 1: h = bf16(relu(k0 . W1a + view term)).
           float h[W];
 #pragma unroll
           for (int k = 0; k < W; ++k) h[k] = 0.f;
@@ -226,25 +238,46 @@ render_frame_kernel(const __nv_bfloat16* __restrict__ d_geo,
               h[4 * k + 3] += x * wq.w;
             }
           }
-          float em[E_MAX];
-          const __nv_bfloat16* e = emb + (size_t)pix * e_dim;
+          if constexpr (SHARED1) {
+            // shared1 [Hi, Wi, W] bf16, eight values per 16-byte load.
+            const uint4* s8 =
+                reinterpret_cast<const uint4*>(emb + (size_t)pix * W);
 #pragma unroll
-          for (int q = 0; q < E_MAX; ++q) em[q] = q < e_dim ? ld(e + q) : 0.f;
-          const int e4 = (e_dim + 3) / 4;
+            for (int q = 0; q < W / 8; ++q) {
+              const uint4 raw = s8[q];
+              const __nv_bfloat162* p2 =
+                  reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
-          for (int k = 0; k < W; ++k) {
-            const float4* row = reinterpret_cast<const float4*>(w1bt) + k * e4;
-            float sh = 0.f;
-#pragma unroll
-            for (int q = 0; q < E_MAX / 4; ++q) {
-              if (q >= e4) break;
-              const float4 wq = row[q];
-              sh += em[4 * q] * wq.x;
-              sh += em[4 * q + 1] * wq.y;
-              sh += em[4 * q + 2] * wq.z;
-              sh += em[4 * q + 3] * wq.w;
+              for (int t = 0; t < 4; ++t) {
+                const float2 f = __bfloat1622float2(p2[t]);
+                const int k = 8 * q + 2 * t;
+                h[k] = bf(fmaxf(h[k] + f.x, 0.f));
+                h[k + 1] = bf(fmaxf(h[k + 1] + f.y, 0.f));
+              }
             }
-            h[k] = bf(fmaxf(h[k] + (sh + b1[k]), 0.f));
+          } else {
+            float em[E_MAX];
+            const __nv_bfloat16* e = emb + (size_t)pix * e_dim;
+#pragma unroll
+            for (int q = 0; q < E_MAX; ++q)
+              em[q] = q < e_dim ? ld(e + q) : 0.f;
+            const int e4 = (e_dim + 3) / 4;
+#pragma unroll
+            for (int k = 0; k < W; ++k) {
+              const float4* row =
+                  reinterpret_cast<const float4*>(w1bt) + k * e4;
+              float sh = 0.f;
+#pragma unroll
+              for (int q = 0; q < E_MAX / 4; ++q) {
+                if (q >= e4) break;
+                const float4 wq = row[q];
+                sh += em[4 * q] * wq.x;
+                sh += em[4 * q + 1] * wq.y;
+                sh += em[4 * q + 2] * wq.z;
+                sh += em[4 * q + 3] * wq.w;
+              }
+              h[k] = bf(fmaxf(h[k] + (sh + b1[k]), 0.f));
+            }
           }
           // Layers 2 and 3, one hidden unit of layer 2 at a time.
           float l0 = 0.f, l1 = 0.f, l2 = 0.f;
@@ -296,7 +329,7 @@ render_frame_kernel(const __nv_bfloat16* __restrict__ d_geo,
   out_t[pix] = t_cum;
 }
 
-template <int W>
+template <int W, bool SHARED1, bool U_FIRST>
 int launch(const void* d_geo, const void* d_k0, const void* emb,
            const float* dnorm, const float* dclip, const float* ur,
            const float* vr, const float* mlp, const int* activity,
@@ -308,19 +341,44 @@ int launch(const void* d_geo, const void* d_k0, const void* emb,
   const size_t smem =
       has_mlp ? ((size_t)(f_mlp + e_pad + 2 + W + 3) * W + 4) * sizeof(float)
               : 0;
+  auto kernel = render_frame_kernel<W, SHARED1, U_FIRST>;
   cudaError_t err = cudaFuncSetAttribute(
-      render_frame_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 block(TILE_V, TILE_U);
   dim3 grid(wi / TILE_V, hi / TILE_U);
-  render_frame_kernel<W><<<grid, block, smem, st>>>(
+  kernel<<<grid, block, smem, st>>>(
       static_cast<const __nv_bfloat16*>(d_geo),
       static_cast<const __nv_bfloat16*>(d_k0),
       static_cast<const __nv_bfloat16*>(emb), dnorm, dclip, ur, vr, mlp,
       activity, rgb, depth, tcum, s_total, gu, gv, hi, wi, f_k0, c0, e_dim,
       has_mlp, sc);
   return (int)cudaGetLastError();
+}
+
+// The three forms: v4 (emb, v first), v3 (shared1, v first) and v1
+// (shared1, u first). Without an MLP the view term is unused, so u first
+// takes v1's instance.
+template <int W>
+int launch_form(int shared1, int u_first, const void* d_geo,
+                const void* d_k0, const void* emb, const float* dnorm,
+                const float* dclip, const float* ur, const float* vr,
+                const float* mlp, const int* activity, float* rgb,
+                float* depth, float* tcum, int s_total, int gu, int gv,
+                int hi, int wi, int f_k0, int c0, int e_dim, int has_mlp,
+                Scalars sc, cudaStream_t st) {
+  if (u_first)
+    return launch<W, true, true>(d_geo, d_k0, emb, dnorm, dclip, ur, vr, mlp,
+                                 activity, rgb, depth, tcum, s_total, gu, gv,
+                                 hi, wi, f_k0, c0, e_dim, has_mlp, sc, st);
+  if (shared1)
+    return launch<W, true, false>(d_geo, d_k0, emb, dnorm, dclip, ur, vr,
+                                  mlp, activity, rgb, depth, tcum, s_total,
+                                  gu, gv, hi, wi, f_k0, c0, e_dim, has_mlp,
+                                  sc, st);
+  return launch<W, false, false>(d_geo, d_k0, emb, dnorm, dclip, ur, vr, mlp,
+                                 activity, rgb, depth, tcum, s_total, gu, gv,
+                                 hi, wi, f_k0, c0, e_dim, has_mlp, sc, st);
 }
 
 }  // namespace
@@ -335,23 +393,26 @@ int dvgo_render_frame_max_features() { return F_MAX; }
 int dvgo_render_frame_max_emb() { return E_MAX; }
 
 // d_geo [S, Gu, Gv, 2] bf16, d_k0 [S, Gu, Gv, F] bf16 (or null),
-// emb [Hi, Wi, E] bf16 (or null), dnorm/dclip [Hi, Wi] f32, ur [Hi],
-// vr [Wi] f32, mlp: the packed f32 weights (or null), activity
-// [Hi/128, Wi/128, S/16] i32; outputs rgb [3, Hi, Wi], depth and T
-// [Hi, Wi] f32. Hi and Wi are multiples of 128, S of 16; the MLP width is
-// 32, 64 or 128.
+// emb [Hi, Wi, E] bf16 (shared1: [Hi, Wi, width] bf16 with e_dim 0; null
+// without an MLP), dnorm/dclip [Hi, Wi] f32, ur [Hi], vr [Wi] f32, mlp: the
+// packed f32 weights (or null), activity [Hi/128, Wi/128, S/16] i32;
+// outputs rgb [3, Hi, Wi], depth and T [Hi, Wi] f32. Hi and Wi are
+// multiples of 128, S of 16; the MLP width is 32, 64 or 128. u_first with
+// an MLP needs shared1 (the v1 form).
 int dvgo_render_frame(const void* d_geo, const void* d_k0, const void* emb,
                       const float* dnorm, const float* dclip, const float* ur,
                       const float* vr, const float* mlp, const int* activity,
                       float* rgb, float* depth, float* tcum, int s_total,
                       int gu, int gv, int hi, int wi, int f_k0, int c0,
-                      int e_dim, int width, int has_mlp, float op, float ou,
+                      int e_dim, int width, int has_mlp, int shared1,
+                      int u_first, float op, float ou,
                       float ov, float inv_span, float p_first, float p_step,
                       float act_shift, float interval_scale, float fast_thres,
                       float near, float far, float bg, void* stream) {
   if (hi % ACT_TILE || wi % ACT_TILE || s_total % S_BLK || s_total < 1 ||
       gu < 1 || gv < 1 || f_k0 > F_MAX || e_dim > E_MAX ||
-      (has_mlp && (d_k0 == nullptr || f_k0 - c0 < 1)))
+      (has_mlp && (d_k0 == nullptr || f_k0 - c0 < 1)) ||
+      (has_mlp && shared1 && e_dim != 0) || (has_mlp && u_first && !shared1))
     return (int)cudaErrorInvalidValue;
   Scalars sc{op,        ou,        ov,     inv_span,       p_first,
              p_step,    act_shift, interval_scale, fast_thres, near,
@@ -360,17 +421,20 @@ int dvgo_render_frame(const void* d_geo, const void* d_k0, const void* emb,
   if (!has_mlp) width = 32;  // shared memory and registers unused
   switch (width) {
     case 32:
-      return launch<32>(d_geo, d_k0, emb, dnorm, dclip, ur, vr, mlp, activity,
-                        rgb, depth, tcum, s_total, gu, gv, hi, wi, f_k0, c0,
-                        e_dim, has_mlp, sc, st);
+      return launch_form<32>(shared1, u_first, d_geo, d_k0, emb, dnorm,
+                             dclip, ur, vr, mlp, activity, rgb, depth, tcum,
+                             s_total, gu, gv, hi, wi, f_k0, c0, e_dim,
+                             has_mlp, sc, st);
     case 64:
-      return launch<64>(d_geo, d_k0, emb, dnorm, dclip, ur, vr, mlp, activity,
-                        rgb, depth, tcum, s_total, gu, gv, hi, wi, f_k0, c0,
-                        e_dim, has_mlp, sc, st);
+      return launch_form<64>(shared1, u_first, d_geo, d_k0, emb, dnorm,
+                             dclip, ur, vr, mlp, activity, rgb, depth, tcum,
+                             s_total, gu, gv, hi, wi, f_k0, c0, e_dim,
+                             has_mlp, sc, st);
     case 128:
-      return launch<128>(d_geo, d_k0, emb, dnorm, dclip, ur, vr, mlp,
-                         activity, rgb, depth, tcum, s_total, gu, gv, hi, wi,
-                         f_k0, c0, e_dim, has_mlp, sc, st);
+      return launch_form<128>(shared1, u_first, d_geo, d_k0, emb, dnorm,
+                              dclip, ur, vr, mlp, activity, rgb, depth, tcum,
+                              s_total, gu, gv, hi, wi, f_k0, c0, e_dim,
+                              has_mlp, sc, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -22,7 +22,7 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 KERNELS = ("sweep_fwd", "render_frame", "sweep_bwd", "train_fused_fwd",
-           "train_fused_bwd", "tv_add_grad")
+           "train_fused_bwd", "tv_add_grad", "probe_ops")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -20,6 +20,14 @@ centre, and station s of the march lands on the slab at
 Station-block/tile pairs that ``activity`` marks empty, and stations after a
 tile's every ray has ``T < 1e-3``, change nothing and may be skipped.
 
+Three forms, one per fused frame kernel of the JAX package, each its exact
+function: ``v4`` (``render_frame_pallas4``, the default: the view half of
+layer 1 computed in f32 from the view embedding), ``v3``
+(``render_frame_pallas3``: that half is a bf16 input ``shared1``) and
+``v1`` (``render_frame_pallas``: ``shared1`` and the k0 features contracted
+``au`` first). :func:`render_frame_v3` and :func:`render_frame_v1` take the
+v3 and v1 kernels' own layouts.
+
 ``render_frame`` launches the kernel for CUDA tensors (or raises) and runs
 :func:`render_frame_plain`, the same arithmetic in plain PyTorch, for CPU
 tensors.
@@ -39,16 +47,20 @@ from .raymarch import T_EPS, T_TERMINATE
 # (engine/render_sweep.py).
 TILE = 128
 S_BLK = 16
+# Stations per grid step of the v1 kernel: its station count is a multiple.
+V1_S_BLK = 8
 BF16 = torch.bfloat16
+K0_ORDERS = ("v_first", "u_first")
 
 launches = 0
+launches_by_form = {"v4": 0, "v3": 0, "v1": 0}
 
 
 def _lib():
     """The kernel library, with every C function's signature declared."""
     lib = _build.load("render_frame")
     lib.dvgo_render_frame.argtypes = (
-        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 10 + [ctypes.c_float] * 12
+        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 12 + [ctypes.c_float] * 12
         + [ctypes.c_void_p])
     lib.dvgo_render_frame.restype = ctypes.c_int
     for name in ("dvgo_render_frame_max_features",
@@ -96,13 +108,16 @@ def pack_mlp(layers, f_mlp):
     """Flatten a 3-layer colour MLP into the kernel's f32 buffer.
 
     ``layers``: [(w [in, out], b [out])] * 3 with layer 1's input ordered
-    (k0 features, view embedding). Weights are rounded to bf16 (the
-    kernel's compute type); biases stay f32. Layout: ``w1a [F, W]``,
-    ``w1bt [W, E4]`` (the view half transposed, E zero-padded to a multiple
-    of 4), ``b1 [W]``, ``b2 [W]``, ``w2t [W, W]`` (transposed),
-    ``w3 [W, 3]``, ``b3 [3]``.
+    (k0 features, view embedding); in the ``shared1`` forms layer 1 is
+    ``(w1a [F, W], None)``. Weights are rounded to bf16 (the kernel's
+    compute type); biases stay f32. Layout: ``w1a [F, W]``, ``w1bt [W, E4]``
+    (the view half transposed, E zero-padded to a multiple of 4; empty for
+    ``shared1``), ``b1 [W]`` (zero for ``shared1``, and not read),
+    ``b2 [W]``, ``w2t [W, W]`` (transposed), ``w3 [W, 3]``, ``b3 [3]``.
     """
     (w1, b1), (w2, b2), (w3, b3) = layers
+    if b1 is None:
+        b1 = torch.zeros_like(b2)
     w1bt = _rnd(w1[f_mlp:]).t()
     e_pad = -w1bt.shape[1] % 4
     w1bt = torch.nn.functional.pad(w1bt, (0, e_pad))
@@ -121,7 +136,7 @@ def _packed_mlp(layers, f_mlp):
     global _packed
     key = (f_mlp,) + tuple(
         (x.device, x.dtype, x.data_ptr(), x._version, tuple(x.shape),
-         x.stride()) for wb in layers for x in wb)
+         x.stride()) for wb in layers for x in wb if x is not None)
     if _packed is None or _packed[0] != key:
         _packed = (key, layers, pack_mlp(layers, f_mlp))
     return _packed[2]
@@ -137,14 +152,37 @@ def _tap_matrix(i0, i1, w0, w1, g):
     return (m > 0).float()
 
 
+def _form(shared1, k0_order):
+    """The JAX frame kernel whose function this call computes."""
+    if k0_order == "u_first":
+        return "v1"
+    return "v4" if shared1 is None else "v3"
+
+
+def _check_form(has_mlp, d_k0, layers, vd_emb, shared1, k0_order):
+    if k0_order not in K0_ORDERS:
+        raise ValueError(f"render_frame: k0_order {k0_order!r}")
+    if has_mlp and (d_k0 is None or layers is None
+                    or (vd_emb is None) == (shared1 is None)):
+        raise ValueError("render_frame: has_mlp needs d_k0, layers and "
+                         "exactly one of vd_emb and shared1")
+    if has_mlp and len(layers) != 3:
+        raise ValueError(f"render_frame: the kernel runs a 3-layer MLP, "
+                         f"got {len(layers)} layers")
+    if has_mlp and k0_order == "u_first" and shared1 is None:
+        raise ValueError("render_frame: the u-first (v1) form takes "
+                         "shared1, not vd_emb")
+
+
 def render_frame_plain(d_geo, d_k0, vd_emb, dnorm, dclip, ur, vr, layers,
-                       scalars, activity, *, has_mlp, rgb_mode,
-                       stats=None):
+                       scalars, activity, *, has_mlp, rgb_mode, shared1=None,
+                       k0_order="v_first", stats=None):
     """Plain version of the kernel (station loop over whole-frame tensors).
 
     Arguments as :func:`render_frame`. Rounds where the TPU frame kernels
     round: hat rows and warp intermediates in bf16, MLP operands in bf16,
-    sums in f32, the view half of layer 1 in f32. ``stats``, when a dict,
+    sums in f32, the view half of layer 1 in f32 (``shared1``: the bf16
+    input widened). ``stats``, when a dict,
     receives what this frame's data needs, for the kernel's bound:
     ``visible_samples`` (the (pixel, station) pairs with w > 0, each of
     which runs the colour MLP), ``live_samples`` (pairs in active blocks,
@@ -166,12 +204,18 @@ def render_frame_plain(d_geo, d_k0, vd_emb, dnorm, dclip, ur, vr, layers,
     op, ou, ov, inv_span = f(op), f(ou), f(ov), f(inv_span)
     p_first, p_step = f(p_first), f(p_step)
     interval = dnorm * f(interval_scale)
+    _check_form(has_mlp, d_k0, layers, vd_emb, shared1, k0_order)
     if has_mlp:
         (w1, b1), (w2, b2), (w3, b3) = layers
-        f_mlp = w1.shape[0] - vd_emb.shape[-1]
-        w1a, w1b = _rnd(w1[:f_mlp]), _rnd(w1[f_mlp:])
+        if shared1 is None:
+            f_mlp = w1.shape[0] - vd_emb.shape[-1]
+            sh1 = (vd_emb.float().reshape(hi * wi, -1) @ _rnd(w1[f_mlp:])
+                   + b1.float())
+        else:
+            f_mlp = w1.shape[0]
+            sh1 = shared1.float().reshape(hi * wi, -1)
+        w1a = _rnd(w1[:f_mlp])
         w2r, w3r = _rnd(w2), _rnd(w3)
-        sh1 = vd_emb.float().reshape(hi * wi, -1) @ w1b + b1.float()
     act = activity.bool()
     t_cum = torch.ones((hi, wi), dtype=f32, device=dev)
     rgb = torch.zeros((3, hi, wi), dtype=f32, device=dev)
@@ -220,7 +264,14 @@ def render_frame_plain(d_geo, d_k0, vd_emb, dnorm, dclip, ur, vr, layers,
             continue
         pi, pj = idx // wi, idx % wi
         w_sel = w.reshape(-1)[idx]
-        if k0 is not None:
+        if k0 is not None and k0_order == "u_first":
+            # u-contraction first, rounded to bf16, then v
+            tua = _rnd(wua[pi, None] * k0[s, ua[pi], va[pj]]
+                       + wub[pi, None] * k0[s, ub[pi], va[pj]])
+            tub = _rnd(wua[pi, None] * k0[s, ua[pi], vb[pj]]
+                       + wub[pi, None] * k0[s, ub[pi], vb[pj]])
+            cl = wva[pj, None] * tua + wvb[pj, None] * tub      # [M, F]
+        elif k0 is not None:
             # v-contraction first, rounded to bf16, then u
             tva = _rnd(wva[pj, None] * k0[s, ua[pi], va[pj]]
                        + wvb[pj, None] * k0[s, ua[pi], vb[pj]])
@@ -265,7 +316,8 @@ def _check(name, x, dtype, shape, device):
 
 
 def render_frame(d_geo, d_k0, vd_emb, dnorm, dclip, ur, vr, layers,
-                 scalars, activity, *, has_mlp, rgb_mode):
+                 scalars, activity, *, has_mlp, rgb_mode, shared1=None,
+                 k0_order="v_first"):
     """Render one intermediate-image frame.
 
     Args:
@@ -273,11 +325,12 @@ def render_frame(d_geo, d_k0, vd_emb, dnorm, dclip, ur, vr, layers,
         order, S a multiple of ``S_BLK`` (padding slabs are zero).
       d_k0: [S, Gu, Gv, F] bf16 colour-feature station slabs, or None.
       vd_emb: [Hi, Wi, E] bf16 positional view embedding per pixel, or None
-        without an MLP.
+        without an MLP or with ``shared1``.
       dnorm, dclip: [Hi, Wi] f32 world |d| and |d . f_cam| per pixel.
       ur, vr: [Hi], [Wi] f32 reference-plane coordinates; Hi and Wi are
         multiples of ``TILE``.
-      layers: [(w [in, out], b [out])] * 3 of the colour MLP (f32), or None.
+      layers: [(w [in, out], b [out])] * 3 of the colour MLP (f32), or None;
+        with ``shared1``, layer 1 is ``(w1a [F_mlp, W], None)``.
       scalars: 12 floats (op, ou, ov, inv_span, p_first, p_step, act_shift,
         interval_scale, fast_thres, near, far, bg), each an f32 value.
       activity: [Hi/TILE, Wi/TILE, S/S_BLK] int32, 0 where the tile's
@@ -285,22 +338,23 @@ def render_frame(d_geo, d_k0, vd_emb, dnorm, dclip, ur, vr, layers,
       has_mlp: run the 3-layer MLP (needs ``d_k0``); rgb_mode: "direct" or
         "logit_plus_k0" (features after the first 3 channels feed the MLP
         and the first 3 are added to its logits).
+      shared1: [Hi, Wi, W] bf16 hoisted view half of layer 1
+        (``vd_emb . W1b + b1``) in place of ``vd_emb`` (the v3 and v1
+        forms).
+      k0_order: "v_first" (v4, v3) or "u_first" (v1; with an MLP it takes
+        ``shared1``).
 
     Returns (rgb [3, Hi, Wi], depth [Hi, Wi], T [Hi, Wi]) f32.
     """
     global launches
-    if has_mlp and (d_k0 is None or layers is None or vd_emb is None):
-        raise ValueError("render_frame: has_mlp needs d_k0, layers and "
-                         "vd_emb")
-    if has_mlp and len(layers) != 3:
-        raise ValueError(f"render_frame: the kernel runs a 3-layer MLP, "
-                         f"got {len(layers)} layers")
+    _check_form(has_mlp, d_k0, layers, vd_emb, shared1, k0_order)
     if rgb_mode not in ("direct", "logit_plus_k0"):
         raise ValueError(f"render_frame: rgb_mode {rgb_mode!r}")
     if dnorm.device.type == "cpu":
         return render_frame_plain(d_geo, d_k0, vd_emb, dnorm, dclip, ur, vr,
                                   layers, scalars, activity, has_mlp=has_mlp,
-                                  rgb_mode=rgb_mode)
+                                  rgb_mode=rgb_mode, shared1=shared1,
+                                  k0_order=k0_order)
     dev = dnorm.device
     if dev.type != "cuda":
         raise ValueError(f"render_frame: unsupported device {dev}")
@@ -326,14 +380,21 @@ def render_frame(d_geo, d_k0, vd_emb, dnorm, dclip, ur, vr, layers,
     mlp = emb = None
     if has_mlp:
         width = layers[1][0].shape[0]
-        emb_dim = vd_emb.shape[-1]
-        _check("vd_emb", vd_emb, BF16, (hi, wi, emb_dim), dev)
+        if shared1 is None:
+            emb_dim = vd_emb.shape[-1]
+            _check("vd_emb", vd_emb, BF16, (hi, wi, emb_dim), dev)
+            emb = vd_emb
+        else:
+            _check("shared1", shared1, BF16, (hi, wi, width), dev)
+            if shared1.data_ptr() % 16:
+                raise ValueError("render_frame: shared1 must be 16-byte "
+                                 "aligned (the kernel reads 8 values a load)")
+            emb = shared1
         f_mlp = layers[0][0].shape[0] - emb_dim
         if f_mlp != f_k0 - c0:
             raise ValueError(f"render_frame: MLP takes {f_mlp} features, "
                              f"the slabs give {f_k0 - c0}")
         mlp = _packed_mlp(layers, f_mlp)
-        emb = vd_emb
     if f_k0 > lib.dvgo_render_frame_max_features() \
             or emb_dim > lib.dvgo_render_frame_max_emb():
         raise ValueError("render_frame: too many k0 or embedding channels "
@@ -346,10 +407,126 @@ def render_frame(d_geo, d_k0, vd_emb, dnorm, dclip, ur, vr, layers,
         ptr(d_geo), ptr(d_k0), ptr(emb), ptr(dnorm), ptr(dclip), ptr(ur),
         ptr(vr), ptr(mlp), ptr(activity), ptr(rgb), ptr(depth), ptr(tcum),
         s_total, gu, gv, hi, wi, f_k0, c0, emb_dim, width, int(has_mlp),
+        int(shared1 is not None), int(k0_order == "u_first"),
         *[float(x) for x in scalars],
         torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError("render_frame launch failed: "
                            + lib.dvgo_error_string(err).decode())
     launches += 1
+    launches_by_form[_form(shared1, k0_order)] += 1
     return rgb, depth, tcum
+
+
+# ---- The v3 and v1 kernels' own layouts -----------------------------------
+
+def geo_from_channel_major(d_geo):
+    """[S, Gu, 2*Gv] geometry slabs, channel-major (density | mask) as the
+    JAX frame kernels take them, as K-B's [S, Gu, Gv, 2] (a view)."""
+    s, gu, gv2 = d_geo.shape
+    return d_geo.reshape(s, gu, 2, gv2 // 2).permute(0, 1, 3, 2)
+
+
+def _shared1_layers(mlp_params):
+    return [(mlp_params["w1a"], None), (mlp_params["w2"], mlp_params["b2"]),
+            (mlp_params["w3"], mlp_params["b3"])]
+
+
+def all_active(hi, wi, s_total, device):
+    """An activity table with every (tile, station block) active."""
+    return torch.ones((hi // TILE, wi // TILE, s_total // S_BLK),
+                      dtype=torch.int32, device=device)
+
+
+def v3_frame_args(d_geo, d_k0t, shared1, dnorm, dclip, ur, vr, mlp_params,
+                  scalars, activity=None, *, guv, has_mlp, rgb_mode):
+    """:func:`render_frame`'s keyword arguments for the v3 kernel's inputs
+    (``render_frame_pallas3``): channel-major geometry ``[S, Gu, 2*Gv]``,
+    colour slabs transposed ``[S, F*Gu, Gv]`` (row ``c*Gu + u``) or None,
+    ``shared1 [Hi, Wi, W]`` bf16, ``mlp_params`` {w1a, w2, b2, w3, b3} and
+    an optional activity table (None: every block active). The slabs are
+    permuted into K-B's layouts (one copy each)."""
+    gu, gv = guv
+    s_total = d_geo.shape[0]
+    hi, wi = dnorm.shape
+    if hi % TILE or wi % TILE or s_total % S_BLK:
+        raise ValueError(f"render_frame_v3: Hi, Wi must be multiples of "
+                         f"{TILE} and S of {S_BLK}")
+    if tuple(d_geo.shape) != (s_total, gu, 2 * gv):
+        raise ValueError(f"render_frame_v3: d_geo has shape "
+                         f"{tuple(d_geo.shape)}, expected "
+                         f"{(s_total, gu, 2 * gv)}")
+    k0 = None
+    if d_k0t is not None:
+        f_k0 = d_k0t.shape[1] // gu
+        k0 = d_k0t.reshape(s_total, f_k0, gu, gv).permute(0, 2, 3, 1)
+        k0 = k0.contiguous()
+    if activity is None:
+        activity = all_active(hi, wi, s_total, dnorm.device)
+    return dict(d_geo=geo_from_channel_major(d_geo).contiguous(), d_k0=k0,
+                vd_emb=None, dnorm=dnorm, dclip=dclip, ur=ur, vr=vr,
+                layers=_shared1_layers(mlp_params) if has_mlp else None,
+                scalars=scalars, activity=activity, has_mlp=has_mlp,
+                rgb_mode=rgb_mode, shared1=shared1 if has_mlp else None,
+                k0_order="v_first")
+
+
+def render_frame_v3(d_geo, d_k0t, shared1, dnorm, dclip, ur, vr, mlp_params,
+                    scalars, activity=None, *, guv, has_mlp, rgb_mode):
+    """The v3 frame kernel's function (``render_frame_pallas3``) in its
+    layouts, through K-B's ``shared1`` form (see :func:`v3_frame_args`).
+    Returns (rgb [3, Hi, Wi], depth [Hi, Wi], T [Hi, Wi]) f32."""
+    return render_frame(**v3_frame_args(
+        d_geo, d_k0t, shared1, dnorm, dclip, ur, vr, mlp_params, scalars,
+        activity, guv=guv, has_mlp=has_mlp, rgb_mode=rgb_mode))
+
+
+def v1_frame_args(d_geo, d_k0, shared1, dnorm, dclip, ur, vr, mlp_params,
+                  scalars, *, guv, has_mlp, rgb_mode):
+    """:func:`render_frame`'s keyword arguments for the v1 kernel's inputs
+    (``render_frame_pallas``): channel-major geometry ``[S, Gu, 2*Gv]``,
+    colour slabs ``[S, F, Gu, Gv]`` (required), ``shared1 [Hi, Wi, W]``
+    bf16 and ``mlp_params`` {w1a, w2, b2, w3, b3}; S a multiple of 8. The
+    slabs are permuted into K-B's layouts and padded with zero slabs to a
+    multiple of ``S_BLK`` (mask 0 gives alpha 0, and T*(1 - 0 + 1e-10)
+    rounds back to T in f32); v1 has no activity table, so every block is
+    active."""
+    if d_k0 is None:
+        raise ValueError("render_frame_v1: d_k0 is required (the v1 kernel "
+                         "has no form without a colour grid)")
+    gu, gv = guv
+    s_total = d_geo.shape[0]
+    hi, wi = dnorm.shape
+    if hi % TILE or wi % TILE or s_total % V1_S_BLK:
+        raise ValueError(f"render_frame_v1: Hi, Wi must be multiples of "
+                         f"{TILE} and S of {V1_S_BLK}")
+    f_k0 = d_k0.shape[1]
+    for name, x, shape in (("d_geo", d_geo, (s_total, gu, 2 * gv)),
+                           ("d_k0", d_k0, (s_total, f_k0, gu, gv))):
+        if tuple(x.shape) != shape:
+            raise ValueError(f"render_frame_v1: {name} has shape "
+                             f"{tuple(x.shape)}, expected {shape}")
+    s_pad = s_total + (-s_total % S_BLK)
+    geo = d_geo.new_zeros((s_pad, gu, gv, 2))
+    geo[:s_total] = geo_from_channel_major(d_geo)
+    k0 = d_k0.new_zeros((s_pad, gu, gv, f_k0))
+    k0[:s_total] = d_k0.permute(0, 2, 3, 1)
+    return dict(d_geo=geo, d_k0=k0, vd_emb=None, dnorm=dnorm, dclip=dclip,
+                ur=ur, vr=vr,
+                layers=_shared1_layers(mlp_params) if has_mlp else None,
+                scalars=scalars,
+                activity=all_active(hi, wi, s_pad, dnorm.device),
+                has_mlp=has_mlp, rgb_mode=rgb_mode,
+                shared1=shared1 if has_mlp else None, k0_order="u_first")
+
+
+def render_frame_v1(d_geo, d_k0, shared1, dnorm, dclip, ur, vr, mlp_params,
+                    scalars, *, guv, has_mlp, rgb_mode):
+    """The v1 frame kernel's function (``render_frame_pallas``) in its
+    layouts, through K-B's ``shared1`` + ``u_first`` form (see
+    :func:`v1_frame_args`). Returns (rgb [Hi, Wi, 3], depth [Hi, Wi],
+    T [Hi, Wi]) f32."""
+    rgb, depth, tcum = render_frame(**v1_frame_args(
+        d_geo, d_k0, shared1, dnorm, dclip, ur, vr, mlp_params, scalars,
+        guv=guv, has_mlp=has_mlp, rgb_mode=rgb_mode))
+    return rgb.permute(1, 2, 0).contiguous(), depth, tcum

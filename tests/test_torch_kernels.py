@@ -262,10 +262,11 @@ def test_kernel_signatures_match_their_c_prototypes(monkeypatch):
         return lib
 
     monkeypatch.setattr(_build, "load", fake_load)
+    from directvoxgo_tpu_torch.ops import probe_ops as kg
     from directvoxgo_tpu_torch.ops import train_fused as kde
     from directvoxgo_tpu_torch.ops import tv as kf
     for load_lib in (ka._lib, kb._lib, kc._lib, kde._lib_fwd, kde._lib_bwd,
-                     kf._lib):
+                     kf._lib, kg._lib):
         lib = load_lib()
         assert lib.prototypes
         for fn, params in lib.prototypes.items():
