@@ -4,13 +4,17 @@
   python3 chip_smoke.py
 
 Phases, each of which fails the run:
-  0. build every CUDA kernel from csrc/ (one nvcc per source, all at once);
+  0. build every CUDA kernel from csrc/ (one nvcc per source, all at once),
+     and the first versions of the sweep kernels K-A and K-C
+     (csrc/sweep_{fwd,bwd}_v1.cu), the yardstick of their redesign; keep
+     each kernel instance's registers and spills from ``-Xptxas -v``;
   1. hold each kernel against its plain PyTorch version on the card, at a
-     small shape here (the sweep's backward in its full, segment and
-     per-tile windowed forms; the fused train step in both colour modes,
-     both march directions, full and windowed; the TV stencil on whole
-     grids and boxes) and at the main paths' full shapes after phases 3,
-     5, 6 and 7;
+     small shape here (the sweep's forward at every count of stations a
+     thread and its backward in its global and shared forms, on both
+     cotangent layouts, full, segment and per-tile windowed, for every
+     channel instance; the fused train step in both colour modes, both
+     march directions, full and windowed; the TV stencil on whole grids and
+     boxes) and at the main paths' full shapes after phases 3, 5, 6 and 7;
   2. build a full-width lego fine checkpoint (160^3 grid, k0 12, MLP
      39->128->128->3) from the fixture teacher density and seeded random
      colour weights, and save it in the checkpoint format;
@@ -27,14 +31,17 @@ Phases, each of which fails the run:
      ``python -m directvoxgo_tpu_torch.run`` (in process) on a config that
      shortens only the iteration counts of
      configs/synthetic/fixture_lego_sparse.py, and check the launch counts
-     against the steps and counted views, finite parameters, a rising train
-     PSNR, exact zeros of the density cotangent outside the clip box, the
-     checkpoints, and ``--render_test`` of the trained model; then a few
+     against the steps and counted views, each form on its own channel
+     instance of K-A and K-C (launch counts by form), finite parameters, a
+     rising train PSNR, exact zeros of the density cotangent outside the
+     clip box, the checkpoints, and ``--render_test`` of the trained model;
+     trace three more fine steps and time ``voxel_count_views``; then a few
      train steps with ray-tile v-windows (a side path: the engine draws no
      windows yet); then the sweep's forward and backward, each against its
-     plain version and timed, on the inputs of the last call of every form
-     the training run launched (a coarse step's, a fine step's, a counted
-     view's of the per-voxel lr);
+     plain version and timed beside its first version and one library
+     call, on the inputs of the last call of every form the training run
+     launched (a coarse step's, a fine step's, a counted view's of the
+     per-voxel lr);
   6. with ``DVGO_FUSED_TRAIN=1``, train the fine stage again from phase 5's
      coarse checkpoint, same schedule and width, through the fused step
      (kernels K-D and K-E, drawn as same-class ray tiles), and check that
@@ -70,9 +77,10 @@ Phases, each of which fails the run:
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line (one
 entry per kernel and form, each with the launches of the path it belongs
-to) and,
-last, ``{"ok": true, "device": {...}}``. Exits non-zero without a result
-line when there is no CUDA device or the port's package is not beside this
+to; those of K-A and K-C also with their first version's time on the same
+inputs, ``prev_ms``, and the instance's registers and spills) and, last,
+``{"ok": true, "device": {...}}``. Exits non-zero without a result line
+when there is no CUDA device or the port's package is not beside this
 file.
 """
 
@@ -100,8 +108,17 @@ def log(*a):
     print(*a, file=sys.stderr, flush=True)
 
 
-def cuda_time(fn, n_iter, warmup=2):
-    """Median ms per call over ``n_iter`` calls (CUDA events, warm)."""
+# Clock cycles of the spin that keeps the stream busy ahead of a timed call
+# (about 1 ms): the host's dispatch of the call overlaps it.
+BUSY_CYCLES = 2_000_000
+
+
+def cuda_time(fn, n_iter, warmup=2, device_only=False):
+    """Median ms per call over ``n_iter`` calls (CUDA events, warm). With
+    ``device_only`` the stream spins (``torch.cuda._sleep``) before the
+    first event of each call, so the events time the call's device work
+    and not the host's dispatch of it (Python, allocation, ctypes), as
+    long as the dispatch takes less than the spin."""
     import torch
     for _ in range(warmup):
         fn()
@@ -110,6 +127,8 @@ def cuda_time(fn, n_iter, warmup=2):
     for _ in range(n_iter):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if device_only:
+            torch.cuda._sleep(BUSY_CYCLES)
         a.record()
         fn()
         b.record()
@@ -412,22 +431,81 @@ def check_sweep_rel(ka, slabs, rays, k, v_base, wv, what, zero_slab=False):
     return err
 
 
+class ForcedForm:
+    """Within the block, K-C takes its shared form (``shared``) or its
+    global one, whatever its rule would pick (small planes fit either)."""
+
+    def __init__(self, kc, shared):
+        self.kc, self.shared = kc, shared
+
+    def __enter__(self):
+        self.orig = self.kc.shared_form
+        self.kc.shared_form = lambda *a: self.shared
+
+    def __exit__(self, *exc):
+        self.kc.shared_form = self.orig
+
+
+class StationsPerThread:
+    """Within the block, K-A takes ``spt`` stations a thread, whatever its
+    rule would pick."""
+
+    def __init__(self, ka, spt):
+        self.ka, self.spt = ka, spt
+
+    def __enter__(self):
+        self.orig = self.ka.stations_per_thread
+        self.ka.stations_per_thread = lambda *a: self.spt
+
+    def __exit__(self, *exc):
+        self.ka.stations_per_thread = self.orig
+
+
+# Channel counts and dtypes of the small checks: every channel instance of
+# K-A and K-C (14, 5, 11, 1) and the generic one (3).
+SMALL_CHANNELS = ((14, "bfloat16"), (1, "float32"), (5, "bfloat16"),
+                  (11, "bfloat16"), (3, "bfloat16"), (14, "float32"))
+
+
 def small_train_kernel_checks(torch, dev, ka, kc, sweep_ops):
+    """K-C in its global and its shared form, on a [S, C, N] cotangent and
+    on autograd's [C, N, S] layout, full, segment and per-tile windowed;
+    K-A full and windowed on contiguous and channel-padded station slabs;
+    each for every channel instance, k = 1 and 2, against its plain
+    version."""
     errs = {"sweep_bwd": 0.0, "sweep_fwd_windowed": 0.0}
-    for c, dtype in ((14, torch.bfloat16), (1, torch.float32)):
+    n_bwd = n_fwd = 0
+    for c, dtype in SMALL_CHANNELS:
+        dtype = getattr(torch, dtype)
         for k in (1, 2):
             rays, cot, shape, forms = small_bwd_case(torch, dev, c, k)
+            cot_cns = cot.permute(1, 2, 0).contiguous().permute(2, 0, 1)
             for form, (vb, wv) in forms.items():
-                errs["sweep_bwd"] = max(errs["sweep_bwd"], check_bwd(
-                    kc, cot, rays, k, shape, dtype, vb, wv,
-                    f"small {form} C={c} k={k}"))
-            g = torch.Generator(device="cpu").manual_seed(SEED + 3)
+                for layout, g in (("", cot), (", [C, N, S] layout", cot_cns)):
+                    for shared in (False, True):
+                        with ForcedForm(kc, shared):
+                            errs["sweep_bwd"] = max(errs["sweep_bwd"],
+                                                    check_bwd(
+                                kc, g, rays, k, shape, dtype, vb, wv,
+                                f"small {form} C={c} k={k}{layout}, "
+                                f"{'shared' if shared else 'global'} form"))
+                        n_bwd += 1
+            gen = torch.Generator(device="cpu").manual_seed(SEED + 3)
             slabs = sweep_ops._station_slabs(torch.randn(
-                shape, generator=g).to(dtype).to(dev), k).contiguous()
-            errs["sweep_fwd_windowed"] = max(
-                errs["sweep_fwd_windowed"], check_sweep_rel(
-                    ka, slabs, rays, k, *forms["tile"],
-                    f"windowed small C={c} k={k}"))
+                shape, generator=gen).to(dtype).to(dev), k).contiguous()
+            for form in ("full", "tile"):
+                for spt in ka.STATIONS_PER_THREAD_CHOICES:
+                    with StationsPerThread(ka, spt):
+                        err = check_sweep_rel(
+                            ka, slabs, rays, k, *forms[form],
+                            f"{form} small C={c} k={k}, {spt} stations a "
+                            "thread")
+                    n_fwd += 1
+                    if form == "tile":
+                        errs["sweep_fwd_windowed"] = max(
+                            errs["sweep_fwd_windowed"], err)
+    log(f"[phase 1] K-C: {n_bwd} small cases, K-A: {n_fwd}; forms launched "
+        f"K-A {dict(ka.launches_by_form)}, K-C {dict(kc.launches_by_form)}")
     return errs
 
 
@@ -751,6 +829,126 @@ def tile_windows_for(torch, sweep_ops, model, ro, rd, axis, n_rand):
     return order, v_base.to(torch.int32).contiguous(), wv
 
 
+# The first versions of K-A and K-C, kept beside their redesign as the
+# yardstick of its `prev_ms` (never loaded by the port).
+PREV_KERNELS = ("sweep_fwd_v1", "sweep_bwd_v1")
+
+
+def _prev_lib(name):
+    """(library, its launch function) of a first-version kernel, with the
+    C signature its wrapper declared."""
+    import ctypes
+    from directvoxgo_tpu_torch.ops import _build
+    lib = _build.load(name)
+    lib.dvgo_error_string.argtypes = [ctypes.c_int]
+    lib.dvgo_error_string.restype = ctypes.c_char_p
+    if name == "sweep_fwd_v1":
+        fn, c_max = lib.dvgo_sweep_fwd, lib.dvgo_sweep_fwd_max_channels
+        fn.argtypes = ([ctypes.c_void_p, ctypes.c_int]
+                       + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
+                       + [ctypes.c_void_p])
+    else:
+        fn, c_max = lib.dvgo_sweep_bwd, lib.dvgo_sweep_bwd_max_channels
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
+                       + [ctypes.c_void_p])
+    fn.restype = c_max.restype = ctypes.c_int
+    c_max.argtypes = []
+    return lib, fn
+
+
+def _prev_check(lib, err):
+    if err:
+        raise RuntimeError("first-version launch failed: "
+                           + lib.dvgo_error_string(err).decode())
+
+
+def prev_fwd_call(torch, slabs, rays, k, v_base=None, wv=0):
+    """K-A's first version on these inputs, as its wrapper called it: one
+    launch over contiguous slabs (a padded view is copied before, outside
+    the call), into a fresh [S, C, N] f32 output."""
+    lib, fn = _prev_lib("sweep_fwd_v1")
+    slabs = slabs.contiguous()
+    s_total, gu, gv, c = slabs.shape
+    n = rays.shape[1]
+    stream = torch.cuda.current_stream(slabs.device).cuda_stream
+
+    def call():
+        out = torch.empty((s_total, c, n), dtype=torch.float32,
+                          device=slabs.device)
+        _prev_check(lib, fn(
+            slabs.data_ptr(), int(slabs.dtype == torch.bfloat16),
+            rays.data_ptr(), v_base.data_ptr() if wv else None,
+            out.data_ptr(), n, s_total, gu, gv, c, int(k), int(wv),
+            512, stream))
+        return out
+    return call
+
+
+def prev_bwd_call(torch, g, rays, k, shape, dtype, v_base=None, wv=0):
+    """K-C's first version on these inputs, as its wrapper called it: a
+    zero f32 accumulator, one launch over the [S, C, N] cotangent made
+    contiguous (before, outside the call, as the first version's autograd
+    function copied it), the cast to the grid dtype."""
+    from directvoxgo_tpu_torch.ops import sweep_bwd as kc
+    lib, fn = _prev_lib("sweep_bwd_v1")
+    g = g.contiguous()
+    gp, gu, gv, c = shape
+    s_total, _, n = g.shape
+    wv, segment = kc._window_form(v_base, wv, n)
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+
+    def call():
+        acc = torch.zeros((gp, gu, gv, c), dtype=torch.float32,
+                          device=g.device)
+        _prev_check(lib, fn(
+            g.data_ptr(), rays.data_ptr(), v_base.data_ptr() if wv else None,
+            acc.data_ptr(), n, s_total, gu, gv, c, int(k),
+            int(dtype == torch.bfloat16), wv,
+            0 if not wv else (2 if segment else 1), 512,
+            v_base.shape[0] - 1 if segment else 0, stream))
+        return acc.to(dtype)
+    return call
+
+
+USAGE = {}   # (library, mangled kernel) -> (registers, spill bytes), phase 0
+
+
+def ptxas_usage(logs):
+    """{(library, mangled kernel name): (registers, spill store bytes, spill
+    load bytes)} from the ``-Xptxas -v`` output of the builds."""
+    import re
+    usage = {}
+    for lib, text in logs.items():
+        cur, spill = None, (0, 0)
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                cur, spill = m.group(1), (0, 0)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                spill = (int(m.group(1)), int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and cur:
+                usage[(lib, cur)] = (int(m.group(1)), *spill)
+    return usage
+
+
+def kernel_usage(lib, kernel, *targs):
+    """{"registers", "spills"} (spill stores + loads, bytes) of the instance
+    ``kernel<targs...>`` in library ``lib``, from the phase-0 build; None
+    where the build printed nothing (a library built before this run)."""
+    code = {"bf16": "13__nv_bfloat16", "f32": "f"}
+    args = "".join(f"Lb{int(a)}E" if isinstance(a, bool) else
+                   f"Li{a}E" if isinstance(a, int) else code[a]
+                   for a in targs)
+    want = f"{len(kernel)}{kernel}I{args}E"
+    for (name, mangled), (regs, st, ld) in USAGE.items():
+        if name == lib and want in mangled:
+            return {"registers": regs, "spills": st + ld}
+    return {"registers": None, "spills": None}
+
+
 def fwd_numbers(torch, ka, slabs, rays, k, v_base=None, wv=0):
     """K-A on these inputs: its time, its plain version's, one
     ``grid_sample`` call's, and its bound (the distinct slab voxels its taps
@@ -759,10 +957,16 @@ def fwd_numbers(torch, ka, slabs, rays, k, v_base=None, wv=0):
     coordinates)."""
     s_total, gu, gv, c = slabs.shape
     n = rays.shape[1]
-    ms = cuda_time(lambda: ka.sweep_fwd(slabs, rays, k, v_base, wv), 20)
+    inst = ka.instance(slabs, n)
+    prev_call = prev_fwd_call(torch, slabs, rays, k, v_base, wv)
+    prev = cuda_time(prev_call, 20, device_only=True)
+    ms = cuda_time(lambda: ka.sweep_fwd(slabs, rays, k, v_base, wv), 20,
+                   device_only=True)
+    prev_again = cuda_time(prev_call, 20, device_only=True)
     plain = cuda_time(lambda: ka.sweep_fwd_plain(slabs, rays, k, v_base, wv),
                       3, warmup=1)
-    lib = cuda_time(grid_sample_call(torch, slabs, rays, k), 20)
+    lib = cuda_time(grid_sample_call(torch, slabs, rays, k), 20,
+                    device_only=True)
     voxels = sweep_voxels(torch, slabs, rays, k)
     n_bytes = voxels * c * slabs.element_size() + rays.numel() * 4 \
         + (v_base.numel() * 4 if wv else 0) + s_total * c * n * 4
@@ -770,8 +974,11 @@ def fwd_numbers(torch, ka, slabs, rays, k, v_base=None, wv=0):
     by = "bytes" if n_bytes / HBM_BPS >= ops / F32_FLOPS else "operations"
     return {"ms": ms, "plain_ms": plain,
             "bound_ms": max(n_bytes / HBM_BPS, ops / F32_FLOPS) * 1e3,
-            "bound_by": by, "library_ms": lib, "bytes": n_bytes,
-            "slab_voxels_read": voxels,
+            "bound_by": by, "library_ms": lib,
+            "prev_ms": min(prev, prev_again), "prev_ms_runs": [prev, prev_again],
+            "form": ka.form(inst, bool(wv)),
+            **kernel_usage("sweep_fwd", "sweep_fwd_kernel", *inst),
+            "bytes": n_bytes, "slab_voxels_read": voxels,
             "shape": f"S={s_total} slab={gu}x{gv}x{c} "
                      f"{str(slabs.dtype).split('.')[-1]} N={n}"
                      + (f" wv={wv}" if wv else "")}
@@ -782,11 +989,24 @@ def bwd_numbers(torch, kc, g, rays, k, shape, dtype, v_base, wv):
     one ``grid_sample`` call, and its bound (the cotangent and the rays read
     once, the voxels it touches written once in the grid dtype; six
     operations per tap of a nonzero cotangent plus the coordinates)."""
+    gp, gu, gv, c = shape
+    s_total, _, n = g.shape
+    shared, chunks = kc.plan(gu, gv, c, n, s_total,
+                             kc.device_limits(g.device.index))
+    inst = kc.instance(shared, c, dtype == torch.bfloat16)
+    prev_call = prev_bwd_call(torch, g, rays, k, shape, dtype, v_base, wv)
+    prev = cuda_time(prev_call, 20, device_only=True)
     ms = cuda_time(lambda: kc.sweep_bwd(g, rays, k, shape, dtype, v_base,
-                                        wv), 20)
+                                        wv), 20, device_only=True)
+    prev_again = cuda_time(prev_call, 20, device_only=True)
+    # The first version's autograd function copied the cotangent to
+    # [S, C, N] before the call; the redesign reads it through its strides.
+    copy = 0.0 if g.is_contiguous() else cuda_time(
+        lambda: g.contiguous(), 10, device_only=True)
     plain = cuda_time(lambda: kc.sweep_bwd_plain(g, rays, k, shape, dtype,
                                                  v_base, wv), 3, warmup=1)
-    lib = cuda_time(grid_sample_backward_call(torch, g, rays, k, shape), 10)
+    lib = cuda_time(grid_sample_backward_call(torch, g, rays, k, shape), 10,
+                    device_only=True)
     out = kc.sweep_bwd(g, rays, k, shape, dtype, v_base, wv)
     touched = int((out != 0).any(-1).sum())
     nnz = int((g != 0).sum())
@@ -796,8 +1016,12 @@ def bwd_numbers(torch, kc, g, rays, k, shape, dtype, v_base, wv):
     by = "bytes" if n_bytes / HBM_BPS >= ops / F32_FLOPS else "operations"
     return {"ms": ms, "plain_ms": plain,
             "bound_ms": max(n_bytes / HBM_BPS, ops / F32_FLOPS) * 1e3,
-            "bound_by": by, "library_ms": lib, "bytes": n_bytes,
-            "operations": ops, "nonzero_cotangents": nnz,
+            "bound_by": by, "library_ms": lib,
+            "prev_ms": min(prev, prev_again), "prev_ms_runs": [prev, prev_again],
+            "prev_cotangent_copy_ms": copy,
+            "form": kc.form(inst, kc.station_major(g)), "shared_chunks": chunks,
+            **kernel_usage("sweep_bwd", *inst),
+            "bytes": n_bytes, "operations": ops, "nonzero_cotangents": nnz,
             "voxels_touched": touched,
             "shape": f"g={tuple(g.shape)} grid={tuple(shape)} "
                      f"{str(dtype).split('.')[-1]} "
@@ -828,7 +1052,10 @@ def train_phase(torch, dev, ka, kb, kc, sweep_ops):
     rec = StepRecorder(train_lib)
     cap_a = Capture(sweep_ops, "sweep_fwd", form=rec.form)
     cap_c = Capture(sweep_ops, "sweep_bwd", form=rec.form)
+    count_timer = CallTimer(torch, [(DirectVoxGO, "voxel_count_views")])
     ka.launches = ka.launches_windowed = kb.launches = kc.launches = 0
+    ka.launches_by_form.clear()
+    kc.launches_by_form.clear()
     t0 = time.time()
     try:
         run_lib.main(["--config", cfg_path, "--no_reload", "--i_print", "100",
@@ -838,9 +1065,12 @@ def train_phase(torch, dev, ka, kb, kc, sweep_ops):
         rec.restore()
         cap_a.restore()
         cap_c.restore()
+        count_timer.restore()
     train_launches = {"sweep_fwd": ka.launches, "sweep_bwd": kc.launches,
                       "render_frame": kb.launches,
                       "sweep_fwd_windowed": ka.launches_windowed}
+    forms = {"sweep_fwd": dict(ka.launches_by_form),
+             "sweep_bwd": dict(kc.launches_by_form)}
     coarse = [s for s in rec.steps if s[0] == "coarse"]
     fine = [s for s in rec.steps if s[0] == "fine"]
     top = max(s[1] for s in fine)
@@ -863,6 +1093,27 @@ def train_phase(torch, dev, ka, kb, kc, sweep_ops):
         raise AssertionError(
             f"launches {train_launches} (K-A by form {dict(cap_a.counts)}, "
             f"K-C {dict(cap_c.counts)}) do not match {want}")
+    # Each path form ran its own channel instance of both kernels (coarse
+    # C=5, fine C=14, counted view C=1), every launch counted by form.
+    log(f"[phase 5] kernel forms launched: {forms}; voxel_count_views "
+        f"{count_timer.seconds} s")
+    for name, cap in (("sweep_fwd", cap_a), ("sweep_bwd", cap_c)):
+        by_c = collections.Counter()
+        for key, count in forms[name].items():
+            by_c[key.split("C=")[1].split()[0]] += count
+        c_of = {form: (cap.forms[form][0][0].shape[3] if name == "sweep_fwd"
+                       else cap.forms[form][0][3][3]) for form in want}
+        if (sum(forms[name].values()) != train_launches[name]
+                or any(by_c[str(c_of[f]) if c_of[f] in ka.CHANNEL_INSTANCES
+                            else "generic"] != want[f] for f in want)):
+            raise AssertionError(f"{name} launches by form {forms[name]} do "
+                                 f"not match {want} (channels {c_of})")
+
+    # Where a fine step's time goes: three more steps of the last one,
+    # traced (the checkpoints are written; these steps are not saved).
+    step_trace = profile_step(torch, *rec.last[("fine", False)],
+                              share_of=("sweep_fwd", "sweep_bwd"))
+    log(f"[phase 5] trace of the last fine step: {step_trace}")
     if not all(np.isfinite(s[3]) and np.isfinite(s[4]) for s in rec.steps):
         raise AssertionError("a train step's loss or PSNR is not finite")
     psnr_first = float(np.mean([s[3] for s in coarse[:50]]))
@@ -1082,7 +1333,11 @@ def train_phase(torch, dev, ka, kb, kc, sweep_ops):
                "train_psnr_last50_fine": psnr_last, "test_psnr": psnr_test,
                "white_psnr": float(np.mean(white)),
                "sweep_launches_per_step": 1,
-               "sweep_launches_per_counted_view": 1}
+               "sweep_launches_per_counted_view": 1,
+               "sweep_launches_by_form": forms,
+               "voxel_count_views_s": count_timer.seconds.get(
+                   "voxel_count_views"),
+               "fine_step_trace": step_trace}
     return entries, summary
 
 
@@ -1610,6 +1865,8 @@ def mpi_phase(torch, dev, tv, ka, kc, sweep_ops):
         (ckpt_lib, "load_checkpoint_file")])
     train_lib.scene_rep_reconstruction = timed_stage
     ka.launches = kc.launches = tv.launches = 0
+    ka.launches_by_form.clear()
+    kc.launches_by_form.clear()
     t0 = time.time()
     try:
         run_lib.main(["--config", cfg_path, "--no_reload", "--i_print",
@@ -1625,6 +1882,8 @@ def mpi_phase(torch, dev, tv, ka, kc, sweep_ops):
     wall_s = time.time() - t0
     launches = {"sweep_fwd": ka.launches, "sweep_bwd": kc.launches,
                 "tv_add_grad": tv.launches}
+    forms = {"sweep_fwd": dict(ka.launches_by_form),
+             "sweep_bwd": dict(kc.launches_by_form)}
     steps = rec.steps
     top = max(s[1] for s in steps)
     top_steps = [s for s in steps if s[1] == top]
@@ -1643,6 +1902,16 @@ def mpi_phase(torch, dev, tv, ka, kc, sweep_ops):
             and len(top_steps) >= FERN_ITERS - FERN_PG_SCALE[-1]):
         raise AssertionError(f"{len(steps)} steps do not match the launches "
                              f"{launches} (K-F by form {dict(tvr.counts)})")
+    # Every step ran the instance of its channel count (11 at fern width)
+    # of K-A and of K-C.
+    c = cap_a.calls[-1][0][0].shape[3]
+    inst = f" C={c if c in ka.CHANNEL_INSTANCES else 'generic'} "
+    log(f"[phase 7] kernel forms launched: {forms}")
+    for name, by_form in forms.items():
+        if sum(n for key, n in by_form.items()
+               if inst in f" {key} ") != FERN_ITERS:
+            raise AssertionError(f"{name} launches by form {by_form}: not "
+                                 f"{FERN_ITERS} of the{inst}instance")
     if not all(np.isfinite(s[3]) and np.isfinite(s[4]) for s in steps):
         raise AssertionError("an MPI step's loss or PSNR is not finite")
     psnr_first = float(np.mean([s[3] for s in steps[:50]]))
@@ -1764,6 +2033,7 @@ def mpi_phase(torch, dev, tv, ka, kc, sweep_ops):
                "view_ms": view_ms, "render_chunk_trace": chunk_trace,
                "render_sweep_launches": render_launches,
                "tv_calls_by_form": dict(tvr.counts),
+               "sweep_launches_by_form": forms,
                "step_traces": profiles}
     return mpi_kernel_checks(torch, tv, ka, kc, tvr, cap_a, cap_ar, cap_c,
                              launches, render_launches,
@@ -1979,10 +2249,11 @@ def run(dev):
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.time()
-    logs = _build.build_all()
+    logs = _build.build_all(_build.KERNELS + PREV_KERNELS)
     for name, text in logs.items():
         log(f"[phase 0] nvcc {name}.cu:\n{text.strip()}")
     log(f"[phase 0] built {list(logs)} in {time.time() - t0:.1f} s")
+    USAGE.update(ptxas_usage(logs))
 
     errs = {}
     slabs, rays, k = small_sweep_case(torch, dev)
@@ -2020,6 +2291,7 @@ def run(dev):
     cap_b = Capture(render_sweep, "render_frame")
     cap_a = Capture(sweep_ops, "sweep_fwd")
     ka.launches = kb.launches = 0
+    ka.launches_by_form.clear()
     t0 = time.time()
     try:
         run_lib.main(["--config", CONFIG, "--render_only", "--render_test",
@@ -2029,8 +2301,13 @@ def run(dev):
         cap_a.restore()
         cap_b.restore()
     launches = {"sweep_fwd": ka.launches, "render_frame": kb.launches}
+    render_forms = dict(ka.launches_by_form)
     log(f"[phase 3] run.main rendered {len(i_test)} views in "
-        f"{time.time() - t0:.1f} s; launches {launches}")
+        f"{time.time() - t0:.1f} s; launches {launches}, K-A by form "
+        f"{render_forms}")
+    if sum(render_forms.values()) != launches["sweep_fwd"]:
+        raise AssertionError(f"K-A forms {render_forms} do not add up to its "
+                             f"{launches['sweep_fwd']} launches")
     if launches["render_frame"] != len(accepted):
         raise AssertionError(f"K-B ran {launches['render_frame']} times for "
                              f"{len(accepted)} accepted views")
@@ -2095,9 +2372,7 @@ def run(dev):
     plain_b = cuda_time(lambda: kb.render_frame_plain(**f800), 3, warmup=1)
     frame_ms = host_time(lambda: render_sweep.render_frame_sweep(
         model, 800, 800, K2, c2w, rk), 5)
-    ms_a = cuda_time(lambda: ka.sweep_fwd(*s_args), 20)
-    plain_a = cuda_time(lambda: ka.sweep_fwd_plain(*s_args), 3, warmup=1)
-    lib_a = cuda_time(grid_sample_call(torch, *s_args), 20)
+    nums_a = fwd_numbers(torch, ka, *s_args)
     # A view the sweep plan rejects, rendered per ray through
     # render_viewpoints as run.py calls it (20 chunks of 8192 rays at 400^2).
     r = rejected[0]
@@ -2108,34 +2383,22 @@ def run(dev):
 
     # Bounds from this run's inputs: what the function must read and write
     # once, and the operations this run's data needs (see PERF.md).
-    slabs, rays, k = s_args
-    s_total, gu, gv, c = slabs.shape
-    n = rays.shape[1]
-    vox_a = sweep_voxels(torch, slabs, rays, k)
-    bytes_a = vox_a * c * slabs.element_size() + rays.numel() * 4 \
-        + s_total * c * n * 4
-    ops_a = s_total * n * (4 * c * 2 + 16)
-    bound_a = max(bytes_a / HBM_BPS, ops_a / F32_FLOPS) * 1e3
-    by_a = "bytes" if bytes_a / HBM_BPS >= ops_a / F32_FLOPS else "operations"
     hi, wi = f800["dnorm"].shape
     bound_b, by_b, bytes_b, mlp_flops, geo_flops = frame_bound(f800, stats)
     log(f"[phase 4] 800^2 frame: inter {hi}x{wi}, S={f800['d_geo'].shape[0]},"
         f" {stats}; K-B {ms_b:.4f} ms, plain {plain_b:.1f} ms, whole frame "
         f"{frame_ms:.2f} ms; K-B bound {bound_b:.5f} ms ({by_b}: "
         f"{bytes_b} bytes, {mlp_flops} MLP + {geo_flops} f32 operations)")
-    log(f"[phase 4] K-A {ms_a:.4f} ms (plain {plain_a:.1f}, grid_sample "
-        f"{lib_a:.4f}), bound {bound_a:.5f} ms ({by_a}: {bytes_a} bytes, "
-        f"{vox_a} slab voxels read); rejected view {r} per ray at 400^2: "
-        f"{rays_view_ms:.2f} ms")
+    log(f"[phase 4] K-A on the middle chunk of the rejected view: {nums_a}; "
+        f"rejected view {r} per ray at 400^2: {rays_view_ms:.2f} ms")
     kernels = [
-        {"name": "sweep_fwd", "route": "cuda",
-         "source": "directvoxgo_tpu_torch/csrc/sweep_fwd.cu",
-         "replaces": "directvoxgo_tpu/ops/pallas_sweep_train.py:85",
-         "launches": launches["sweep_fwd"], "max_abs_err": errs["sweep_fwd"],
-         "ms": ms_a, "plain_ms": plain_a, "bound_ms": bound_a,
-         "bound_by": by_a, "library_ms": lib_a,
-         "rejected_view_ms": rays_view_ms,
-         "shape": f"S={s_total} slab={gu}x{gv}x{c} N={n}"},
+        dict({"name": "sweep_fwd", "route": "cuda",
+              "source": "directvoxgo_tpu_torch/csrc/sweep_fwd.cu",
+              "replaces": "directvoxgo_tpu/ops/pallas_sweep_train.py:85",
+              "launches": launches["sweep_fwd"],
+              "max_abs_err": errs["sweep_fwd"],
+              "launches_by_form": render_forms,
+              "rejected_view_ms": rays_view_ms}, **nums_a),
         {"name": "render_frame", "route": "cuda",
          "source": "directvoxgo_tpu_torch/csrc/render_frame.cu",
          "replaces": "directvoxgo_tpu/ops/pallas_render4.py:74",

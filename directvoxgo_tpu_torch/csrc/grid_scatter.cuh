@@ -50,4 +50,22 @@ __device__ __forceinline__ void scatter_tap(float* px, size_t slab_elems,
   if (sp.j > 0) atomicAdd(px + slab_elems, __fmul_rn(sp.f_hi, x));
 }
 
+// Global reduction of VR (1 or 4) consecutive f32 values onto p (aligned
+// to 4*VR bytes) as one operation: red.global.add(.v4).f32 (v4: sm_90).
+template <int VR>
+__device__ __forceinline__ void red_add(float* p, const float* x);
+
+template <>
+__device__ __forceinline__ void red_add<1>(float* p, const float* x) {
+  asm volatile("red.global.add.f32 [%0], %1;" ::"l"(p), "f"(x[0])
+               : "memory");
+}
+
+template <>
+__device__ __forceinline__ void red_add<4>(float* p, const float* x) {
+  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};" ::"l"(p),
+               "f"(x[0]), "f"(x[1]), "f"(x[2]), "f"(x[3])
+               : "memory");
+}
+
 }  // namespace dvgo

@@ -109,9 +109,9 @@ class _StationSweep(torch.autograd.Function):
     def backward(ctx, g_vals):
         rays, v_base = ctx.saved_tensors
         shape, dtype, k, wv = ctx.sweep
-        # One layout for the kernel: [S, C, N] contiguous, as K-A writes
-        # (a copy of the cotangent whatever strides autograd gave it).
-        g = g_vals.permute(2, 0, 1).contiguous()
+        # K-C reads the cotangent through its strides: autograd's [C, N, S]
+        # layout goes to the kernel as it is, without a copy.
+        g = g_vals.permute(2, 0, 1)
         d_grid = sweep_bwd(g, rays, k, shape, dtype, v_base, wv)
         return d_grid, None, None, None, None
 

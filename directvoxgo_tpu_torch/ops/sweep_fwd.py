@@ -11,7 +11,9 @@ launches the kernel (or raises); on a CPU tensor it runs
 
 from __future__ import annotations
 
+import collections
 import ctypes
+import functools
 
 import torch
 
@@ -19,23 +21,69 @@ from . import _build
 
 launches = 0
 launches_windowed = 0   # those of ``launches`` that took a v-window
+launches_by_form = collections.Counter()   # of ``launches``, by :func:`form`
 
 # Ray-tile width of the per-tile v-windows.
 TILE_N = 512
+# Channel counts with an instance of their own (the counted view, the coarse
+# step, the MPI step, the fine step and render chunk); any other count up to
+# the kernel's C_MAX runs through its generic instance.
+CHANNEL_INSTANCES = (1, 5, 11, 14)
+# The counts of consecutive stations a thread may take.
+STATIONS_PER_THREAD_CHOICES = (1, 8)
 
 
+@functools.lru_cache(maxsize=None)
 def _lib():
     """The kernel library, with every C function's signature declared."""
     lib = _build.load("sweep_fwd")
     lib.dvgo_sweep_fwd.argtypes = ([ctypes.c_void_p, ctypes.c_int]
                                    + [ctypes.c_void_p] * 3
-                                   + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+                                   + [ctypes.c_int] * 10 + [ctypes.c_void_p])
     lib.dvgo_sweep_fwd.restype = ctypes.c_int
     lib.dvgo_sweep_fwd_max_channels.argtypes = []
     lib.dvgo_sweep_fwd_max_channels.restype = ctypes.c_int
     lib.dvgo_error_string.argtypes = [ctypes.c_int]
     lib.dvgo_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def load_width(c, elem_size, address):
+    """Bytes per load of K-A over contiguous slabs of ``c`` channels of
+    ``elem_size`` bytes at ``address``: the widest of 16, 8, 4 (and 2 for
+    bf16) that divides a voxel's bytes and the address."""
+    for vb in (16, 8, 4, 2):
+        if vb >= elem_size and (c * elem_size) % vb == 0 and address % vb == 0:
+            return vb
+    raise ValueError(f"sweep_fwd: no load width for {c} channels of "
+                     f"{elem_size} bytes at address {address:#x}")
+
+
+def stations_per_thread(n, s_total):
+    """Consecutive stations a thread takes: one for a step's or a render
+    chunk's batch (a few million (ray, station) pairs: the card needs every
+    thread), eight where rays x stations exceed 2^24 (a counted view's
+    160,000 rays), which shares each ray's loads over the eight."""
+    return 8 if n * s_total >= (1 << 24) else 1
+
+
+def instance(slabs, n):
+    """(slab dtype name, the instance's channel count (0: generic), load
+    bytes, stations a thread) of the kernel instance that runs on
+    contiguous ``slabs`` for ``n`` rays."""
+    c = slabs.shape[-1]
+    esize = slabs.element_size()
+    return ("bf16" if esize == 2 else "f32",
+            c if c in CHANNEL_INSTANCES else 0,
+            load_width(c, esize, slabs.data_ptr()),
+            stations_per_thread(n, slabs.shape[0]))
+
+
+def form(inst, windowed):
+    """Name of a launch's kernel instance (:func:`instance`) and form."""
+    dtype, c, vec_bytes, spt = inst
+    return (f"{dtype} C={c or 'generic'} {vec_bytes}B x{spt}"
+            + (" windowed" if windowed else ""))
 
 
 def station_uv(rays, s, k):
@@ -122,16 +170,18 @@ def sweep_fwd(slabs, rays, k, v_base=None, wv=0):
     if c > lib.dvgo_sweep_fwd_max_channels():
         raise ValueError(f"sweep_fwd: {c} channels exceed the kernel's "
                          "register budget")
+    inst = instance(slabs, n)
     out = torch.empty((s_total, c, n), dtype=torch.float32,
                       device=slabs.device)
     err = lib.dvgo_sweep_fwd(
         slabs.data_ptr(), int(slabs.dtype == torch.bfloat16),
         rays.data_ptr(), v_base.data_ptr() if wv else None, out.data_ptr(),
-        n, s_total, gu, gv, c, int(k), wv, TILE_N,
+        n, s_total, gu, gv, c, inst[2], int(k), wv, TILE_N, inst[3],
         torch.cuda.current_stream(slabs.device).cuda_stream)
     if err:
         raise RuntimeError("sweep_fwd launch failed: "
                            + lib.dvgo_error_string(err).decode())
     launches += 1
     launches_windowed += bool(wv)
+    launches_by_form[form(inst, bool(wv))] += 1
     return out

@@ -262,17 +262,34 @@ def test_kernel_signatures_match_their_c_prototypes(monkeypatch):
         return lib
 
     monkeypatch.setattr(_build, "load", fake_load)
+    # K-A and K-C keep their library once declared: drop it around the fake
+    ka._lib.cache_clear()
+    kc._lib.cache_clear()
     from directvoxgo_tpu_torch.ops import probe_ops as kg
     from directvoxgo_tpu_torch.ops import train_fused as kde
     from directvoxgo_tpu_torch.ops import tv as kf
+    import chip_smoke
+    prev = [lambda name=name: chip_smoke._prev_lib(name)[0]
+            for name in chip_smoke.PREV_KERNELS]
     for load_lib in (ka._lib, kb._lib, kc._lib, kde._lib_fwd, kde._lib_bwd,
-                     kf._lib, kg._lib):
+                     kf._lib, kg._lib, *prev):
         lib = load_lib()
         assert lib.prototypes
         for fn, params in lib.prototypes.items():
             n = len([p for p in params.split(",") if p.strip()])
             assert len(getattr(lib, fn).argtypes) == n, fn
             assert getattr(lib, fn).restype is not None, fn
+    # K-A and K-C: every entry point of the redesign is declared (and the
+    # first versions' above, which chip_smoke.py times beside them).
+    assert set(ka._lib().prototypes) == {
+        "dvgo_error_string", "dvgo_sweep_fwd_max_channels", "dvgo_sweep_fwd"}
+    assert set(kc._lib().prototypes) == {
+        "dvgo_error_string", "dvgo_sweep_bwd_max_channels",
+        "dvgo_sweep_bwd_limits", "dvgo_sweep_bwd", "dvgo_sweep_bwd_finish"}
+    assert len(ka._lib().dvgo_sweep_fwd.argtypes) == 16
+    assert len(kc._lib().dvgo_sweep_bwd.argtypes) == 23
+    ka._lib.cache_clear()
+    kc._lib.cache_clear()
 
 
 def test_packed_mlp_follows_the_weights():
