@@ -5,8 +5,9 @@
 
 Phases, each of which fails the run:
   0. build every CUDA kernel from csrc/ (one nvcc per source, all at once),
-     and the first versions of the sweep kernels K-A and K-C
-     (csrc/sweep_{fwd,bwd}_v1.cu), the yardstick of their redesign; keep
+     and the first versions of K-A, K-C, K-F and K-B
+     (csrc/sweep_{fwd,bwd}_v1.cu, csrc/tv_add_grad_first.cu,
+     csrc/render_frame_first.cu), the yardstick of their redesign; keep
      each kernel instance's registers and spills from ``-Xptxas -v``;
   1. hold each kernel against its plain PyTorch version on the card, at a
      small shape here (the sweep's forward at every count of stations a
@@ -14,7 +15,10 @@ Phases, each of which fails the run:
      cotangent layouts, full, segment and per-tile windowed, for every
      channel instance; the fused train step in both colour modes, both
      march directions, full and windowed; the TV stencil on whole grids and
-     boxes) and at the main paths' full shapes after phases 3, 5, 6 and 7;
+     boxes, on its rows and strided paths, bit for bit; the frame kernel in
+     every form, MLP width and colour mode, T and depth bit for bit against
+     its first version) and at the main paths' full shapes after phases 3,
+     4, 5, 6 and 7;
   2. build a full-width lego fine checkpoint (160^3 grid, k0 12, MLP
      39->128->128->3) from the fixture teacher density and seeded random
      colour weights, and save it in the checkpoint format;
@@ -26,7 +30,9 @@ Phases, each of which fails the run:
      and that a frame rendered per ray agrees with the same frame rendered
      whole;
   4. time the kernels, their plain versions, whole 800^2 frames and one
-     view the plan rejects, rendered per ray;
+     view the plan rejects, rendered per ray; the frame kernel also beside
+     its first version, on the geometry alone (no colour grid, no MLP), and
+     with the fill of its sample queue;
   5. train coarse then fine at full lego width through
      ``python -m directvoxgo_tpu_torch.run`` (in process) on a config that
      shortens only the iteration counts of
@@ -71,14 +77,15 @@ Phases, each of which fails the run:
      (``directvoxgo_tpu_torch.tools.probe_ops``: eleven op classes and the
      null body through K-G, each digest against its plain version, per-op
      cost against its bound and one library call), and check that K-B ran
-     in its v1, v3 and v4 forms and K-G for every class; then the v1 and
-     v3 forms against their plain versions at the bench shape, timed with
-     their layout adapters apart.
+     in its v1, v3 and v4 forms and K-G for every class; then the v1, v3
+     and v4 forms against their plain and first versions at the bench
+     shape, timed with their layout adapters apart.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line (one
 entry per kernel and form, each with the launches of the path it belongs
-to; those of K-A and K-C also with their first version's time on the same
-inputs, ``prev_ms``, and the instance's registers and spills) and, last,
+to; those of K-A, K-C, K-F and K-B also with their first version's device
+time on the same inputs, ``prev_ms``, and the instance's registers and
+spills) and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result line
 when there is no CUDA device or the port's package is not beside this
 file.
@@ -281,6 +288,115 @@ def check_frame(kb, case, what, empty_check=False):
                              "[0.01, 0.95] (trivially empty or full frame)")
     err = max(float((rgb - r_p).abs().max()), t_err)
     return err, stats["visible_samples"]
+
+
+FRAME_RGB_TOL = 1e-3   # bench_framekernel.KERNEL_TOL["rgb"]
+
+
+def frame_form(torch, case, form, has_mlp=True):
+    """``render_frame``'s keyword arguments for ``form`` ("v4", "v3" or
+    "v1") of a small case made for v4 (view embedding, layer 1 with its
+    view half and bias): v3 and v1 take ``shared1 = bf16(emb . bf16(w1b) +
+    b1)`` and layer 1's feature half, v1 contracts k0 u first. Without an
+    MLP only the k0 order differs between the forms."""
+    f = dict(case)
+    if not has_mlp:
+        f.update(vd_emb=None, layers=None, has_mlp=False)
+    elif form != "v4":
+        (w1, b1), l2, l3 = f["layers"]
+        emb = f["vd_emb"]
+        f_mlp = w1.shape[0] - emb.shape[-1]
+        w1b = w1[f_mlp:].to(torch.bfloat16).float()
+        f["shared1"] = (emb.float() @ w1b + b1).to(torch.bfloat16)
+        f.update(vd_emb=None, layers=[(w1[:f_mlp], None), l2, l3])
+    f["k0_order"] = "u_first" if form == "v1" else "v_first"
+    return f
+
+
+def hold_frame(torch, kb, f, what):
+    """K-B on the frame ``f`` against its plain version (rgb within
+    ``FRAME_RGB_TOL`` and at least 55 dB) and its first version (T and
+    depth bit for bit, since the march and its rounding are the same);
+    returns the largest |rgb| difference from the plain version."""
+    rgb, depth, tcum = kb.render_frame(**f)
+    r_f, d_f, t_f = prev_frame_call(torch, f)()
+    torch.cuda.synchronize()
+    r_p, d_p, t_p = kb.render_frame_plain(**f)
+    err = float((rgb - r_p).abs().max())
+    p = psnr(rgb, r_p)
+    same = bool(torch.equal(tcum, t_f)) and bool(torch.equal(depth, d_f))
+    log(f"[phase 1] K-B {what}: rgb max|kernel-plain|={err:.3e} "
+        f"PSNR={p:.2f} dB, T err {float((tcum - t_p).abs().max()):.3e}, "
+        f"T and depth equal to the first version: {same}, rgb "
+        f"max|kernel-first|={float((rgb - r_f).abs().max()):.3e}")
+    if not (err <= FRAME_RGB_TOL and p >= 55.0 and same):
+        raise AssertionError(f"K-B {what}: rgb err {err}, PSNR {p}, T and "
+                             f"depth equal to the first version {same}")
+    return err
+
+
+def small_frame_checks(torch, dev, kb):
+    """K-B in every form (v4, v3, v1) x MLP width (32, 64, 128) x colour
+    mode (direct, logit_plus_k0), and without an MLP (both k0 orders, and
+    without a colour grid), each held by :func:`hold_frame`."""
+    worst, n = 0.0, 0
+    for rgb_mode in ("direct", "logit_plus_k0"):
+        for width in (32, 64, 128):
+            case = small_frame_case(torch, dev, width, 12, rgb_mode)
+            for form in ("v4", "v3", "v1"):
+                worst = max(worst, hold_frame(
+                    torch, kb, frame_form(torch, case, form),
+                    f"small {form} {rgb_mode} width {width}"))
+                n += 1
+        for form in ("v3", "v1"):
+            worst = max(worst, hold_frame(
+                torch, kb, frame_form(torch, case, form, has_mlp=False),
+                f"small {form} {rgb_mode} no MLP"))
+            n += 1
+    geo = dict(frame_form(torch, case, "v4", has_mlp=False), d_k0=None,
+               rgb_mode="direct")
+    worst = max(worst, hold_frame(torch, kb, geo, "small, no colour grid"))
+    log(f"[phase 1] K-B: {n + 1} small cases, largest rgb error {worst:.3e}")
+    return worst
+
+
+def frame_numbers(torch, kb, f, n_iter, geo=False):
+    """K-B on the frame ``f``: device ms beside its first version's (same
+    inputs, same call), the instance's registers and spills (and the first
+    version's), its form and the mean fill of its sample queue per flush;
+    with ``geo`` also both versions on the geometry alone (no colour grid,
+    no MLP: what is left of the frame without the colour path)."""
+    prev_call = prev_frame_call(torch, f)
+    prev = cuda_time(prev_call, n_iter, device_only=True)
+    ms = cuda_time(lambda: kb.render_frame(**f), n_iter, device_only=True)
+    prev_again = cuda_time(prev_call, n_iter, device_only=True)
+    torch.cuda.synchronize()
+    kb.queue_stats(enable=True)
+    kb.render_frame(**f)
+    torch.cuda.synchronize()
+    queue = kb.queue_stats(enable=False)
+    width = f["layers"][1][0].shape[0] if f["has_mlp"] else 32
+    shared1 = f["has_mlp"] and f.get("shared1") is not None
+    u_first = f.get("k0_order", "v_first") == "u_first"
+    if not f["has_mlp"]:
+        shared1 = u_first
+    nums = {"ms": ms, "prev_ms": min(prev, prev_again),
+            "prev_ms_runs": [prev, prev_again],
+            "form": kb._form(f.get("shared1"), f.get("k0_order", "v_first")),
+            **kernel_usage("render_frame", "render_frame_kernel", width,
+                           shared1, u_first),
+            "prev_usage": kernel_usage("render_frame_first",
+                                       "render_frame_kernel", width,
+                                       shared1, u_first),
+            "queue": queue}
+    if geo:
+        g = dict(f, d_k0=None, vd_emb=None, layers=None, shared1=None,
+                 has_mlp=False, rgb_mode="direct")
+        g_prev = prev_frame_call(torch, g)
+        nums["prev_geo_ms"] = cuda_time(g_prev, n_iter, device_only=True)
+        nums["geo_ms"] = cuda_time(lambda: kb.render_frame(**g), n_iter,
+                                   device_only=True)
+    return nums
 
 
 # ----------------------------------------------------------------- phase 2
@@ -678,56 +794,76 @@ def small_fused_checks(torch, dev, tf):
 # ------------------------------------------------ phase 1: the TV stencil
 
 def small_tv_checks(torch, dev, tv):
-    """K-F against its plain version: [X, Y, Z] and [X, Y, Z, C] grids,
-    dense and sparse, ``bug_compat`` on and off with anisotropic weights,
-    the whole grid and boxes touching 0, 1 and 3 faces of it, gradients
-    contiguous and strided (a channel slice, as autograd hands them over;
-    a box of the grid's gradient). Each output within 1e-6 of the largest
-    |TV| entry (both round every term the same way), zeros at the same
-    places, gated elements exactly the gradient."""
+    """K-F against its plain version and its first version: [X, Y, Z] and
+    [X, Y, Z, C] grids, dense and sparse, ``bug_compat`` on and off with
+    anisotropic weights, the whole grid and boxes touching 0, 1 and 3 faces
+    of it, gradients contiguous and z-major (the sweep's permuted gradient;
+    both take the rows path where the run is aligned) and strided (a
+    channel slice, as autograd hands them over; a box of the grid's
+    gradient: the strided path), at two sizes (the larger spans
+    several tiles, rows and x slices of the rows path, with ragged ends).
+    Each output bit-identical to the plain version's and to the first
+    version's (zeros at the same places, gated elements exactly the
+    gradient); both paths must have run."""
     gen = torch.Generator(device="cpu").manual_seed(SEED + 7)
-    worst, n_cases = 0.0, 0
-    boxes = (None, ((2, 2, 2), (4, 3, 4)), ((0, 2, 2), (4, 3, 4)),
-             ((5, 0, 4), (4, 3, 4)))
-    for shape in ((9, 7, 8), (9, 7, 8, 3)):
+    n_cases = 0
+    small = (None, ((2, 2, 2), (4, 3, 4)), ((0, 2, 2), (4, 3, 4)),
+             ((5, 0, 4), (4, 3, 4)), ((2, 2, 4), (4, 3, 4)))
+    large = (None, ((3, 2, 8), (30, 15, 36)), ((0, 5, 3), (37, 14, 45)))
+    for k in tv.launches_by_path:
+        tv.launches_by_path[k] = 0
+    for shape, boxes in (((9, 7, 8), small), ((9, 7, 8, 3), small),
+                         ((37, 19, 48), large), ((37, 19, 48, 9), large)):
         p = (torch.randn(shape, generator=gen) * 0.8).to(dev)
         wide = (*shape[:3], 2 * (shape[3] if len(shape) > 3 else 1))
         g_wide = (torch.randn(wide, generator=gen)
                   * (torch.rand(wide, generator=gen) < 0.4)).to(dev)
         g_strided = (g_wide[..., 1::2] if len(shape) > 3
                      else g_wide[..., 1])
-        for bug in (True, False):
-            g = g_strided.contiguous() if bug else g_strided
+        # z-major: the layout of the sweep's gradient of an MPI grid
+        z_major = g_strided.movedim(2, 0).contiguous().movedim(0, 2)
+        for bug, g in ((True, g_strided.contiguous()), (False, g_strided),
+                       (True, z_major)):
             for dense in (True, False):
                 for box in boxes:
                     if box is None:
+                        name, g_in = "total_variation_add_grad", g
                         args = (p, g, 0.9, 0.5, 0.2, dense, bug)
-                        out = tv.total_variation_add_grad(*args)
-                        ref = tv.total_variation_add_grad_plain(*args)
-                        g_in = g
                     else:
                         offs, sizes = box
                         g_in = g[tuple(slice(o, o + z) for o, z in
                                        zip(offs, sizes))]
+                        if g is not g_strided and g is not z_major:
+                            g_in = g_in.contiguous()
+                        name = "tv_add_grad_box"
                         args = (p, g_in, offs, 0.9, 0.5, 0.2, dense, bug)
-                        out = tv.tv_add_grad_box(*args)
-                        ref = tv.tv_add_grad_box_plain(*args)
+                    out = getattr(tv, name)(*args)
+                    first = prev_tv_call(torch, name, args, {})()
                     torch.cuda.synchronize()
+                    ref = getattr(tv, name + "_plain")(*args)
                     scale = float((ref - g_in).abs().max())
                     err = float((out - ref).abs().max())
                     off = g_in == 0
-                    ok = (scale > 0 and err <= 1e-6 * scale
+                    ok = (scale > 0 and bool(torch.equal(out, ref))
+                          and bool(torch.equal(out, first))
                           and bool(((out == 0) == (ref == 0)).all())
                           and (dense or bool(torch.equal(
                               out[off], g_in[off] + 0.0))))
                     if not ok:
+                        path = tv.path_of(p, g_in, box[0] if box
+                                          else (0, 0, 0))
                         raise AssertionError(
                             f"K-F {shape} bug_compat={bug} dense={dense} "
-                            f"box={box}: err {err} of {scale}")
-                    worst, n_cases = max(worst, err / scale), n_cases + 1
-    log(f"[phase 1] K-F tv_add_grad: {n_cases} small cases, largest error "
-        f"{worst:.3e} of the largest |TV| entry, zero patterns identical")
-    return worst
+                            f"box={box} ({path} path): err {err} of "
+                            f"{scale}")
+                    n_cases += 1
+    paths = dict(tv.launches_by_path)
+    log(f"[phase 1] K-F tv_add_grad: {n_cases} small cases, each "
+        f"bit-identical to its plain and its first version; launches by "
+        f"path {paths}")
+    if min(paths.values()) < 1:
+        raise AssertionError(f"K-F small cases missed a path: {paths}")
+    return 0.0
 
 
 # ----------------------------------------------------------------- phase 5
@@ -829,9 +965,11 @@ def tile_windows_for(torch, sweep_ops, model, ro, rd, axis, n_rand):
     return order, v_base.to(torch.int32).contiguous(), wv
 
 
-# The first versions of K-A and K-C, kept beside their redesign as the
-# yardstick of its `prev_ms` (never loaded by the port).
-PREV_KERNELS = ("sweep_fwd_v1", "sweep_bwd_v1")
+# The first versions of K-A, K-C, K-F and K-B, kept
+# beside their redesign as the yardstick of its `prev_ms` (never loaded by
+# the port).
+PREV_KERNELS = ("sweep_fwd_v1", "sweep_bwd_v1", "tv_add_grad_first",
+                "render_frame_first")
 
 
 def _prev_lib(name):
@@ -842,17 +980,32 @@ def _prev_lib(name):
     lib = _build.load(name)
     lib.dvgo_error_string.argtypes = [ctypes.c_int]
     lib.dvgo_error_string.restype = ctypes.c_char_p
+    limits = []
     if name == "sweep_fwd_v1":
-        fn, c_max = lib.dvgo_sweep_fwd, lib.dvgo_sweep_fwd_max_channels
+        fn = lib.dvgo_sweep_fwd
+        limits = [lib.dvgo_sweep_fwd_max_channels]
         fn.argtypes = ([ctypes.c_void_p, ctypes.c_int]
                        + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
                        + [ctypes.c_void_p])
-    else:
-        fn, c_max = lib.dvgo_sweep_bwd, lib.dvgo_sweep_bwd_max_channels
+    elif name == "sweep_bwd_v1":
+        fn = lib.dvgo_sweep_bwd
+        limits = [lib.dvgo_sweep_bwd_max_channels]
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
                        + [ctypes.c_void_p])
-    fn.restype = c_max.restype = ctypes.c_int
-    c_max.argtypes = []
+    elif name == "tv_add_grad_first":
+        fn = lib.dvgo_tv_add_grad
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 10
+                       + [ctypes.c_longlong] * 4 + [ctypes.c_float] * 3
+                       + [ctypes.c_int, ctypes.c_void_p])
+    else:
+        fn = lib.dvgo_render_frame
+        limits = [lib.dvgo_render_frame_max_features,
+                  lib.dvgo_render_frame_max_emb]
+        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 12
+                       + [ctypes.c_float] * 12 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    for f in limits:
+        f.argtypes, f.restype = [], ctypes.c_int
     return lib, fn
 
 
@@ -910,6 +1063,81 @@ def prev_bwd_call(torch, g, rays, k, shape, dtype, v_base=None, wv=0):
     return call
 
 
+def prev_tv_call(torch, name, args, kw):
+    """K-F's first version on the inputs of a call of ``tv.<name>``
+    (``total_variation_add_grad`` or ``tv_add_grad_box``), as its wrapper
+    called it: one thread per element through the gradient's strides, into
+    a fresh output."""
+    import inspect
+    from directvoxgo_tpu_torch.ops import tv
+    lib, fn = _prev_lib("tv_add_grad_first")
+    bound = inspect.signature(getattr(tv, name)).bind(*args, **kw)
+    bound.apply_defaults()
+    a = bound.arguments
+    param = a["param"]
+    grad = a["grad_box"] if name == "tv_add_grad_box" else a["grad"]
+    offs = tuple(int(o) for o in a.get("offs", (0, 0, 0)))
+    w = tv._axis_weights(a["wx"], a["wy"], a["wz"], a["bug_compat"])
+    dims = tuple(int(d) for d in param.shape[:3])
+    sizes = tuple(int(d) for d in grad.shape[:3])
+    c = int(param.shape[3]) if param.dim() == 4 else 1
+    g_strides = tuple(grad.stride()) + ((1,) if param.dim() == 3 else ())
+    stream = torch.cuda.current_stream(param.device).cuda_stream
+
+    def call():
+        out = torch.empty(grad.shape, dtype=torch.float32,
+                          device=grad.device)
+        _prev_check(lib, fn(param.data_ptr(), grad.data_ptr(),
+                            out.data_ptr(), *dims, c, *offs, *sizes,
+                            *g_strides, *(float(x) for x in w),
+                            int(bool(a["dense_mode"])), stream))
+        return out
+    return call
+
+
+def prev_frame_call(torch, f):
+    """K-B's first version on the frame ``f`` (``render_frame``'s keyword
+    arguments), as its wrapper called it: the MLP packed as f32
+    (``pack_mlp``, outside the timed call, as the wrapper's cache kept it),
+    one thread per pixel, fresh outputs."""
+    from directvoxgo_tpu_torch.ops import render_frame as kb
+    lib, fn = _prev_lib("render_frame_first")
+    dev = f["dnorm"].device
+    s_total, gu, gv, _ = f["d_geo"].shape
+    hi, wi = f["dnorm"].shape
+    c0 = 3 if f["rgb_mode"] == "logit_plus_k0" else 0
+    shared1 = f.get("shared1")
+    emb_dim = width = 0
+    mlp = emb = None
+    f_k0 = 0 if f["d_k0"] is None else f["d_k0"].shape[3]
+    if f["has_mlp"]:
+        layers = f["layers"]
+        width = layers[1][0].shape[0]
+        if shared1 is None:
+            emb_dim = f["vd_emb"].shape[-1]
+            emb = f["vd_emb"]
+        else:
+            emb = shared1
+        mlp = kb.pack_mlp(layers, layers[0][0].shape[0] - emb_dim)
+    ptr = lambda x: 0 if x is None else x.data_ptr()  # noqa: E731
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def call():
+        rgb = torch.empty((3, hi, wi), dtype=torch.float32, device=dev)
+        depth = torch.empty((hi, wi), dtype=torch.float32, device=dev)
+        tcum = torch.empty((hi, wi), dtype=torch.float32, device=dev)
+        _prev_check(lib, fn(
+            ptr(f["d_geo"]), ptr(f["d_k0"]), ptr(emb), ptr(f["dnorm"]),
+            ptr(f["dclip"]), ptr(f["ur"]), ptr(f["vr"]), ptr(mlp),
+            ptr(f["activity"]), ptr(rgb), ptr(depth), ptr(tcum), s_total,
+            gu, gv, hi, wi, f_k0, c0, emb_dim, width, int(f["has_mlp"]),
+            int(shared1 is not None),
+            int(f.get("k0_order", "v_first") == "u_first"),
+            *[float(x) for x in f["scalars"]], stream))
+        return rgb, depth, tcum
+    return call
+
+
 USAGE = {}   # (library, mangled kernel) -> (registers, spill bytes), phase 0
 
 
@@ -942,7 +1170,7 @@ def kernel_usage(lib, kernel, *targs):
     args = "".join(f"Lb{int(a)}E" if isinstance(a, bool) else
                    f"Li{a}E" if isinstance(a, int) else code[a]
                    for a in targs)
-    want = f"{len(kernel)}{kernel}I{args}E"
+    want = f"{len(kernel)}{kernel}" + (f"I{args}E" if targs else "E")
     for (name, mangled), (regs, st, ld) in USAGE.items():
         if name == lib and want in mangled:
             return {"registers": regs, "spills": st + ld}
@@ -1798,23 +2026,41 @@ def tv_numbers(torch, tv, name, args, kw):
         n_term = int(core.sum())
     n_bytes = 4 * (n_param + 2 * grad.numel())
     ops = 27 * n_term + grad.numel()
-    ms = cuda_time(lambda: fn(*args, **kw), 20)
+    path = tv.path_of(param, grad, offs)
+    prev_call = prev_tv_call(torch, name, args, kw)
+    prev_out = prev_call()
+    prev_same = bool(torch.equal(prev_out, out))
+    prev = cuda_time(prev_call, 20, device_only=True)
+    ms = cuda_time(lambda: fn(*args, **kw), 20, device_only=True)
+    prev_again = cuda_time(prev_call, 20, device_only=True)
     plain_ms = cuda_time(lambda: plain(*args, **kw), 5)
     by = "bytes" if n_bytes / HBM_BPS >= ops / F32_FLOPS else "operations"
+    # (kernel, template arguments) of the instance, as csrc/tv_add_grad.cu
+    # launches it
+    kernel = (("tv_add_grad_kernel",) if path == "strided" else
+              ("tv_rows_kernel", bool(dense)))
     log(f"[phase 7] K-F tv_add_grad {'box' if boxed else 'grid'} "
         f"{'dense' if dense else 'sparse'} param {tuple(param.shape)} box "
         f"{sizes} at {offs}: max|kernel-plain|={err:.3e} of the largest "
         f"|TV| {scale:.3e}, zero pattern differs at {zeros_differ}, gated "
         f"elements exactly the gradient: {gated_exact}, gradient nonzero "
         f"share {float((grad != 0).float().mean()):.4f}")
-    if not (err <= 1e-6 * scale and scale > 0 and zeros_differ == 0
+    if not (err == 0.0 and scale > 0 and zeros_differ == 0 and prev_same
             and gated_exact and bool(torch.isfinite(out).all())):
         raise AssertionError(f"K-F: err {err} of {scale}, zero pattern "
                              f"differs at {zeros_differ}, gated exact "
-                             f"{gated_exact}")
+                             f"{gated_exact}, equal to the first version "
+                             f"{prev_same}")
     return err, {"ms": ms, "plain_ms": plain_ms,
                  "bound_ms": max(n_bytes / HBM_BPS, ops / F32_FLOPS) * 1e3,
-                 "bound_by": by, "library_ms": None, "bytes": n_bytes,
+                 "bound_by": by, "library_ms": None,
+                 "prev_ms": min(prev, prev_again),
+                 "prev_ms_runs": [prev, prev_again],
+                 "form": path,
+                 **kernel_usage("tv_add_grad", *kernel),
+                 "prev_usage": kernel_usage("tv_add_grad_first",
+                                            "tv_add_grad_kernel"),
+                 "bytes": n_bytes,
                  "param_elements_read": n_param,
                  "elements_with_term": n_term, "largest_tv": scale,
                  "shape": f"param {tuple(param.shape)} box {sizes} at "
@@ -2168,8 +2414,12 @@ def harness_phase(torch, dev, kb):
              bench.run_v1),
             ("v3", "render_frame [v3 shared1]",
              "directvoxgo_tpu/ops/pallas_render3.py:51", bench.v3_args,
-             bench.run_v3)):
+             bench.run_v3),
+            ("v4", "render_frame [v4 bench]",
+             "directvoxgo_tpu/ops/pallas_render4.py:74", bench.v4_args,
+             bench.run_v4)):
         args = args_fn(case)
+        hold_frame(torch, kb, args, f"{form} at the bench shape")
         errs, stats = bench.hold_kernel(args)
         log(f"[phase 8] K-B {form} at the bench shape: kernel-plain "
             + " ".join(f"{k}={v:.3e}" for k, v in errs.items())
@@ -2177,7 +2427,7 @@ def harness_phase(torch, dev, kb):
         if not bench.within_tol(errs):
             raise AssertionError(f"K-B {form}: {errs} outside "
                                  f"{bench.KERNEL_TOL}")
-        ms = cuda_time(lambda: kb.render_frame(**args), HARNESS_TIMED)
+        nums = frame_numbers(torch, kb, args, HARNESS_TIMED)
         adapter_ms = cuda_time(lambda: args_fn(case), HARNESS_TIMED)
         entry_ms = cuda_time(lambda: entry_fn(case), HARNESS_TIMED)
         plain_ms = cuda_time(lambda: kb.render_frame_plain(**args), 3,
@@ -2189,7 +2439,7 @@ def harness_phase(torch, dev, kb):
             {"name": name, "route": "cuda",
              "source": "directvoxgo_tpu_torch/csrc/render_frame.cu",
              "replaces": replaces, "launches": forms[form],
-             "max_abs_err": max(errs["rgb"], errs["tcum"]), "ms": ms,
+             "max_abs_err": max(errs["rgb"], errs["tcum"]), **nums,
              "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
              "library_ms": None,
              "library": "none: no single PyTorch call computes the march, "
@@ -2200,7 +2450,7 @@ def harness_phase(torch, dev, kb):
              "mlp_operations": mlp_flops, "geo_operations": geo_flops,
              "visible_samples": stats["visible_samples"],
              "live_samples": stats["live_samples"], "shape": shape})
-        log(f"[phase 8] K-B {form}: kernel {ms:.3f} ms, adapter "
+        log(f"[phase 8] K-B {form}: kernel {nums}, adapter "
             f"{adapter_ms:.3f} ms, entry {entry_ms:.3f} ms, plain "
             f"{plain_ms:.1f} ms, bound {bound:.4f} ms ({by})")
     for cls, row in rows.items():
@@ -2261,11 +2511,7 @@ def run(dev):
     errs.update(small_train_kernel_checks(torch, dev, ka, kc, sweep_ops))
     errs.update(small_fused_checks(torch, dev, tf))
     errs["tv_add_grad"] = small_tv_checks(torch, dev, tv)
-    for rgb_mode, f_k0, width in (("direct", 12, 128),
-                                  ("logit_plus_k0", 12, 64)):
-        case = small_frame_case(torch, dev, width, f_k0, rgb_mode)
-        errs["render_frame"] = max(errs.get("render_frame", 0.0), check_frame(
-            kb, case, f"small {rgb_mode} width {width}")[0])
+    errs["render_frame"] = small_frame_checks(torch, dev, kb)
 
     from directvoxgo_tpu_torch import run as run_lib
     from directvoxgo_tpu_torch.config import Config
@@ -2330,7 +2576,8 @@ def run(dev):
                        "vr", "layers", "scalars", "activity"),
                       cap_b.calls[0][0]), **cap_b.calls[0][1])
     err_b, _ = check_frame(kb, f_case, "main path 400^2", empty_check=True)
-    errs["render_frame"] = max(errs["render_frame"], err_b)
+    errs["render_frame"] = max(errs["render_frame"], err_b, hold_frame(
+        torch, kb, f_case, "main path 400^2"))
 
     # End-to-end agreement: one accepted view rendered per ray (K-A) and as
     # a whole frame (K-B) - different quadrature, same radiance field.
@@ -2368,7 +2615,9 @@ def run(dev):
                     cap_b.calls[0][0]), **cap_b.calls[0][1])
     stats = {}
     kb.render_frame_plain(**f800, stats=stats)
-    ms_b = cuda_time(lambda: kb.render_frame(**f800), 10)
+    errs["render_frame"] = max(errs["render_frame"], hold_frame(
+        torch, kb, f800, "800^2 frame"))
+    nums_b = frame_numbers(torch, kb, f800, 10, geo=True)
     plain_b = cuda_time(lambda: kb.render_frame_plain(**f800), 3, warmup=1)
     frame_ms = host_time(lambda: render_sweep.render_frame_sweep(
         model, 800, 800, K2, c2w, rk), 5)
@@ -2386,7 +2635,7 @@ def run(dev):
     hi, wi = f800["dnorm"].shape
     bound_b, by_b, bytes_b, mlp_flops, geo_flops = frame_bound(f800, stats)
     log(f"[phase 4] 800^2 frame: inter {hi}x{wi}, S={f800['d_geo'].shape[0]},"
-        f" {stats}; K-B {ms_b:.4f} ms, plain {plain_b:.1f} ms, whole frame "
+        f" {stats}; K-B {nums_b}, plain {plain_b:.1f} ms, whole frame "
         f"{frame_ms:.2f} ms; K-B bound {bound_b:.5f} ms ({by_b}: "
         f"{bytes_b} bytes, {mlp_flops} MLP + {geo_flops} f32 operations)")
     log(f"[phase 4] K-A on the middle chunk of the rejected view: {nums_a}; "
@@ -2399,16 +2648,16 @@ def run(dev):
               "max_abs_err": errs["sweep_fwd"],
               "launches_by_form": render_forms,
               "rejected_view_ms": rays_view_ms}, **nums_a),
-        {"name": "render_frame", "route": "cuda",
-         "source": "directvoxgo_tpu_torch/csrc/render_frame.cu",
-         "replaces": "directvoxgo_tpu/ops/pallas_render4.py:74",
-         "launches": launches["render_frame"],
-         "max_abs_err": errs["render_frame"], "ms": ms_b,
-         "plain_ms": plain_b, "bound_ms": bound_b, "bound_by": by_b,
-         "library_ms": None, "frame_ms": frame_ms,
-         "shape": f"800^2 frame, intermediate {hi}x{wi}, "
-                  f"S={f800['d_geo'].shape[0]}, "
-                  f"{stats['visible_samples']} visible samples"},
+        dict({"name": "render_frame", "route": "cuda",
+              "source": "directvoxgo_tpu_torch/csrc/render_frame.cu",
+              "replaces": "directvoxgo_tpu/ops/pallas_render4.py:74",
+              "launches": launches["render_frame"],
+              "max_abs_err": errs["render_frame"]}, **nums_b,
+             **{"plain_ms": plain_b, "bound_ms": bound_b, "bound_by": by_b,
+                "library_ms": None, "frame_ms": frame_ms,
+                "shape": f"800^2 frame, intermediate {hi}x{wi}, "
+                         f"S={f800['d_geo'].shape[0]}, "
+                         f"{stats['visible_samples']} visible samples"}),
     ]
     # Phase 5: the training path. The render path's entries keep the
     # launches of their own run (phase 3).

@@ -30,7 +30,10 @@ v3 and v1 kernels' own layouts.
 
 ``render_frame`` launches the kernel for CUDA tensors (or raises) and runs
 :func:`render_frame_plain`, the same arithmetic in plain PyTorch, for CPU
-tensors.
+tensors. The kernel runs the MLP on the tensor cores (bf16 operands, f32
+accumulation, the Pallas kernels' arithmetic in another summation order),
+from weights packed once by :func:`pack_mlp_mma`; :func:`queue_stats`
+reads its sample-queue counters.
 """
 
 from __future__ import annotations
@@ -67,9 +70,30 @@ def _lib():
                  "dvgo_render_frame_max_emb"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int
+    lib.dvgo_render_frame_queue_stats.argtypes = [ctypes.c_int,
+                                                  ctypes.c_void_p]
+    lib.dvgo_render_frame_queue_stats.restype = ctypes.c_int
     lib.dvgo_error_string.argtypes = [ctypes.c_int]
     lib.dvgo_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def queue_stats(enable):
+    """The kernel's sample-queue counters since the last call (flushes,
+    queued samples, 16-row MMA tiles, and the mean fill of each), then
+    zeroed; counting is on from here while ``enable``. Synchronises the
+    device. Off by default (the count costs one atomic per flush)."""
+    torch.cuda.synchronize()
+    buf = (ctypes.c_longlong * 3)()
+    lib = _lib()
+    err = lib.dvgo_render_frame_queue_stats(int(bool(enable)), buf)
+    if err:
+        raise RuntimeError("render_frame queue stats: "
+                           + lib.dvgo_error_string(err).decode())
+    flushes, rows, tiles = buf
+    return {"flushes": flushes, "samples": rows, "tiles": tiles,
+            "samples_per_flush": rows / flushes if flushes else None,
+            "tile_fill": rows / (16 * tiles) if tiles else None}
 
 
 def _rnd(x):
@@ -105,7 +129,9 @@ def _softplus(x):
 
 
 def pack_mlp(layers, f_mlp):
-    """Flatten a 3-layer colour MLP into the kernel's f32 buffer.
+    """Flatten a 3-layer colour MLP into the f32 buffer of K-B's first
+    version (``csrc/render_frame_first.cu``, the yardstick ``chip_smoke.py``
+    times; :func:`pack_mlp_mma` packs the same bf16 weights for the kernel).
 
     ``layers``: [(w [in, out], b [out])] * 3 with layer 1's input ordered
     (k0 features, view embedding); in the ``shared1`` forms layer 1 is
@@ -126,19 +152,65 @@ def pack_mlp(layers, f_mlp):
     return torch.cat([p.reshape(-1) for p in parts]).contiguous()
 
 
+# The tensor-core pack: m16n8k16 B fragments of a [16*kt, 8*nt] bf16 matrix,
+# tile by tile (k-tile major), 32 lanes a tile and 4 values a lane: lane
+# 4*n + q holds column n at rows 2q, 2q+1, 2q+8, 2q+9 of the tile.
+MMA_K, MMA_N = 16, 8
+E_TILES = 2         # k-tiles of the view embedding (E <= 32)
+
+
+def _mma_fragments(w, k_tiles, n_tiles):
+    """``w [K, N]`` rounded to bf16, zero-padded to ``[16*k_tiles,
+    8*n_tiles]`` and laid out as the kernel's B fragments (flat bf16)."""
+    wp = torch.zeros((MMA_K * k_tiles, MMA_N * n_tiles), dtype=torch.float32,
+                     device=w.device)
+    wp[:w.shape[0], :w.shape[1]] = _rnd(w)
+    t = wp.reshape(k_tiles, 2, 4, 2, n_tiles, MMA_N)  # (kt, hi, q, e, nt, n)
+    return t.permute(0, 4, 5, 2, 1, 3).reshape(-1).to(BF16)
+
+
+def pack_mlp_mma(layers, f_mlp):
+    """Flatten a 3-layer colour MLP into the tensor-core kernel's buffer
+    (f32 words): ``b1 [W]`` (zero for ``shared1``), ``b2 [W]``, ``b3``
+    padded to 8, then the bf16 B fragments (two per word) of ``w1a`` (K =
+    F_mlp padded to 16), of the view half ``w1b`` (K = E padded to 32;
+    absent for ``shared1``), of ``w2 [W, W]`` and of ``w3`` (N = 3 padded
+    to 8). Weights are rounded to bf16 as :func:`pack_mlp` rounds them;
+    biases stay f32. W is a multiple of 32."""
+    (w1, b1), (w2, b2), (w3, b3) = layers
+    width = w2.shape[0]
+    if width % 32 or f_mlp > MMA_K:
+        raise ValueError(f"pack_mlp_mma: width {width} (a multiple of 32) "
+                         f"and {f_mlp} features (at most {MMA_K})")
+    if b1 is None:
+        b1 = torch.zeros_like(b2)
+    nt, kt = width // MMA_N, width // MMA_K
+    frags = [_mma_fragments(w1[:f_mlp], 1, nt)]
+    if w1.shape[0] > f_mlp:
+        if w1.shape[0] - f_mlp > MMA_K * E_TILES:
+            raise ValueError("pack_mlp_mma: view embedding wider than "
+                             f"{MMA_K * E_TILES}")
+        frags.append(_mma_fragments(w1[f_mlp:], E_TILES, nt))
+    frags += [_mma_fragments(w2, kt, nt), _mma_fragments(w3, kt, 1)]
+    b3p = torch.nn.functional.pad(b3.float(), (0, MMA_N - b3.shape[0]))
+    return torch.cat([b1.float(), b2.float(), b3p,
+                      torch.cat(frags).view(torch.float32)]).contiguous()
+
+
 _packed = None  # (key, layers, buffer) of the last MLP packed
 
 
 def _packed_mlp(layers, f_mlp):
-    """:func:`pack_mlp`, reusing the last buffer while the same weights come
-    again unmodified (same storage and in-place version), as they do frame
-    after frame. The entry holds the layers, so their storage stays put."""
+    """:func:`pack_mlp_mma`, reusing the last buffer while the same weights
+    come again unmodified (same storage and in-place version), as they do
+    frame after frame. The entry holds the layers, so their storage stays
+    put."""
     global _packed
     key = (f_mlp,) + tuple(
         (x.device, x.dtype, x.data_ptr(), x._version, tuple(x.shape),
          x.stride()) for wb in layers for x in wb if x is not None)
     if _packed is None or _packed[0] != key:
-        _packed = (key, layers, pack_mlp(layers, f_mlp))
+        _packed = (key, layers, pack_mlp_mma(layers, f_mlp))
     return _packed[2]
 
 
@@ -386,9 +458,9 @@ def render_frame(d_geo, d_k0, vd_emb, dnorm, dclip, ur, vr, layers,
             emb = vd_emb
         else:
             _check("shared1", shared1, BF16, (hi, wi, width), dev)
-            if shared1.data_ptr() % 16:
-                raise ValueError("render_frame: shared1 must be 16-byte "
-                                 "aligned (the kernel reads 8 values a load)")
+            if shared1.data_ptr() % 4:
+                raise ValueError("render_frame: shared1 must be 4-byte "
+                                 "aligned (the kernel reads bf16 pairs)")
             emb = shared1
         f_mlp = layers[0][0].shape[0] - emb_dim
         if f_mlp != f_k0 - c0:

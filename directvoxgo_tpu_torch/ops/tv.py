@@ -9,7 +9,11 @@ weights this changes nothing.
 :func:`total_variation_add_grad` takes the whole grid,
 :func:`tv_add_grad_box` a box of it (the gradient of the box only,
 neighbours read from the whole grid). On CUDA tensors both launch kernel
-K-F (or raise); on CPU tensors they run the plain PyTorch body.
+K-F (or raise); on CPU tensors they run the plain PyTorch body. The kernel
+has two paths, picked by :func:`rows_path`: x-marching row tiles with
+16-byte vectors for a dense gradient (contiguous or axis-permuted) on an
+aligned run, and one thread per element through the gradient's strides for
+the rest (channel slices, unaligned boxes).
 """
 
 from __future__ import annotations
@@ -21,6 +25,11 @@ import torch
 from . import _build
 
 launches = 0
+launches_by_path = {"rows": 0, "strided": 0}
+# The rows path's limits (csrc/tv_add_grad.cu): the z halo it stages holds
+# at most this many channels, and its offsets are 32-bit.
+ROWS_MAX_CHANNELS = 32
+ROWS_MAX_ELEMENTS = 2 ** 31 - 1
 
 
 def _lib():
@@ -32,6 +41,9 @@ def _lib():
                                      + [ctypes.c_float] * 3
                                      + [ctypes.c_int, ctypes.c_void_p])
     lib.dvgo_tv_add_grad.restype = ctypes.c_int
+    # The rows path takes the same arguments.
+    lib.dvgo_tv_add_grad_rows.argtypes = lib.dvgo_tv_add_grad.argtypes
+    lib.dvgo_tv_add_grad_rows.restype = ctypes.c_int
     lib.dvgo_error_string.argtypes = [ctypes.c_int]
     lib.dvgo_error_string.restype = ctypes.c_char_p
     return lib
@@ -102,6 +114,46 @@ def total_variation_add_grad_plain(param, grad, wx, wy, wz, dense_mode,
                       dense_mode)
 
 
+def rows_path(dims, c, offs, sizes, g_strides, p_address):
+    """Whether K-F takes its rows path (x-marching tiles, 16-byte vectors
+    of p and out) for a box of ``sizes`` at ``offs`` in a grid ``dims`` of
+    ``c`` channels, whose gradient has element strides ``g_strides`` (four,
+    the channel's last), p starting at byte ``p_address``: the gradient
+    dense with its channels innermost (contiguous, or a permutation of its
+    spatial axes, as autograd hands over the sweep's gradient of an MPI
+    grid; not a channel slice) and every offset into it under 2^31, the
+    grid's row, the box's offset and its run along the flat (z, c) axis
+    whole vectors of 4 floats, p 16-byte aligned, at most
+    ``ROWS_MAX_CHANNELS`` channels and a grid under 2^31 elements. Anything
+    else takes the strided path."""
+    if c > 1 and g_strides[3] != 1:
+        return False
+    dense, step = True, c
+    for stride, size in sorted((st, sz) for sz, st in zip(sizes, g_strides)
+                               if sz > 1):
+        dense &= stride == step
+        step *= size
+    reach = sum((sz - 1) * st for sz, st in zip(sizes, g_strides)) + c
+    n = dims[0] * dims[1] * dims[2] * c
+    return (dense and c <= ROWS_MAX_CHANNELS
+            and n < ROWS_MAX_ELEMENTS and reach < ROWS_MAX_ELEMENTS
+            and (dims[2] * c) % 4 == 0 and (offs[2] * c) % 4 == 0
+            and (sizes[2] * c) % 4 == 0 and p_address % 16 == 0)
+
+
+def path_of(param, grad_box, offs=(0, 0, 0)):
+    """The path K-F takes for ``param`` and the box gradient ``grad_box``
+    at ``offs``: "rows" or "strided" (:func:`rows_path`; the output is a
+    fresh allocation, which the caching allocator aligns)."""
+    c = int(param.shape[3]) if param.dim() == 4 else 1
+    g_strides = tuple(grad_box.stride()) + ((1,) if param.dim() == 3 else ())
+    rows = rows_path(tuple(int(d) for d in param.shape[:3]), c,
+                     tuple(int(o) for o in offs),
+                     tuple(int(d) for d in grad_box.shape[:3]), g_strides,
+                     param.data_ptr())
+    return "rows" if rows else "strided"
+
+
 def _launch(param, grad_box, offs, w, dense_mode):
     """K-F over the box of ``param`` (contiguous) at ``offs`` whose
     gradient is ``grad_box`` (any strides); returns a new contiguous tensor
@@ -130,15 +182,18 @@ def _launch(param, grad_box, offs, w, dense_mode):
     out = torch.empty(grad_box.shape, dtype=torch.float32,
                       device=grad_box.device)
     lib = _lib()
-    err = lib.dvgo_tv_add_grad(
-        param.data_ptr(), grad_box.data_ptr(), out.data_ptr(), *dims, c,
-        *offs, *sizes, *g_strides, *(float(x) for x in w),
-        int(bool(dense_mode)),
-        torch.cuda.current_stream(param.device).cuda_stream)
+    stream = torch.cuda.current_stream(param.device).cuda_stream
+    ptrs = (param.data_ptr(), grad_box.data_ptr(), out.data_ptr())
+    path = path_of(param, grad_box, offs)
+    fn = lib.dvgo_tv_add_grad_rows if path == "rows" else \
+        lib.dvgo_tv_add_grad
+    err = fn(*ptrs, *dims, c, *offs, *sizes, *g_strides,
+             *(float(x) for x in w), int(bool(dense_mode)), stream)
     if err:
         raise RuntimeError("tv_add_grad launch failed: "
                            + lib.dvgo_error_string(err).decode())
     launches += 1
+    launches_by_path[path] += 1
     return out
 
 

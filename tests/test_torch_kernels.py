@@ -297,10 +297,10 @@ def test_packed_mlp_follows_the_weights():
     after they change in place."""
     g = torch.Generator().manual_seed(0)
     layers = [(torch.randn((d_in, d_out), generator=g), torch.randn(
-        d_out, generator=g)) for d_in, d_out in ((9, 8), (8, 8), (8, 3))]
+        d_out, generator=g)) for d_in, d_out in ((9, 32), (32, 32), (32, 3))]
     buf = kb._packed_mlp(layers, 6)
     assert kb._packed_mlp(list(layers), 6) is buf
-    assert torch.equal(buf, kb.pack_mlp(layers, 6))
+    assert torch.equal(buf, kb.pack_mlp_mma(layers, 6))
     layers[1][0].mul_(2.0)
     again = kb._packed_mlp(layers, 6)
-    assert again is not buf and torch.equal(again, kb.pack_mlp(layers, 6))
+    assert again is not buf and torch.equal(again, kb.pack_mlp_mma(layers, 6))

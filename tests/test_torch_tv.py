@@ -136,3 +136,50 @@ def test_tv_refuses_tensors_off_the_cpu_and_cuda(boxed):
         else:
             torch_tv.total_variation_add_grad(p, torch.empty_like(p), *W,
                                               True)
+
+
+@pytest.mark.parametrize("case,expected", [
+    # (dims, c, offs, sizes, g_strides, p_address)
+    (((4, 5, 8), 3, (0, 0, 0), (4, 5, 8), (120, 24, 3, 1), 64), True),
+    (((4, 5, 8), 1, (1, 2, 4), (2, 3, 4), (12, 4, 1, 1), 0), True),
+    # z-major, as autograd permutes the sweep's gradient of an MPI grid
+    (((4, 5, 8), 3, (0, 0, 0), (4, 5, 8), (15, 3, 60, 1), 0), True),
+    # a channel slice
+    (((4, 5, 8), 3, (0, 0, 0), (4, 5, 8), (240, 48, 6, 2), 0), False),
+    # a gap between rows (a box view of a larger gradient)
+    (((4, 5, 8), 3, (0, 0, 4), (4, 5, 4), (120, 24, 3, 1), 0), False),
+    (((4, 5, 8), 3, (0, 0, 1), (4, 5, 4), (60, 12, 3, 1), 0), False),
+    (((4, 5, 8), 3, (0, 0, 0), (4, 5, 5), (75, 15, 3, 1), 0), False),
+    (((4, 5, 7), 1, (0, 0, 0), (4, 5, 4), (20, 4, 1, 1), 0), False),
+    (((4, 5, 8), 36, (0, 0, 0), (4, 5, 8), (1440, 288, 36, 1), 0), False),
+    (((4, 5, 8), 3, (0, 0, 0), (4, 5, 8), (120, 24, 3, 1), 8), False),
+    (((1, 5, 8), 4, (0, 0, 0), (1, 5, 8), (7, 32, 4, 1), 0), True),
+    (((2048, 1024, 1024), 1, (0, 0, 0), (2, 2, 4), (8, 4, 1, 1), 0),
+     False),
+])
+def test_rows_path_rule(case, expected):
+    """K-F's rows path (x-marching tiles, 16-byte vectors) only for a dense
+    gradient with its channels innermost (contiguous or axis-permuted; a
+    size-1 axis may have any stride), aligned runs of the flat (z, c) axis
+    in the grid and the box, at most 32 channels, a 16-byte aligned p and a
+    grid under 2^31 elements; the strided path otherwise."""
+    assert torch_tv.rows_path(*case) is expected
+
+
+def test_path_of_tensors():
+    """The path picked for the tensors the engine hands over: a whole
+    grid's contiguous gradient and the sweep's z-major permuted one take
+    the rows path, autograd's channel slice and a view of a box of the
+    gradient the strided one, the box's own contiguous gradient at an
+    aligned offset the rows path."""
+    p = torch.zeros((6, 5, 8, 3))
+    g = torch.zeros((6, 5, 8, 6))
+    assert torch_tv.path_of(p, torch.zeros_like(p)) == "rows"
+    z_major = torch.zeros((8, 6, 5, 3)).permute(1, 2, 0, 3)
+    assert torch_tv.path_of(p, z_major) == "rows"
+    assert torch_tv.path_of(p, g[..., 1::2]) == "strided"
+    box = torch.zeros_like(p)[1:4, 1:3, 4:8]
+    assert torch_tv.path_of(p, box, (1, 1, 4)) == "strided"
+    assert torch_tv.path_of(p, box.contiguous(), (1, 1, 4)) == "rows"
+    assert torch_tv.path_of(p, box.contiguous()[:, :, :3],
+                            (1, 1, 4)) == "strided"
