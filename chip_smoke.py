@@ -5,16 +5,18 @@
 
 Phases, each of which fails the run:
   0. build every CUDA kernel from csrc/ (one nvcc per source, all at once),
-     and the first versions of K-A, K-C, K-F and K-B
+     and the first versions of K-A, K-C, K-F, K-B, K-D and K-E
      (csrc/sweep_{fwd,bwd}_v1.cu, csrc/tv_add_grad_first.cu,
-     csrc/render_frame_first.cu), the yardstick of their redesign; keep
-     each kernel instance's registers and spills from ``-Xptxas -v``;
+     csrc/render_frame_first.cu, csrc/train_fused_{fwd,bwd}_first.cu), the
+     yardstick of their redesign; keep each kernel instance's registers and
+     spills from ``-Xptxas -v``;
   1. hold each kernel against its plain PyTorch version on the card, at a
      small shape here (the sweep's forward at every count of stations a
      thread and its backward in its global and shared forms, on both
      cotangent layouts, full, segment and per-tile windowed, for every
      channel instance; the fused train step in both colour modes, both
-     march directions, full and windowed; the TV stencil on whole grids and
+     march directions, full and windowed, T and the gates bit for bit
+     against its first version; the TV stencil on whole grids and
      boxes, on its rows and strided paths, bit for bit; the frame kernel in
      every form, MLP width and colour mode, T and depth bit for bit against
      its first version) and at the main paths' full shapes after phases 3,
@@ -55,8 +57,11 @@ Phases, each of which fails the run:
      steps were fused, and that the trained model's test PSNR beats a white
      frame's by 3 dB; print the tile classes, the remainder's share of rays,
      the fused step's time beside phase 5's unfused one and the gated
-     samples per step; then both kernels against their plain versions, and
-     timed, on the inputs of the last fused step;
+     samples per step; then both kernels against their plain versions (T
+     and the gates against their first versions), and timed beside their
+     first versions and their diagnostic forms (without the MLP, without
+     K-E's scatters, without K-E's reverse walk), on the inputs of the last
+     fused step;
   7. train DirectMPIGO on the forward-facing fern-width fixture
      (configs/synthetic/fixture_ndc_fern.py with only its iteration counts
      cut) through ``python -m directvoxgo_tpu_torch.run`` (in process), up
@@ -83,9 +88,9 @@ Phases, each of which fails the run:
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line (one
 entry per kernel and form, each with the launches of the path it belongs
-to; those of K-A, K-C, K-F and K-B also with their first version's device
-time on the same inputs, ``prev_ms``, and the instance's registers and
-spills) and, last,
+to; those of K-A, K-C, K-F, K-B, K-D and K-E also with their first
+version's device time on the same inputs, ``prev_ms``, and the instance's
+registers and spills) and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result line
 when there is no CUDA device or the port's package is not beside this
 file.
@@ -737,6 +742,20 @@ def check_fused(tf, case, what):
         msgs.append(f"{name} {mx:.2e}/{mean:.2e}")
     ok = ok and not bool(pack[5:].any())
     err_fwd = float((pack - ref).abs().max())
+    # T and the gates against the first version, bit for bit: T from pack
+    # row 3, the gates from their fingerprint (MODE_GATES: pack rows 5-7,
+    # also against the plain version's march).
+    first = prev_fused_call(torch, args, cfg, mode=tf.MODE_GATES)()
+    gates = tf.train_fwd(*args, cfg=cfg, mode=tf.MODE_GATES)
+    torch.cuda.synchronize()
+    want_gates = gate_fingerprint(torch, tf, args, cfg)
+    same_t = bool(torch.equal(pack[3], first[3]))
+    same_gates = bool(torch.equal(gates[5:], first[5:])) and bool(
+        torch.equal(gates[5:], want_gates))
+    ok = ok and same_t and same_gates and bool(torch.equal(gates[3], pack[3]))
+    msgs.append(f"T bit-identical to the first version {same_t}, gates "
+                f"({int(want_gates[0].sum())} samples) identical to the "
+                f"first and the plain version {same_gates}")
     log(f"[phase 1] K-D train_fwd {what}: slabs {tuple(case['slabs'].shape)}"
         f" N={pack.shape[1]} W={cfg.width} max/mean |kernel-plain| as a "
         f"share of the largest entry: {', '.join(msgs)}")
@@ -965,11 +984,12 @@ def tile_windows_for(torch, sweep_ops, model, ro, rd, axis, n_rand):
     return order, v_base.to(torch.int32).contiguous(), wv
 
 
-# The first versions of K-A, K-C, K-F and K-B, kept
+# The first versions of K-A, K-C, K-F, K-B, K-D and K-E, kept
 # beside their redesign as the yardstick of its `prev_ms` (never loaded by
 # the port).
 PREV_KERNELS = ("sweep_fwd_v1", "sweep_bwd_v1", "tv_add_grad_first",
-                "render_frame_first")
+                "render_frame_first", "train_fused_fwd_first",
+                "train_fused_bwd_first")
 
 
 def _prev_lib(name):
@@ -997,6 +1017,14 @@ def _prev_lib(name):
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 10
                        + [ctypes.c_longlong] * 4 + [ctypes.c_float] * 3
                        + [ctypes.c_int, ctypes.c_void_p])
+    elif name == "train_fused_fwd_first":
+        fn = lib.dvgo_train_fused_fwd
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 14
+                       + [ctypes.c_float] * 5 + [ctypes.c_int, ctypes.c_void_p])
+    elif name == "train_fused_bwd_first":
+        fn = lib.dvgo_train_fused_bwd
+        fn.argtypes = ([ctypes.c_void_p] * 20 + [ctypes.c_int] * 15
+                       + [ctypes.c_float] * 5 + [ctypes.c_int, ctypes.c_void_p])
     else:
         fn = lib.dvgo_render_frame
         limits = [lib.dvgo_render_frame_max_features,
@@ -1136,6 +1164,83 @@ def prev_frame_call(torch, f):
             *[float(x) for x in f["scalars"]], stream))
         return rgb, depth, tcum
     return call
+
+
+def prev_fused_call(torch, args, cfg, gp=None, cot=None, mode=0):
+    """K-D's first version (K-E's with ``gp`` and ``cot``) on the inputs
+    ``args`` of a ``train_fwd`` call, as its wrapper called it: the operands
+    padded to the tensor-core tiles (sh1 per ray, w1a to 16 rows, w3 and b3
+    to 16 columns), fresh (K-E: zero-filled) outputs and scratch, one
+    launch. Returns the wrapper's results: pack, or K-E's eight cotangents."""
+    from directvoxgo_tpu_torch.ops import train_fused as tf
+    slabs, rays16, sh1_t, w1a, w2, b2, w3, b3, desc, uvb = args
+    bwd = cot is not None
+    lib, fn = _prev_lib("train_fused_bwd_first" if bwd
+                        else "train_fused_fwd_first")
+    dev = slabs.device
+    s_real, gu, gv, c = slabs.shape
+    n = rays16.shape[1]
+    width, f = cfg.width, cfg.f
+    s_pad, p0, pstep = tf.march_scalars(s_real, cfg.k, cfg.s_blk, desc)
+    _, _, wu_e, wv_e, windowed = tf._window_plan(cfg, gu, gv)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    tail = [int(cfg.direct), int(bool(desc)), cfg.nt, int(windowed), wu_e,
+            wv_e] + ([cfg.k] if bwd else []) + [
+        p0, pstep, cfg.act_shift, cfg.thres, cfg.bg, int(mode), stream]
+
+    def operands():
+        w1a_p = torch.zeros((16, width), dtype=torch.bfloat16, device=dev)
+        w1a_p[:f] = w1a
+        w3_p = torch.zeros((width, 16), dtype=torch.bfloat16, device=dev)
+        w3_p[:, :3] = w3
+        b3_p = torch.zeros(16, dtype=torch.float32, device=dev)
+        b3_p[:3] = b3
+        return sh1_t.t().contiguous(), w1a_p, w3_p, b3_p
+
+    def fwd():
+        sh1, w1a_p, w3_p, b3_p = operands()
+        pack = torch.empty((8, n), dtype=torch.float32, device=dev)
+        _prev_check(lib, fn(
+            slabs.data_ptr(), rays16.data_ptr(), sh1.data_ptr(),
+            w1a_p.data_ptr(), w2.data_ptr(), b2.data_ptr(), w3_p.data_ptr(),
+            b3_p.data_ptr(), uvb.data_ptr() if windowed else None,
+            pack.data_ptr(), n, s_real, s_pad, gu, gv, c, f, width, *tail))
+        return pack
+
+    def bwd_call():
+        sh1, w1a_p, w3_p, b3_p = operands()
+        z = lambda *shape: torch.zeros(shape, dtype=torch.float32,  # noqa
+                                       device=dev)
+        outs = [z(gp, gu, gv), z(gp, gu, gv, c - 2), z(n, width),
+                z(16, width), z(width, width), z(width), z(width, 16), z(16)]
+        t_chk = torch.empty((s_pad // cfg.s_blk, n), dtype=torch.float32,
+                            device=dev)
+        a_buf = torch.empty((s_pad, n), dtype=torch.float32, device=dev)
+        _prev_check(lib, fn(
+            slabs.data_ptr(), rays16.data_ptr(), cot.data_ptr(),
+            sh1.data_ptr(), w1a_p.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+            w3_p.data_ptr(), b3_p.data_ptr(),
+            uvb.data_ptr() if windowed else None, t_chk.data_ptr(),
+            a_buf.data_ptr(), *[o.data_ptr() for o in outs], n, s_real,
+            s_pad, gu, gv, c, f, width, *tail))
+        d_density, d_k0, d_sh1, d_w1a, d_w2, d_b2, d_w3, d_b3 = outs
+        return (d_density, d_k0, d_sh1.t(), d_w1a[:f], d_w2, d_b2,
+                d_w3[:, :3], d_b3[:3])
+    return bwd_call if bwd else fwd
+
+
+def gate_fingerprint(torch, tf, args, cfg):
+    """[3, N] per ray: the count of samples whose weight passes the gate,
+    the sum of (ms + 1) and of (ms + 1)^2 over them (march station ms),
+    from the plain version's march: what K-D writes into pack rows 5-7
+    under ``MODE_GATES``."""
+    slabs, rays16 = args[0], args[1]
+    st = tf._March(slabs, rays16, cfg, args[8], args[9])
+    ms, ray = st.sel
+    m1 = (ms + 1).double()
+    n = rays16.shape[1]
+    return torch.stack([torch.bincount(ray, weights=w, minlength=n)
+                        for w in (torch.ones_like(m1), m1, m1 * m1)]).float()
 
 
 USAGE = {}   # (library, mangled kernel) -> (registers, spill bytes), phase 0
@@ -1598,6 +1703,15 @@ class GatedCounter:
         self.tf.train_fwd = self.orig
 
 
+# The diagnostic forms of K-D and K-E timed beside each (train_fused.py's
+# MODE_* bits): the march and gates alone; K-E without its MLP, without its
+# per-sample global scatters, without its reverse walk.
+FUSED_FORMS = {"train_fwd": (("no_mlp", "MODE_NO_MLP"),),
+               "train_bwd": (("no_mlp", "MODE_NO_MLP"),
+                             ("no_scatter", "MODE_NO_SCATTER"),
+                             ("no_phase2", "MODE_NO_PHASE2"))}
+
+
 def fused_numbers(torch, tf, args, cfg, gp, cot):
     """K-D and K-E on these inputs: their times, their plain versions', and
     their bounds from what this batch needs. Bytes: the distinct slab voxels
@@ -1636,6 +1750,12 @@ def fused_numbers(torch, tf, args, cfg, gp, cot):
                     st.iv[b][ms_i, ray_i][ok]] = True
         return int(hit.sum())
 
+    # How evenly the work falls on the kernels' blocks (64 rays each) and on
+    # groups of 16 rays: gated samples per block, mean and largest.
+    per_ray = torch.bincount(st.sel[1], minlength=n).float()
+    spread = {f"{r}_rays": [float(per_ray.reshape(-1, r).sum(1).mean()),
+                            float(per_ray.reshape(-1, r).sum(1).max())]
+              for r in (16, 64)}
     geo_vox = voxels(torch.nonzero(marched, as_tuple=True))
     feat_vox = voxels(st.sel)
     n_marched = int(marched.sum())
@@ -1646,25 +1766,51 @@ def fused_numbers(torch, tf, args, cfg, gp, cot):
         + weights
     mlp = gated * 2 * (f * width + width * width + 3 * width)
 
-    fwd = lambda: tf.train_fwd(*args, cfg=cfg)  # noqa: E731
     b_args = list(args[:2]) + [cot] + list(args[2:])
-    bwd = lambda: tf.train_bwd(*b_args, cfg=cfg, gp=gp)  # noqa: E731
-    outs = bwd()
+    kernel = {"train_fwd": lambda mode=0: lambda: tf.train_fwd(
+                  *args, cfg=cfg, mode=mode),
+              "train_bwd": lambda mode=0: lambda: tf.train_bwd(
+                  *b_args, cfg=cfg, gp=gp, mode=mode)}
+    first = {"train_fwd": lambda mode=0: prev_fused_call(
+                 torch, args, cfg, mode=mode),
+             "train_bwd": lambda mode=0: prev_fused_call(
+                 torch, args, cfg, gp, cot, mode=mode)}
+    outs = kernel["train_bwd"]()()
     touched = (int((outs[0] != 0).sum()), int((outs[1] != 0).any(-1).sum()))
     out = {}
-    for name, fn, plain, n_bytes, t_ops in (
-            ("train_fwd", fwd,
+    for name, plain, n_bytes, t_ops in (
+            ("train_fwd",
              lambda: tf.train_fwd_plain(*args, cfg=cfg),
              common + 8 * n * 4,
              mlp / BF16_FLOPS + n_marched * 60 / F32_FLOPS),
-            ("train_bwd", bwd,
+            ("train_bwd",
              lambda: tf.train_bwd_plain(*b_args, cfg=cfg, gp=gp),
              common + 6 * n * 4 + touched[0] * 4 + touched[1] * (c - 2) * 4
              + width * n * 4 + weights * 2,
              3 * mlp / BF16_FLOPS + n_marched * 120 / F32_FLOPS)):
         by = "bytes" if n_bytes / HBM_BPS >= t_ops else "operations"
+        # Device time only, the first version in turns with the kernel.
+        prev = cuda_time(first[name](), 20, device_only=True)
+        ms = cuda_time(kernel[name](), 20, device_only=True)
+        prev_again = cuda_time(first[name](), 20, device_only=True)
+        # The diagnostic forms (FUSED_FORMS) of both versions: where the
+        # time goes.
+        forms = {form: cuda_time(kernel[name](getattr(tf, mode)), 10,
+                                 device_only=True)
+                 for form, mode in FUSED_FORMS[name]}
+        prev_forms = {form: cuda_time(first[name](getattr(tf, mode)), 10,
+                                      device_only=True)
+                      for form, mode in FUSED_FORMS[name]}
+        lib = f"train_fused_{name[6:]}"
         out[name] = {
-            "ms": cuda_time(fn, 20), "plain_ms": cuda_time(plain, 3, warmup=1),
+            "ms": ms, "plain_ms": cuda_time(plain, 3, warmup=1),
+            "prev_ms": min(prev, prev_again),
+            "prev_ms_runs": [prev, prev_again],
+            "forms_ms": forms, "prev_forms_ms": prev_forms,
+            "usage": {w: kernel_usage(lib, f"{lib}_kernel", w)
+                      for w in (32, 64, 128)},
+            "prev_usage": {w: kernel_usage(f"{lib}_first", f"{lib}_kernel",
+                                           w) for w in (32, 64, 128)},
             "bound_ms": max(n_bytes / HBM_BPS, t_ops) * 1e3, "bound_by": by,
             "library_ms": None,
             "library": "none: no single PyTorch call computes the march, "
@@ -1672,6 +1818,7 @@ def fused_numbers(torch, tf, args, cfg, gp, cot):
             "bytes": n_bytes, "mlp_operations": mlp * (1 if name ==
                                                        "train_fwd" else 3),
             "gated_samples": gated, "marched_stations": n_marched,
+            "gated_per_block_mean_max": spread,
             "slab_voxels_read": [geo_vox, feat_vox],
             "shape": f"S={s_real} slab={gu}x{gv}x{c} N={n} W={width} F={f} "
                      f"window={'%dx%d' % (cfg.wu, cfg.wv) if uvb is not None else 'none'}"}

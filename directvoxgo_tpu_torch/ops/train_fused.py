@@ -57,7 +57,16 @@ F_MAX = 14     # k0 feature channels the MLP's first layer takes, at most
 U_ALIGN, V_ALIGN = 16, 8   # alignment of window bases (shared with the
 #                            tile sort, which decides the classes)
 KERNEL_WIDTHS = (32, 64, 128)   # MLP widths the CUDA kernels are built for
-KERNEL_RAYS = 64                # rays per CUDA block; must divide ``nt``
+KERNEL_RAYS = 8                 # rays of the CUDA kernels' unit of work (a
+#                                 group); must divide ``nt``
+
+# Diagnostic forms of the kernels (a bit mask; 0 is the kernel): without
+# the MLP's tensor-core products, without K-E's per-sample global scatters,
+# without K-E's reverse walk; their outputs are meaningless. MODE_GATES
+# (K-D): the kernel, with pack rows 5-7 set to each ray's count of gated
+# samples, sum of (ms + 1) and sum of (ms + 1)^2 over them (march station
+# ms), a fingerprint of the gates.
+MODE_NO_MLP, MODE_NO_SCATTER, MODE_NO_PHASE2, MODE_GATES = 1, 2, 4, 8
 
 launches_fwd = 0
 launches_bwd = 0
@@ -433,7 +442,7 @@ def _lib_fwd():
     lib = _build.load("train_fused_fwd")
     lib.dvgo_train_fused_fwd.argtypes = (
         [ctypes.c_void_p] * 10 + [ctypes.c_int] * 14
-        + [ctypes.c_float] * 5 + [ctypes.c_void_p])
+        + [ctypes.c_float] * 5 + [ctypes.c_int, ctypes.c_void_p])
     lib.dvgo_train_fused_fwd.restype = ctypes.c_int
     lib.dvgo_error_string.argtypes = [ctypes.c_int]
     lib.dvgo_error_string.restype = ctypes.c_char_p
@@ -445,7 +454,7 @@ def _lib_bwd():
     lib = _build.load("train_fused_bwd")
     lib.dvgo_train_fused_bwd.argtypes = (
         [ctypes.c_void_p] * 20 + [ctypes.c_int] * 15
-        + [ctypes.c_float] * 5 + [ctypes.c_void_p])
+        + [ctypes.c_float] * 5 + [ctypes.c_int, ctypes.c_void_p])
     lib.dvgo_train_fused_bwd.restype = ctypes.c_int
     lib.dvgo_error_string.argtypes = [ctypes.c_int]
     lib.dvgo_error_string.restype = ctypes.c_char_p
@@ -517,7 +526,7 @@ def _kernel_operands(sh1_t, w1a, w3, b3):
 
 
 def train_fwd(slabs, rays16, sh1_t, w1a, w2, b2, w3, b3, desc, uvb=None, *,
-              cfg):
+              cfg, mode=0):
     """K-D. slabs [S, Gu, Gv, C] bf16 station slabs in slab order
     (:func:`build_slabs`); rays16 [16, N] f32 rows (op, ou, ov, dp_safe, du,
     dv, t_lo, t_hi, interval, gt_r, gt_g, gt_b, 0...) in the slabs' voxel
@@ -526,11 +535,16 @@ def train_fwd(slabs, rays16, sh1_t, w1a, w2, b2, w3, b3, desc, uvb=None, *,
     [W], b3 [3] f32; ``desc``: the batch marches towards lower axis
     coordinates; uvb [S_pad // s_blk, N // nt, 4] int32 window cells when
     ``cfg`` windows. Returns pack [8, N] f32: rows rgb_marched (3),
-    alphainv_last, rgbper_sum, then zeros."""
+    alphainv_last, rgbper_sum, then zeros. ``mode`` (CUDA only): a
+    diagnostic form, :data:`MODE_NO_MLP` or :data:`MODE_GATES`, which
+    ``chip_smoke.py`` runs to see where the time goes and to compare the
+    gates."""
     global launches_fwd, plain_calls_fwd
     windowed = _check("train_fwd", slabs, rays16, sh1_t, w1a, w2, b2, w3, b3,
                       uvb, cfg)
     if slabs.device.type == "cpu":
+        if mode:
+            raise ValueError("train_fwd: the diagnostic modes are CUDA's")
         plain_calls_fwd += 1
         return train_fwd_plain(slabs, rays16, sh1_t, w1a, w2, b2, w3, b3,
                                desc, uvb, cfg=cfg)
@@ -550,7 +564,7 @@ def train_fwd(slabs, rays16, sh1_t, w1a, w2, b2, w3, b3, desc, uvb=None, *,
         b3_p.data_ptr(), uvb.data_ptr() if windowed else None,
         pack.data_ptr(), n, s_real, s_pad, gu, gv, c, cfg.f, cfg.width,
         int(cfg.direct), int(bool(desc)), cfg.nt, int(windowed), wu_e, wv_e,
-        p0, pstep, cfg.act_shift, cfg.thres, cfg.bg,
+        p0, pstep, cfg.act_shift, cfg.thres, cfg.bg, int(mode),
         torch.cuda.current_stream(slabs.device).cuda_stream)
     _error(lib, "train_fwd", err)
     launches_fwd += 1
@@ -558,12 +572,14 @@ def train_fwd(slabs, rays16, sh1_t, w1a, w2, b2, w3, b3, desc, uvb=None, *,
 
 
 def train_bwd(slabs, rays16, cot, sh1_t, w1a, w2, b2, w3, b3, desc,
-              uvb=None, *, cfg, gp):
+              uvb=None, *, cfg, gp, mode=0):
     """K-E. Inputs as :func:`train_fwd`, plus cot [8, N] f32 rows (g_rgb (3),
     g_ainv, g_rgbper, alphainv_last, 0, 0) and the grid's sweep extent
     ``gp`` (S = k*(gp-1)+1). Returns f32 ``(d_density [Gp, Gu, Gv], d_k0
     [Gp, Gu, Gv, C-2], d_sh1 [W, N], d_w1a [F, W], d_w2 [W, W], d_b2 [W],
-    d_w3 [W, 3], d_b3 [3])``; voxels no sample touches stay exactly zero."""
+    d_w3 [W, 3], d_b3 [3])``; voxels no sample touches stay exactly zero.
+    ``mode`` (CUDA only): a diagnostic form, a mask of :data:`MODE_NO_MLP`,
+    :data:`MODE_NO_SCATTER` and :data:`MODE_NO_PHASE2`."""
     global launches_bwd, plain_calls_bwd
     n = rays16.shape[-1]
     windowed = _check("train_bwd", slabs, rays16, sh1_t, w1a, w2, b2, w3, b3,
@@ -574,6 +590,8 @@ def train_bwd(slabs, rays16, cot, sh1_t, w1a, w2, b2, w3, b3, desc,
         raise ValueError(f"train_bwd: {s_real} stations do not match gp={gp} "
                          f"at k={cfg.k}")
     if slabs.device.type == "cpu":
+        if mode:
+            raise ValueError("train_bwd: the diagnostic modes are CUDA's")
         plain_calls_bwd += 1
         return train_bwd_plain(slabs, rays16, cot, sh1_t, w1a, w2, b2, w3,
                                b3, desc, uvb, cfg=cfg, gp=gp)
@@ -608,7 +626,7 @@ def train_bwd(slabs, rays16, cot, sh1_t, w1a, w2, b2, w3, b3, desc,
         d_w2.data_ptr(), d_b2.data_ptr(), d_w3.data_ptr(), d_b3.data_ptr(),
         n, s_real, s_pad, gu, gv, c, f, width, int(cfg.direct),
         int(bool(desc)), cfg.nt, int(windowed), wu_e, wv_e, cfg.k,
-        p0, pstep, cfg.act_shift, cfg.thres, cfg.bg,
+        p0, pstep, cfg.act_shift, cfg.thres, cfg.bg, int(mode),
         torch.cuda.current_stream(dev).cuda_stream)
     _error(lib, "train_bwd", err)
     launches_bwd += 1
