@@ -19,8 +19,13 @@ Phases, each of which fails the run:
      against its first version; the TV stencil on whole grids and
      boxes, on its rows and strided paths, bit for bit; the frame kernel in
      every form, MLP width and colour mode, T and depth bit for bit against
-     its first version) and at the main paths' full shapes after phases 3,
-     4, 5, 6 and 7;
+     its first version; in the f32 parity mode, a composed-box window
+     train step against the clip-box step, an MPI window step with sparse
+     TV against the unclipped one, a blocked step against the plain one,
+     and an NDC frame as pixel tiles and as windowed chunks against the
+     chunked render) and at the main paths' full shapes after phases 3,
+     4, 5, 6 and 7, there on the last call of every form each kernel took
+     (K-A's instance and windowing, K-C's shared or global form);
   2. build a full-width lego fine checkpoint (160^3 grid, k0 12, MLP
      39->128->128->3) from the fixture teacher density and seeded random
      colour weights, and save it in the checkpoint format;
@@ -40,22 +45,29 @@ Phases, each of which fails the run:
      shortens only the iteration counts of
      configs/synthetic/fixture_lego_sparse.py, and check the launch counts
      against the steps and counted views, each form on its own channel
-     instance of K-A and K-C (launch counts by form), finite parameters, a
-     rising train PSNR, exact zeros of the density cotangent outside the
-     clip box, the checkpoints, and ``--render_test`` of the trained model;
-     trace three more fine steps and time ``voxel_count_views``; then a few
-     train steps with ray-tile v-windows (a side path: the engine draws no
-     windows yet); then the sweep's forward and backward, each against its
-     plain version and timed beside its first version and one library
-     call, on the inputs of the last call of every form the training run
-     launched (a coarse step's, a fine step's, a counted view's of the
+     instance of K-A and K-C (launch counts by form), that the fine stage
+     drew window classes once its grid passed 1.1 M voxels, finite
+     parameters, a rising train PSNR, exact zeros of the density cotangent
+     outside the clip box, the checkpoints, and ``--render_test`` of the
+     trained model; print the draws by step key at the top grid with their
+     median times and the seconds of each bucket build; trace three more
+     fine steps, and the last window step beside its batch over the clip
+     box, and time ``voxel_count_views``; then a few train steps with
+     ray-tile v-windows (a side path: no engine draw takes them); then the
+     sweep's forward and backward, each against its plain version and
+     timed beside its first version and one library call, on the inputs of
+     the last call of every form the training run launched (a coarse
+     step's, a fine step's, a fine window step's, a counted view's of the
      per-voxel lr);
   6. with ``DVGO_FUSED_TRAIN=1``, train the fine stage again from phase 5's
      coarse checkpoint, same schedule and width, through the fused step
-     (kernels K-D and K-E, drawn as same-class ray tiles), and check that
-     both kernels ran once per fused step, that at least half of the fine
-     steps were fused, and that the trained model's test PSNR beats a white
-     frame's by 3 dB; print the tile classes, the remainder's share of rays,
+     (kernels K-D and K-E, drawn as same-class ray tiles; the remainder
+     re-bucketed into 2D and per-block windows once windows engage), and
+     check that both kernels ran once per fused step, K-A and K-C once per
+     unfused step (once per block of a blocked one), that at least half
+     of the fine steps were fused, that re-bucketed remainder classes were
+     drawn, and that the trained model's test PSNR beats a white frame's
+     by 3 dB; print the tile classes, the remainder's share of rays,
      the fused step's time beside phase 5's unfused one and the gated
      samples per step; then both kernels against their plain versions (T
      and the gates against their first versions), and timed beside their
@@ -67,12 +79,17 @@ Phases, each of which fails the run:
      cut) through ``python -m directvoxgo_tpu_torch.run`` (in process), up
      to the 352x371x128 grid with dense then sparse TV on every step, and
      check one K-A and one K-C launch per step and two K-F launches (the TV
-     stencil: density and k0) per TV step, finite parameters, a rising
-     train PSNR, the checkpoint, and ``--render_test`` of the three
-     756x1008 test views against an all-black frame; print the median
-     step at the top grid, the stage time and a trace of top-grid steps;
-     then K-F in every form the run launched, K-A on a step and a render
-     chunk and K-C on a step, each against its plain version and timed;
+     stencil: density and k0) per TV step, that the steps past 1.1 M
+     voxels drew 2D window classes, finite parameters, a rising train
+     PSNR, the checkpoint, and ``--render_test`` of the three 756x1008 test
+     views (as windowed pixel tiles) against an all-black frame; print the
+     draws by step key, the median step at the top grid, the stage time,
+     the seconds of each bucket build, a trace of top-grid window steps
+     beside their batches over the clip box, and one view's time as tiles,
+     as windowed chunks and as plain chunks; then K-F in every form and
+     path the run launched, K-A on a step of each path form and on a
+     render tile, and K-C on a step of each path form, each against its
+     plain version and timed;
   8. run the frame-kernel harness (``python -m
      directvoxgo_tpu_torch.tools.bench_framekernel``, in process): check
      (three colour modes at 128x256, S=32, 48x40 slabs; v1 against v3, v3
@@ -172,10 +189,9 @@ class Capture:
     """Wraps a function in its module namespace and keeps the inputs of
     every call (``calls``; only the last ``keep`` when given) and, with
     ``results``, what it returned; the wrapped call still launches (and
-    counts) exactly as before. With ``form`` (a function of no arguments
-    naming the form of the call being made) it keeps instead the last call
-    of every form (``forms``) and how many calls each form had
-    (``counts``)."""
+    counts) exactly as before. With ``form`` (a function of the call's
+    arguments naming its form) it keeps instead the last call of every
+    form (``forms``) and how many calls each form had (``counts``)."""
 
     def __init__(self, module, name, keep=None, results=False, form=None):
         self.module, self.name = module, name
@@ -190,8 +206,9 @@ class Capture:
         if self.form is None:
             self.calls.append((args, kw))
         else:
-            self.forms[self.form()] = (args, kw)
-            self.counts[self.form()] += 1
+            form = self.form(*args, **kw)
+            self.forms[form] = (args, kw)
+            self.counts[form] += 1
         out = self.orig(*args, **kw)
         if self.results is not None:
             self.results.append(out)
@@ -885,6 +902,241 @@ def small_tv_checks(torch, dev, tv):
     return 0.0
 
 
+# ------------------------------------------------ phase 1: window draws
+
+# Windowed against unwindowed, at the tolerances of the CPU tests
+# (tests/test_torch_windowed_step.py, tests/test_torch_render_windowed.py):
+# loss relative and parameters absolute for a composed-box window; loss
+# absolute and parameters relative to their scale for the blocked step;
+# rgb and depth absolute for the NDC tiles.
+WINDOW_TOL = (1e-6, 5e-4)
+BLOCKED_TOL = (3e-5, 5e-5)
+TILES_TOL = 2e-3
+
+
+def _f32_model(torch, cls, kw, density, seed, dev):
+    """A model of ``cls`` with the density ``density(model)`` (numpy) and
+    seeded random colour features and MLP, its occupancy renewed, sweeping
+    and running its MLP in f32 (the parity mode)."""
+    import numpy as np
+    model = cls(**kw, device=dev,
+                generator=torch.Generator().manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        model.density.copy_(torch.as_tensor(density(model)))
+        model.k0.copy_(torch.as_tensor(rng.normal(
+            0, 0.5, tuple(model.k0.shape)).astype(np.float32)))
+    model.update_occupancy_cache()
+    model.sweep_dtype, model.mlp_dtype = torch.float32, None
+    return model
+
+
+def _blob(centre, radius):
+    import numpy as np
+
+    def density(model):
+        pts = model.grid_points().cpu().numpy()
+        r2 = (((pts - np.asarray(centre)) / radius) ** 2).sum(-1)
+        return (16 * np.exp(-2 * r2) - 8).astype(np.float32)
+    return density
+
+
+def _one_step(torch, make, cfg, rk, tv, axis, key, off, pool, sel):
+    """One train step of a fresh ``make()`` model: (loss, parameters)."""
+    from directvoxgo_tpu_torch.engine import train as train_lib
+    model = make()
+    opt = train_lib.create_optimizer_or_freeze_model(model, cfg)
+    step = train_lib.make_train_step(model, opt, cfg, rk, *tv, axis=axis,
+                                     clip_sizes=key)
+    loss, _ = step(pool, sel, off)
+    return float(loss), [p.detach() for p in model.parameters()]
+
+
+def _step_pair(torch, what, make, cfg, rk, tv, axis, keys, pool, sel,
+               blocked=False):
+    """The step of ``keys[0]`` (a window) against that of ``keys[1]`` on
+    the same batch from the same parameters."""
+    (la, pa), (lb, pb) = (_one_step(torch, make, cfg, rk, tv, axis, key,
+                                    off, pool, sel) for key, off in keys)
+    d_loss = abs(la - lb)
+    d_par = [float((a - b).abs().max()) for a, b in zip(pa, pb)]
+    scale = [max(1.0, float(b.abs().max())) for b in pb]
+    if blocked:
+        ok = d_loss <= BLOCKED_TOL[0] and all(
+            d <= BLOCKED_TOL[1] * sc for d, sc in zip(d_par, scale))
+    else:
+        ok = d_loss <= WINDOW_TOL[0] * max(1.0, abs(lb)) and all(
+            d <= WINDOW_TOL[1] for d in d_par)
+    log(f"[phase 1] window step {what}: key {keys[0][0]} at "
+        f"{keys[0][1].tolist()} against {keys[1][0]}: loss {la:.8f} vs "
+        f"{lb:.8f}, largest parameter difference {max(d_par):.3e}")
+    if not ok:
+        raise AssertionError(f"window step {what}: loss {la} vs {lb}, "
+                             f"parameters differ by {d_par}")
+    return max(d_par)
+
+
+def small_window_checks(torch, dev):
+    """On the card, in the f32 parity mode: a perspective batch drawn as a
+    composed box over the clip box against the clip-box step, an MPI tile
+    with sparse TV (K-F's box form on the window) against the unclipped
+    step, a blocked step against the plain step, and an NDC frame as
+    pixel tiles against the chunked render."""
+    import numpy as np
+    from directvoxgo_tpu_torch.config import ConfigDict
+    from directvoxgo_tpu_torch.engine import render as render_lib
+    from directvoxgo_tpu_torch.engine.draws import Draws
+    from directvoxgo_tpu_torch.models.dmpigo import DirectMPIGO
+    from directvoxgo_tpu_torch.models.dvgo import DirectVoxGO
+    from directvoxgo_tpu_torch.ops import sweep as sweep_ops
+
+    def cfg(n_rand, w_tv=0.0):
+        return ConfigDict(N_rand=n_rand, weight_main=1.0,
+                          weight_entropy_last=0.001, weight_rgbper=0.01,
+                          weight_tv_density=w_tv, weight_tv_k0=w_tv,
+                          lrate_decay=20, lrate_density=1e-1, lrate_k0=1e-1,
+                          lrate_rgbnet=1e-3,
+                          skip_zero_grad_fields=["density", "k0"])
+
+    def pool_of(o, d, rng):
+        vd = d / np.linalg.norm(d, axis=-1, keepdims=True)
+        rgb = rng.uniform(0, 1, o.shape).astype(np.float32)
+        return {k: torch.as_tensor(np.ascontiguousarray(v, np.float32),
+                                   device=dev)
+                for k, v in (("rays_o", o), ("rays_d", d), ("viewdirs", vd),
+                             ("rgb", rgb))}
+
+    dvgo_kw = dict(xyz_min=[-1] * 3, xyz_max=[1] * 3, alpha_init=1e-2,
+                   fast_color_thres=1e-4, rgbnet_dim=6, rgbnet_direct=True,
+                   rgbnet_width=16, k_density=None, k_color=0)
+    errs = {}
+    # a perspective fan along x, one Morton segment as a composed box
+    rng = np.random.default_rng(20)
+    n = 6 * 512
+    ang = rng.uniform(-0.04, 0.04, (n, 2))
+    o = np.roll(np.tile([[0.15, -0.1, 3.0]], (n, 1)), -2, 1)
+    d = np.roll(np.stack([np.tan(ang[:, 0]) + rng.uniform(-0.1, 0.1, n),
+                          np.tan(ang[:, 1]), -np.ones(n)], -1), -2, 1)
+    o, d = o.astype(np.float32), d.astype(np.float32)
+
+    def make():
+        return _f32_model(torch, DirectVoxGO, dict(
+            dvgo_kw, num_voxels=40 ** 3, num_voxels_base=40 ** 3),
+            _blob([0.1, -0.05, 0.05], 0.75), 19, dev)
+
+    model = make()
+    sizes, offs = model.sweep_clip_for_axis(0, quantum=8)
+    box6 = tuple(float(x) for a, b in zip(offs, sizes) for x in (a, a + b - 1))
+    bk = sweep_ops.build_ray_segments_2d(
+        o, d, model.xyz_min, model.xyz_max, model.world_size, 0, n_rand=512,
+        widths=(16, 24, 32), clip_box=box6)
+    key = next(k for k in bk if k != (0, 0)
+               and Draws._eff(k, *sizes[1:]) != tuple(sizes[1:]))
+    eu, ev = Draws._eff(key, *sizes[1:])
+    idx, ulo, vlo = bk[key]
+    off = Draws._clamped(offs, sizes[1:], (eu, ev), ulo[0], vlo[0])
+    rk = dict(near=0.5, far=6.0, bg=1.0, stepsize=0.5)
+    errs["perspective window"] = _step_pair(
+        torch, "perspective", make, cfg(512), rk, (False, False), 0,
+        (((sizes[0], eu, ev), off), (sizes, np.asarray(offs))),
+        pool_of(o, d, rng), torch.as_tensor(idx[0], device=dev))
+
+    # an MPI image tile with sparse TV
+    rng = np.random.default_rng(3)
+    mpi_kw = dict(xyz_min=[-1, -1, 0], xyz_max=[1, 1, 1],
+                  num_voxels=48 * 48 * 32, mpi_depth=32,
+                  fast_color_thres=1e-4, rgbnet_dim=6, rgbnet_width=16)
+
+    def make():
+        return _f32_model(torch, DirectMPIGO, mpi_kw, lambda m: np.random
+                          .default_rng(4).normal(0, 1, tuple(m.world_size))
+                          .astype(np.float32), 5, dev)
+
+    model = make()
+    n = 256
+    o = np.stack([rng.uniform(0.1, 0.4, n), rng.uniform(-0.4, -0.1, n),
+                  np.zeros(n)], -1).astype(np.float32)
+    d = np.stack([rng.uniform(-0.05, 0.05, n), rng.uniform(-0.05, 0.05, n),
+                  np.ones(n)], -1).astype(np.float32)
+    bk = sweep_ops.build_ray_segments_2d(
+        o, d, model.xyz_min, model.xyz_max, model.world_size, 2, n_rand=n,
+        widths=(16, 24, 32))
+    gp, gu, gv = (int(model.world_size[a]) for a in sweep_ops._PERMS[2])
+    key = next(k for k in bk if k != (0, 0))
+    eu, ev = Draws._eff(key, gu, gv)
+    idx, ulo, vlo = bk[key]
+    off = Draws._clamped(np.zeros(3, np.int32), (gu, gv), (eu, ev), ulo[0],
+                         vlo[0])
+    errs["mpi window, sparse TV"] = _step_pair(
+        torch, "MPI, sparse TV", make, cfg(n, 1e-2),
+        dict(near=0.0, far=1.0, bg=1.0, stepsize=1.0), (True, False), 2,
+        (((gp, eu, ev), off), (None, np.zeros(3, np.int32))),
+        pool_of(o, d, rng), torch.as_tensor(idx[0], device=dev))
+
+    # a blocked step
+    rng = np.random.default_rng(32)
+    n = 4 * 512
+    ang = rng.uniform(-0.12, 0.12, (n, 2))
+    o = np.tile([[0.1, 0.1, 3.0]], (n, 1)).astype(np.float32)
+    d = np.stack([np.tan(ang[:, 0]) + 0.05, np.tan(ang[:, 1]), -np.ones(n)],
+                 -1).astype(np.float32)
+
+    def make():
+        return _f32_model(torch, DirectVoxGO, dict(
+            dvgo_kw, num_voxels=48 ** 3, num_voxels_base=48 ** 3),
+            _blob([0.05, -0.1, 0.0], 0.6), 31, dev)
+
+    model = make()
+    bk = sweep_ops.build_ray_segments_blocked(
+        o, d, model.xyz_min, model.xyz_max, model.world_size, 2, n_rand=512,
+        n_blocks=4, widths=(16, 24, 32, 40))
+    key = next(k for k in bk if k != (0, 0))
+    idx, uo, vo = bk[key]
+    gu, gv = (int(model.world_size[a]) for a in sweep_ops._PERMS[2][1:])
+    errs["blocked"] = _step_pair(
+        torch, "blocked", make, cfg(512), rk, (False, False), 2,
+        ((("blk", uo.shape[1], *Draws._eff(key, gu, gv)),
+          np.stack([uo[0], vo[0]], 1).astype(np.int32)),
+         (None, np.zeros(3, np.int32))),
+        pool_of(o, d, rng), torch.as_tensor(idx[0], device=dev),
+        blocked=True)
+
+    # an NDC frame as pixel tiles against the chunked render
+    model = _f32_model(torch, DirectMPIGO, dict(
+        mpi_kw, num_voxels=96 * 96 * 48, mpi_depth=48, rgbnet_width=32,
+        viewbase_pe=4, k_color=8), lambda m: np.random.default_rng(11)
+        .normal(0, 1.5, tuple(m.world_size)).astype(np.float32), 12, dev)
+    h = w = 48
+    K = np.array([[60.0, 0, w / 2], [0, 60.0, h / 2], [0, 0, 1]])
+    c2w = np.eye(4, dtype=np.float32)[:3]
+    rk = dict(near=0.0, far=1.0, bg=1.0, stepsize=1.0)
+    fn = render_lib.make_render_fn(model, rk)
+    from directvoxgo_tpu_torch import rays as ray_lib
+    rays = [x.reshape(-1, 3) for x in ray_lib.get_rays_of_a_view(
+        h, w, K, c2w, True, False, False, False)]
+    gate = render_lib.WINDOWED_RENDER_MIN_PLANE
+    try:
+        render_lib.WINDOWED_RENDER_MIN_PLANE = 2 ** 62
+        chunks = render_lib.render_rays_chunked(fn, model, *rays, 512)
+        render_lib.WINDOWED_RENDER_MIN_PLANE = 0
+        tiles = render_lib.render_frame_ndc_tiles(
+            fn, model, h, w, K, c2w, rk, chunk=512, tile_hw=(16, 32),
+            widths=(8, 16, 24, 48))
+        windowed = render_lib.render_rays_chunked(fn, model, *rays, 512)
+    finally:
+        render_lib.WINDOWED_RENDER_MIN_PLANE = gate
+    for what, out in (("NDC tiles", tiles), ("NDC windowed chunks",
+                                             windowed)):
+        err = max(float(np.abs(a - b).max()) for a, b in zip(out, chunks))
+        log(f"[phase 1] {what} against the chunked render: max|rgb, depth "
+            f"diff| {err:.3e}")
+        if not err <= TILES_TOL:
+            raise AssertionError(f"{what} differ from the chunked render by "
+                                 f"{err}")
+        errs[what] = err
+    return errs
+
+
 # ----------------------------------------------------------------- phase 5
 
 def write_train_config():
@@ -899,25 +1151,62 @@ def write_train_config():
     return TRAIN_CONFIG
 
 
+def draw_kind(key):
+    """The kind of a batch by the step key ``Draws.next_batch`` drew for it
+    (None: the stage's clip box)."""
+    if key is None:
+        return "plain"
+    return {"fblk": "fused", "blk": "blocked"}.get(key[0], "window")
+
+
+def step_form(stage, kind):
+    """The path form of a step's sweeps: "fine step", "fine window step",
+    "fine blocked step", ..."""
+    return f"{stage} {'' if kind == 'plain' else kind + ' '}step"
+
+
+def sweep_launches(steps):
+    """K-A (and K-C) launches of these recorded steps: one a step, one a
+    block of a blocked step, none in a fused step."""
+    return sum(s[7][1] if s[6] == "blocked" else 1 for s in steps
+               if s[6] != "fused")
+
+
 class StepRecorder:
     """Wraps ``engine.train.make_train_step``: every step it builds is
     synchronised and timed on the host clock, and its PSNR, stage (coarse:
-    no colour MLP) and grid size are recorded."""
+    no colour MLP), grid size and the draw it took (``Draws.next_batch``,
+    wrapped too: its kind and step key) are recorded."""
 
     def __init__(self, train_lib):
+        from directvoxgo_tpu_torch.engine import draws as draws_lib
         self.train_lib = train_lib
         self.orig = train_lib.make_train_step
-        self.steps = []   # (stage, voxels, ms, psnr, loss, fused step?)
+        # (stage, voxels, ms, psnr, loss, fused step?, draw kind, draw key)
+        self.steps = []
         self.last = {}    # (stage, fused step?) -> (step, args, kwargs)
+        self.last_kind = {}   # (stage, draw kind) -> (step, args, kwargs)
         self.last_tv = {}   # TV form of a step ("dense", "sparse", "none")
         #                     -> (step, args, kwargs, voxels)
-        self.inside = None   # stage of the step being taken, if any
+        self.made = {}    # id(step) -> (model, args, kwargs) it was made of
+        self.inside = None   # (stage, kind) of the step being taken, if any
+        self.draw = None     # step key of the last draw
+        self.draws_cls = draws_lib.Draws
+        self.orig_draw = draws_lib.Draws.next_batch
+        rec = self
+
+        def next_batch(draws, apply_tv):
+            out = rec.orig_draw(draws, apply_tv)
+            rec.draw = out[2]
+            return out
+
+        draws_lib.Draws.next_batch = next_batch
         train_lib.make_train_step = self
 
-    def form(self):
+    def form(self, *_, **__):
         """The form of a sweep launched now: a step's, or (between steps)
         a counted view's of the per-voxel lr."""
-        return f"{self.inside} step" if self.inside else "counted view"
+        return step_form(*self.inside) if self.inside else "counted view"
 
     def __call__(self, model, *args, **kw):
         import torch
@@ -929,11 +1218,13 @@ class StepRecorder:
         tv = ("dense" if tv_dense else "sparse") if apply_tv else "none"
 
         def timed(*a, **k):
+            kind, key = draw_kind(self.draw), self.draw
             self.last[(stage, fused)] = (step, a, k)
+            self.last_kind[(stage, kind)] = (step, a, k)
             self.last_tv[tv] = (step, a, k, int(np_prod(model.world_size)))
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            self.inside = stage
+            self.inside = (stage, kind)
             try:
                 loss, psnr = step(*a, **k)
             finally:
@@ -941,13 +1232,24 @@ class StepRecorder:
             torch.cuda.synchronize()
             self.steps.append((stage, int(np_prod(model.world_size)),
                                (time.perf_counter() - t0) * 1e3,
-                               float(psnr), float(loss), fused))
+                               float(psnr), float(loss), fused, kind, key))
             return loss, psnr
 
+        self.made[id(step)] = (model, args, kw)
         return timed
 
     def restore(self):
         self.train_lib.make_train_step = self.orig
+        self.draws_cls.next_batch = self.orig_draw
+
+    def unwindowed(self, step):
+        """The step that ``step`` (a recorded step) would be over the clip
+        box of its model's current mask, untimed: the same model,
+        optimizer and TV state. Returns (step, clip offsets)."""
+        model, args, kw = self.made[id(step)]
+        sizes, offs = model.sweep_clip_for_axis(kw["axis"])
+        return self.orig(model, *args, axis=kw["axis"],
+                         clip_sizes=sizes), offs
 
 
 def np_prod(xs):
@@ -960,28 +1262,6 @@ def np_prod(xs):
 def median(xs):
     xs = sorted(xs)
     return float(xs[len(xs) // 2])
-
-
-def tile_windows_for(torch, sweep_ops, model, ro, rd, axis, n_rand):
-    """Pick ``n_rand`` rays of one view ordered by their v coordinate at the
-    middle sweep plane and give every 512-ray tile a v-window that covers
-    its rays' support at every station (v is linear in the station plane,
-    so the two end planes, clipped to the slab's support, bound it).
-    Returns (indices into the view's rays, v_base int32, wv)."""
-    perm = sweep_ops._PERMS[axis]
-    gp, gv = int(model.world_size[perm[0]]), int(model.world_size[perm[2]])
-    (op, _, ov), (dp, _, dv) = sweep_ops.rays_to_voxel(
-        ro, rd, model.xyz_min, model.xyz_max, model.world_size, axis)
-    dp = torch.where(dp.abs() < 1e-10, torch.full_like(dp, 1e-10), dp)
-    v_at = lambda p: ov + (p - op) / dp * dv  # noqa: E731
-    order = torch.argsort(v_at(0.5 * (gp - 1)))[:n_rand]
-    ends = torch.stack([v_at(0.0), v_at(gp - 1.0)])[:, order].clamp(-1.0, gv)
-    tiles = ends.reshape(2, n_rand // 512, 512)
-    lo = torch.floor(tiles.amin((0, 2))).clamp(min=0)
-    hi = (torch.floor(tiles.amax((0, 2))) + 1).clamp(max=gv - 1)
-    wv = int((hi - lo + 1).max())
-    v_base = torch.minimum(lo, torch.full_like(lo, gv - wv)).clamp(min=0)
-    return order, v_base.to(torch.int32).contiguous(), wv
 
 
 # The first versions of K-A, K-C, K-F, K-B, K-D and K-E, kept
@@ -1361,6 +1641,71 @@ def bwd_numbers(torch, kc, g, rays, k, shape, dtype, v_base, wv):
                      f"nonzero={nnz / g.numel():.4f}"}
 
 
+def ka_form(ka):
+    """K-A's own form of a call (channel instance, load width, stations a
+    thread, windowed or not), from the call's arguments."""
+    return lambda slabs, rays, k, v_base=None, wv=0: ka.form(
+        ka.instance(slabs, rays.shape[1]), bool(wv))
+
+
+def kc_form(torch, kc):
+    """K-C's own form of a call (shared or global, channel instance, interp
+    dtype, cotangent layout), from the call's arguments."""
+    def form(g, rays, k, shape, dtype, v_base=None, wv=0, **_):
+        shared, _ = kc.plan(shape[1], shape[2], shape[3], g.shape[2],
+                            g.shape[0], kc.device_limits(g.device.index))
+        return kc.form(kc.instance(shared, shape[3], dtype == torch.bfloat16),
+                       kc.station_major(g))
+    return form
+
+
+def check_kernel_forms(ka, kc, cap_ka, cap_kc, what):
+    """Every form K-A and K-C took in a run (:func:`ka_form`,
+    :func:`kc_form`: windows and boxes of new shapes may pick forms the
+    path forms do not show), on the inputs of its last call, against the
+    plain version. Returns {kernel and form: max abs error}."""
+    errs = {}
+    for form, (args, _) in cap_ka.forms.items():
+        slabs, rays, k, vb, wv = (*args, None, 0)[:5]
+        slabs = slabs.detach()      # at k = 1 the slabs are the step's grid
+        errs[f"sweep_fwd {form}"] = check_sweep_rel(
+            ka, slabs, rays, k, vb, wv, f"{what}, K-A form {form}",
+            zero_slab=not bool(slabs.any()))
+    for form, (args, _) in cap_kc.forms.items():
+        errs[f"sweep_bwd {form}"] = check_bwd(
+            kc, *args[:7], f"{what}, K-C form {form}")
+    return errs
+
+
+def draw_classes(steps):
+    """Per step key drawn ("clip box" for the stage's own box): its share of
+    these steps, their count and median host-clock ms."""
+    by = collections.defaultdict(list)
+    for s in steps:
+        by["clip box" if s[7] is None else str(s[7])].append(s[2])
+    return {key: {"share": len(ms) / max(len(steps), 1), "steps": len(ms),
+                  "median_ms": median(ms)}
+            for key, ms in sorted(by.items(), key=lambda kv: -len(kv[1]))}
+
+
+def window_vs_unwindowed(torch, rec, key, share_of=()):
+    """The last recorded step of ``key`` ((stage, draw kind)) and the same
+    batch through the step over its model's clip box, each traced
+    (:func:`profile_step`; both train on, nothing is saved): the window's
+    device time and idle share beside the whole box's. None when no step
+    of that kind ran."""
+    if key not in rec.last_kind:
+        return None
+    step, a, k = rec.last_kind[key]
+    plain, offs = rec.unwindowed(step)
+    model, _, kw = rec.made[id(step)]
+    return {"window_key": str(kw["clip_sizes"]),
+            "clip_box": str(model.sweep_clip_for_axis(kw["axis"])[0]),
+            "window": profile_step(torch, step, a, k, share_of=share_of),
+            "unwindowed": profile_step(torch, plain, (a[0], a[1], offs), {},
+                                       share_of=share_of)}
+
+
 def train_phase(torch, dev, ka, kb, kc, sweep_ops):
     """Phase 5; returns the kernels-line entries of the training path (K-A
     and K-C in each form that path launches, K-A's windowed form) and a
@@ -1371,6 +1716,7 @@ def train_phase(torch, dev, ka, kb, kc, sweep_ops):
     from directvoxgo_tpu_torch.config import Config
     from directvoxgo_tpu_torch.data import load_everything
     from directvoxgo_tpu_torch.engine import checkpoint as ckpt_lib
+    from directvoxgo_tpu_torch.engine import draws as draws_lib
     from directvoxgo_tpu_torch.engine import train as train_lib
     from directvoxgo_tpu_torch.models.dvgo import DirectVoxGO
 
@@ -1385,7 +1731,11 @@ def train_phase(torch, dev, ka, kb, kc, sweep_ops):
     rec = StepRecorder(train_lib)
     cap_a = Capture(sweep_ops, "sweep_fwd", form=rec.form)
     cap_c = Capture(sweep_ops, "sweep_bwd", form=rec.form)
-    count_timer = CallTimer(torch, [(DirectVoxGO, "voxel_count_views")])
+    cap_ka = Capture(sweep_ops, "sweep_fwd", form=ka_form(ka))
+    cap_kc = Capture(sweep_ops, "sweep_bwd", form=kc_form(torch, kc))
+    count_timer = CallTimer(torch, [
+        (DirectVoxGO, "voxel_count_views"),
+        (draws_lib.Draws, "_build_segments")])
     ka.launches = ka.launches_windowed = kb.launches = kc.launches = 0
     ka.launches_by_form.clear()
     kc.launches_by_form.clear()
@@ -1396,8 +1746,8 @@ def train_phase(torch, dev, ka, kb, kc, sweep_ops):
         torch.cuda.synchronize()
     finally:
         rec.restore()
-        cap_a.restore()
-        cap_c.restore()
+        for cap in (cap_kc, cap_ka, cap_c, cap_a):
+            cap.restore()
         count_timer.restore()
     train_launches = {"sweep_fwd": ka.launches, "sweep_bwd": kc.launches,
                       "render_frame": kb.launches,
@@ -1412,12 +1762,19 @@ def train_phase(torch, dev, ka, kb, kc, sweep_ops):
         f"fine steps (pg_scale {PG_SCALE}, {len(fine_top)} at {top} voxels) "
         f"in {time.time() - t0:.1f} s; launches {train_launches}; "
         f"{n_views} views counted")
-    # Every step is one K-A and one K-C launch; so is every counted view of
-    # the coarse stage's per-voxel lr.
-    want = {"coarse step": N_COARSE, "fine step": N_FINE,
-            "counted view": n_views}
+    # Every step is one K-A and one K-C launch (a blocked step one per
+    # block); so is every counted view of the coarse stage's per-voxel lr.
+    # The fine stage draws window classes once its grid passes 1.1 M
+    # voxels.
+    run_steps = list(rec.steps)
+    want = collections.Counter({"counted view": n_views})
+    for st in run_steps:
+        want[step_form(st[0], st[6])] += sweep_launches([st])
+    want = dict(want)
+    kinds = collections.Counter(f"{st[0]} {st[6]}" for st in run_steps)
     if not (len(coarse) == N_COARSE and len(fine) == N_FINE
             and len(fine_top) >= MIN_TOP_STEPS
+            and kinds["fine window"] > 0
             and dict(cap_a.counts) == want and dict(cap_c.counts) == want
             and train_launches["sweep_fwd"] == sum(want.values())
             and train_launches["sweep_bwd"] == sum(want.values())
@@ -1425,28 +1782,39 @@ def train_phase(torch, dev, ka, kb, kc, sweep_ops):
             and train_launches["render_frame"] == 0):
         raise AssertionError(
             f"launches {train_launches} (K-A by form {dict(cap_a.counts)}, "
-            f"K-C {dict(cap_c.counts)}) do not match {want}")
+            f"K-C {dict(cap_c.counts)}) do not match {want}; draws "
+            f"{dict(kinds)}")
     # Each path form ran its own channel instance of both kernels (coarse
     # C=5, fine C=14, counted view C=1), every launch counted by form.
-    log(f"[phase 5] kernel forms launched: {forms}; voxel_count_views "
-        f"{count_timer.seconds} s")
+    log(f"[phase 5] draws {dict(kinds)}; kernel forms launched: {forms}; "
+        f"voxel_count_views and bucket builds {count_timer.seconds} s")
     for name, cap in (("sweep_fwd", cap_a), ("sweep_bwd", cap_c)):
         by_c = collections.Counter()
         for key, count in forms[name].items():
             by_c[key.split("C=")[1].split()[0]] += count
         c_of = {form: (cap.forms[form][0][0].shape[3] if name == "sweep_fwd"
                        else cap.forms[form][0][3][3]) for form in want}
+        want_c = collections.Counter()
+        for f in want:
+            want_c[str(c_of[f]) if c_of[f] in ka.CHANNEL_INSTANCES
+                   else "generic"] += want[f]
         if (sum(forms[name].values()) != train_launches[name]
-                or any(by_c[str(c_of[f]) if c_of[f] in ka.CHANNEL_INSTANCES
-                            else "generic"] != want[f] for f in want)):
+                or any(by_c[c] != n for c, n in want_c.items())):
             raise AssertionError(f"{name} launches by form {forms[name]} do "
                                  f"not match {want} (channels {c_of})")
+    classes = draw_classes(fine_top)
+    log(f"[phase 5] fine draws at {top} voxels by step key: {classes}")
 
     # Where a fine step's time goes: three more steps of the last one,
     # traced (the checkpoints are written; these steps are not saved).
     step_trace = profile_step(torch, *rec.last[("fine", False)],
                               share_of=("sweep_fwd", "sweep_bwd"))
     log(f"[phase 5] trace of the last fine step: {step_trace}")
+    # The last window step against the same batch over the clip box.
+    window_trace = window_vs_unwindowed(torch, rec, ("fine", "window"),
+                                        share_of=("sweep_fwd", "sweep_bwd"))
+    log(f"[phase 5] the last fine window step and its batch over the clip "
+        f"box, traced: {window_trace}")
     if not all(np.isfinite(s[3]) and np.isfinite(s[4]) for s in rec.steps):
         raise AssertionError("a train step's loss or PSNR is not finite")
     psnr_first = float(np.mean([s[3] for s in coarse[:50]]))
@@ -1553,18 +1921,36 @@ def train_phase(torch, dev, ka, kb, kc, sweep_ops):
     # A few train steps with per-ray-tile v-windows (which only unclipped
     # sweeps take) on the trained fine model: K-A's and K-C's per-tile
     # windowed forms in a train step. This is a side path of this script:
-    # the engine's loop draws no windows yet, so run.main launches neither.
+    # the engine's window draws ride the clip box, so run.main launches
+    # neither. The tiles come from `build_tile_buckets`, those with the
+    # most rays through the occupancy first (tiles of rays that miss the
+    # grid have the narrowest windows); their windows widen to the widest
+    # class taken.
     fm = models["fine"]
     rk_f = {"near": data["near"], "far": data["far"], "bg": 1.0,
             "stepsize": cfg.fine_model_and_render.stepsize}
-    axes = sweep_ops.dominant_axis(rd.cpu().numpy(), fm.xyz_min, fm.xyz_max,
+    rd_np, ro_np = rd.cpu().numpy(), ro.cpu().numpy()
+    axes = sweep_ops.dominant_axis(rd_np, fm.xyz_min, fm.xyz_max,
                                    fm.world_size)
     axis = int(np.bincount(axes, minlength=3).argmax())
-    idx = torch.as_tensor(np.flatnonzero(axes == axis), device=dev)
+    idx = np.flatnonzero(axes == axis)
     n_rand = int(cfg.fine_train.N_rand)
-    order, v_base, wv = tile_windows_for(torch, sweep_ops, fm, ro[idx],
-                                         rd[idx], axis, n_rand)
-    sel = idx[order]
+    bk = sweep_ops.build_tile_buckets(ro_np[idx], rd_np[idx], fm.xyz_min,
+                                      fm.xyz_max, fm.world_size, axis)
+    hit = fm.hit_coarse_geo(ro_np[idx], rd_np[idx], data["near"],
+                            data["far"], cfg.fine_model_and_render.stepsize)
+    tiles = sorted(((int(hit[r].sum()), w, r, vlo)
+                    for w in bk if w for r, vlo in zip(*bk[w])),
+                   key=lambda t: -t[0])[:n_rand // 512]
+    if len(tiles) < n_rand // 512 or tiles[-1][0] == 0:
+        raise AssertionError(f"the view's tile buckets {list(bk)} hold "
+                             f"{len(tiles)} windowed tiles through the "
+                             f"occupancy, not {n_rand // 512}")
+    wv = max(t[1] for t in tiles)
+    sel = torch.as_tensor(idx[np.stack([t[2] for t in tiles]).reshape(-1)],
+                          device=dev)
+    v_base = torch.as_tensor([t[3] for t in tiles], dtype=torch.int32,
+                             device=dev)
     gv = int(fm.world_size[sweep_ops._PERMS[axis][2]])
     if not 0 < wv < gv:
         raise AssertionError(f"tile windows of width {wv} do not narrow the "
@@ -1644,6 +2030,8 @@ def train_phase(torch, dev, ka, kb, kc, sweep_ops):
                         f"{train_launches['sweep_fwd_windowed']} times"},
         **nums))
 
+    form_errs = check_kernel_forms(ka, kc, cap_ka, cap_kc,
+                                   "training path")
     for form in want:
         (g, c_rays, c_k, c_shape, c_dtype, c_vb, c_wv), _ = cap_c.forms[form]
         err = check_bwd(kc, g, c_rays, c_k, c_shape, c_dtype, c_vb, c_wv,
@@ -1670,7 +2058,12 @@ def train_phase(torch, dev, ka, kb, kc, sweep_ops):
                "sweep_launches_by_form": forms,
                "voxel_count_views_s": count_timer.seconds.get(
                    "voxel_count_views"),
-               "fine_step_trace": step_trace}
+               "bucket_build_s": count_timer.seconds.get("_build_segments"),
+               "draw_kinds": dict(kinds),
+               "fine_draw_classes_at_top": classes,
+               "fine_step_trace": step_trace,
+               "fine_window_vs_unwindowed": window_trace,
+               "kernel_forms_checked": form_errs}
     return entries, summary
 
 
@@ -1878,6 +2271,7 @@ def fused_phase(torch, dev, tf, ka, kc, sweep_ops, phase5):
     from directvoxgo_tpu_torch import run as run_lib
     from directvoxgo_tpu_torch.config import Config
     from directvoxgo_tpu_torch.engine import checkpoint as ckpt_lib
+    from directvoxgo_tpu_torch.engine import draws as draws_lib
     from directvoxgo_tpu_torch.engine import train as train_lib
 
     with open(FUSED_CONFIG, "w") as f:
@@ -1900,6 +2294,9 @@ def fused_phase(torch, dev, tf, ka, kc, sweep_ops, phase5):
     counter = GatedCounter(tf)
     cap_e = Capture(tf, "train_bwd", keep=1)
     cap_t = Capture(sweep_ops, "build_ray_tiles_blocktile", results=True)
+    cap_ka = Capture(sweep_ops, "sweep_fwd", form=ka_form(ka))
+    cap_kc = Capture(sweep_ops, "sweep_bwd", form=kc_form(torch, kc))
+    builds = CallTimer(torch, [(draws_lib.Draws, "_build_fused")])
     tf.launches_fwd = tf.launches_bwd = ka.launches = kc.launches = 0
     env_before = os.environ.get("DVGO_FUSED_TRAIN")
     os.environ["DVGO_FUSED_TRAIN"] = "1"
@@ -1915,25 +2312,40 @@ def fused_phase(torch, dev, tf, ka, kc, sweep_ops, phase5):
             os.environ["DVGO_FUSED_TRAIN"] = env_before
         rec.restore()
         counter.restore()
-        cap_e.restore()
-        cap_t.restore()
+        for cap in (cap_kc, cap_ka, cap_t, cap_e):
+            cap.restore()
+        builds.restore()
     launches = {"train_fwd": tf.launches_fwd, "train_bwd": tf.launches_bwd,
                 "sweep_fwd": ka.launches, "sweep_bwd": kc.launches}
-    fused = [s for s in rec.steps if s[5]]
-    plain = [s for s in rec.steps if not s[5]]
-    top = max(s[1] for s in rec.steps)
+    run_steps = list(rec.steps)
+    fused = [s for s in run_steps if s[5]]
+    plain = [s for s in run_steps if not s[5]]
+    top = max(s[1] for s in run_steps)
     fused_top = [s for s in fused if s[1] == top]
-    log(f"[phase 6] run.main (DVGO_FUSED_TRAIN=1) trained {len(rec.steps)} "
+    kinds = collections.Counter(s[6] for s in run_steps)
+    log(f"[phase 6] run.main (DVGO_FUSED_TRAIN=1) trained {len(run_steps)} "
         f"fine steps in {time.time() - t0:.1f} s: {len(fused)} fused, "
-        f"{len(plain)} unfused; launches {launches}")
-    if not (all(s[0] == "fine" for s in rec.steps)
-            and len(rec.steps) == N_FINE and 2 * len(fused) >= N_FINE
+        f"{len(plain)} unfused (draws {dict(kinds)}); launches {launches}; "
+        f"tile builds {builds.seconds} s")
+    # One K-D and one K-E launch per fused step; the unfused steps (the
+    # remainder: over the clip box, or re-bucketed into 2D windows and
+    # per-block windows where windows engage) one K-A and one K-C launch
+    # each, or one per block.
+    if not (all(s[0] == "fine" for s in run_steps)
+            and len(run_steps) == N_FINE and 2 * len(fused) >= N_FINE
             and len(fused_top) >= MIN_TOP_STEPS // 2
+            and kinds["window"] + kinds["blocked"] > 0
             and launches["train_fwd"] == launches["train_bwd"] == len(fused)
-            and launches["sweep_fwd"] == launches["sweep_bwd"] == len(plain)):
+            and launches["sweep_fwd"] == launches["sweep_bwd"]
+            == sweep_launches(plain)):
         raise AssertionError(
-            f"{len(rec.steps)} steps ({len(fused)} fused, {len(fused_top)} "
-            f"at the top grid) do not match the launches {launches}")
+            f"{len(run_steps)} steps ({len(fused)} fused, {len(fused_top)} "
+            f"at the top grid; draws {dict(kinds)}) do not match the "
+            f"launches {launches}")
+    classes = draw_classes([s for s in run_steps if s[1] == top])
+    log(f"[phase 6] draws at {top} voxels by step key: {classes}")
+    form_errs = check_kernel_forms(ka, kc, cap_ka, cap_kc,
+                                   "fused run's unfused steps")
     if not all(np.isfinite(s[3]) and np.isfinite(s[4]) for s in rec.steps):
         raise AssertionError("a fused run's loss or PSNR is not finite")
 
@@ -1964,10 +2376,13 @@ def fused_phase(torch, dev, tf, ka, kc, sweep_ops, phase5):
     # last unfused (remainder) step of the run, traced (the checkpoint is
     # written; these steps train on and are not saved).
     profiles = {}
-    for name, key in (("fused", ("fine", True)), ("unfused", ("fine", False))):
-        if key in rec.last:
-            profiles[name] = profile_step(torch, *rec.last[key])
-            log(f"[phase 6] trace of a {name} fine step at the top grid: "
+    for name, key in (("fused", ("fine", "fused")),
+                      ("unfused", ("fine", "plain")),
+                      ("window", ("fine", "window")),
+                      ("blocked", ("fine", "blocked"))):
+        if key in rec.last_kind:
+            profiles[name] = profile_step(torch, *rec.last_kind[key])
+            log(f"[phase 6] trace of the last {name} fine step: "
                 f"{profiles[name]}")
 
     st = ckpt_lib.load_checkpoint_file(os.path.join(logdir, "fine_last.tar"))
@@ -2021,7 +2436,10 @@ def fused_phase(torch, dev, tf, ka, kc, sweep_ops, phase5):
                "train_psnr_last50": psnr_last, "test_psnr": psnr_test,
                "test_psnr_unfused_phase5": phase5["test_psnr"],
                "white_psnr": phase5["white_psnr"], "tiles": tiles,
-               "step_traces": profiles}
+               "draw_kinds": dict(kinds), "draw_classes_at_top": classes,
+               "tile_build_s": builds.seconds.get("_build_fused"),
+               "step_traces": profiles,
+               "remainder_kernel_forms_checked": form_errs}
     return entries, summary
 
 
@@ -2086,12 +2504,14 @@ class TVRecorder:
     whole-grid ``total_variation_add_grad`` as the MPI model imported it,
     the boxed ``tv_add_grad_box`` in its module): every call still launches
     (and counts) as before; calls are counted by form (dense or sparse,
-    whole grid or box, k0 or density), and the inputs of the calls made
-    during the steps in ``keep_steps`` (1-based) are cloned, so that the
-    last call of every form can be replayed exactly."""
+    whole grid or box, k0 or density, and the kernel's path,
+    ``tv.path_of``), and the inputs of a form's first call and of the calls
+    made during the steps in ``keep_steps`` (1-based) are cloned, so that
+    every form can be replayed exactly, most on its last call."""
 
     def __init__(self, torch, tv_mod, mpi_mod, rec, keep_steps):
         self.torch, self.rec, self.keep_steps = torch, rec, set(keep_steps)
+        self.tv = tv_mod
         self.counts = collections.Counter()
         self.kept = {}      # form -> (entry, args, kwargs)
         self.wrapped = []
@@ -2108,11 +2528,14 @@ class TVRecorder:
             # (wx, wy, wz, dense_mode) / (offs, wx, wy, wz[, dense_mode])
             dense = kw.get("dense_mode", args[3] if not boxed
                            else (args[4] if len(args) > 4 else False))
+            path = self.tv.path_of(param, grad,
+                                   args[0] if boxed else (0, 0, 0))
             form = (f"{'dense' if dense else 'sparse'}"
                     f"{' box' if boxed else ''} "
-                    f"{'k0' if param.dim() == 4 else 'density'}")
+                    f"{'k0' if param.dim() == 4 else 'density'}, {path}")
             self.counts[form] += 1
-            if len(self.rec.steps) + 1 in self.keep_steps:
+            if (len(self.rec.steps) + 1 in self.keep_steps
+                    or form not in self.kept):
                 self.kept[form] = (name, (param.detach().clone(),
                                           grad.clone(), *args), dict(kw))
             return orig(param, grad, *args, **kw)
@@ -2225,6 +2648,7 @@ def mpi_phase(torch, dev, tv, ka, kc, sweep_ops):
     from directvoxgo_tpu_torch.config import Config
     from directvoxgo_tpu_torch.data import load_everything
     from directvoxgo_tpu_torch.engine import checkpoint as ckpt_lib
+    from directvoxgo_tpu_torch.engine import draws as draws_lib
     from directvoxgo_tpu_torch.engine import train as train_lib
     from directvoxgo_tpu_torch.models import dmpigo as mpi_mod
 
@@ -2235,8 +2659,10 @@ def mpi_phase(torch, dev, tv, ka, kc, sweep_ops):
     rec = StepRecorder(train_lib)
     tvr = TVRecorder(torch, tv, mpi_mod, rec,
                      (FERN_TV_DENSE_BEFORE - 1, FERN_ITERS))
-    cap_a = Capture(sweep_ops, "sweep_fwd", keep=1)
-    cap_c = Capture(sweep_ops, "sweep_bwd", keep=1)
+    cap_a = Capture(sweep_ops, "sweep_fwd", form=rec.form)
+    cap_c = Capture(sweep_ops, "sweep_bwd", form=rec.form)
+    cap_ka = Capture(sweep_ops, "sweep_fwd", form=ka_form(ka))
+    cap_kc = Capture(sweep_ops, "sweep_bwd", form=kc_form(torch, kc))
     stage_s = []
     orig_stage = train_lib.scene_rep_reconstruction
 
@@ -2255,7 +2681,8 @@ def mpi_phase(torch, dev, tv, ka, kc, sweep_ops):
         (mpi_mod.DirectMPIGO, "update_occupancy_cache"),
         (convert, "opt_state_to_jax"), (ckpt_lib, "_compact"),
         (ckpt_lib, "save_checkpoint_file"),
-        (ckpt_lib, "load_checkpoint_file")])
+        (ckpt_lib, "load_checkpoint_file"),
+        (draws_lib.Draws, "_build_segments")])
     train_lib.scene_rep_reconstruction = timed_stage
     ka.launches = kc.launches = tv.launches = 0
     ka.launches_by_form.clear()
@@ -2270,14 +2697,14 @@ def mpi_phase(torch, dev, tv, ka, kc, sweep_ops):
         train_lib.scene_rep_reconstruction = orig_stage
         rec.restore()
         tvr.restore()
-        cap_a.restore()
-        cap_c.restore()
+        for cap in (cap_kc, cap_ka, cap_c, cap_a):
+            cap.restore()
     wall_s = time.time() - t0
     launches = {"sweep_fwd": ka.launches, "sweep_bwd": kc.launches,
                 "tv_add_grad": tv.launches}
     forms = {"sweep_fwd": dict(ka.launches_by_form),
              "sweep_bwd": dict(kc.launches_by_form)}
-    steps = rec.steps
+    steps = list(rec.steps)
     top = max(s[1] for s in steps)
     top_steps = [s for s in steps if s[1] == top]
     steps_s = sum(s[2] for s in steps) / 1e3
@@ -2287,8 +2714,14 @@ def mpi_phase(torch, dev, tv, ka, kc, sweep_ops):
         f"between steps {timer.seconds} s; launches {launches}; K-F calls "
         f"by form {dict(tvr.counts)}")
     # One K-A and one K-C launch per step, two K-F launches per TV step
-    # (every step of this schedule): density and k0.
+    # (every step of this schedule): density and k0. Past 1.1 M voxels
+    # the steps draw 2D window classes.
+    kinds = collections.Counter(s[6] for s in steps)
+    classes = draw_classes(top_steps)
+    log(f"[phase 7] draws {dict(kinds)}; at {top} voxels by step key: "
+        f"{classes}")
     if not (len(steps) == FERN_ITERS and launches["sweep_fwd"] == FERN_ITERS
+            and kinds["window"] > 0 and set(kinds) <= {"plain", "window"}
             and launches["sweep_bwd"] == FERN_ITERS
             and launches["tv_add_grad"] == 2 * FERN_ITERS
             and sum(tvr.counts.values()) == 2 * FERN_ITERS
@@ -2297,7 +2730,7 @@ def mpi_phase(torch, dev, tv, ka, kc, sweep_ops):
                              f"{launches} (K-F by form {dict(tvr.counts)})")
     # Every step ran the instance of its channel count (11 at fern width)
     # of K-A and of K-C.
-    c = cap_a.calls[-1][0][0].shape[3]
+    c = next(iter(cap_a.forms.values()))[0][0].shape[3]
     inst = f" C={c if c in ka.CHANNEL_INSTANCES else 'generic'} "
     log(f"[phase 7] kernel forms launched: {forms}")
     for name, by_form in forms.items():
@@ -2351,6 +2784,13 @@ def mpi_phase(torch, dev, tv, ka, kc, sweep_ops):
                                              "sweep_fwd", "sweep_bwd"))
             log(f"[phase 7] trace of an MPI step with {tv_form} TV at the "
                 f"top grid: {profiles[f'{tv_form} TV']}")
+            plain, offs = rec.unwindowed(step)
+            profiles[f"{tv_form} TV, its batch over the clip box"] = \
+                profile_step(torch, plain, (a[0], a[1], offs), {},
+                             share_of=("tv_add_grad", "sweep_fwd",
+                                       "sweep_bwd"))
+            log(f"[phase 7] the same batch over the clip box: "
+                f"{profiles[f'{tv_form} TV, its batch over the clip box']}")
 
     # --render_test of the trained model: every test view per ray along z.
     data = load_everything(None, cfg)
@@ -2398,6 +2838,36 @@ def mpi_phase(torch, dev, tv, ka, kc, sweep_ops):
     view_ms = host_time(lambda: render_lib.render_viewpoints(
         model, data["poses"][[v]], data["HW"][[v]], data["Ks"][[v]], True,
         rk, verbose=False), 2)
+    # The same view per ray: in Morton-segment windows, and in plain chunks
+    # over the clip box (the windows' gate raised); tiles against chunks.
+    fn = render_lib.make_render_fn(model, rk)
+    rays_v = [x.reshape(-1, 3) for x in ray_lib.get_rays_of_a_view(
+        H, W, data["Ks"][v], data["poses"][v], True, False, False, False)]
+    view_ms_windowed = host_time(lambda: render_lib.render_rays_chunked(
+        fn, model, *rays_v, 8192), 2)
+    gate = render_lib.WINDOWED_RENDER_MIN_PLANE
+    render_lib.WINDOWED_RENDER_MIN_PLANE = 2 ** 62
+    try:
+        view_ms_chunks = host_time(lambda: render_lib.render_rays_chunked(
+            fn, model, *rays_v, 8192), 2)
+        rgb_chunks, _ = render_lib.render_rays_chunked(fn, model, *rays_v,
+                                                       8192)
+    finally:
+        render_lib.WINDOWED_RENDER_MIN_PLANE = gate
+    rgb_tiles, _ = render_lib.render_frame_ndc_tiles(
+        fn, model, H, W, data["Ks"][v], data["poses"][v], rk)
+    tiles_vs_chunks = {
+        "max_abs_diff": float(np.abs(rgb_tiles - rgb_chunks).max()),
+        "psnr": float(psnr(torch.as_tensor(rgb_tiles),
+                           torch.as_tensor(rgb_chunks)))}
+    view_trace = profile_step(
+        torch, lambda: render_lib.render_frame_ndc_tiles(
+            fn, model, H, W, data["Ks"][v], data["poses"][v], rk), (), {},
+        n_steps=1, share_of=("sweep_fwd",))
+    log(f"[phase 7] one {H}x{W} view: tiles {view_ms:.1f} ms, per ray in "
+        f"windows {view_ms_windowed:.1f} ms, per ray in plain chunks "
+        f"{view_ms_chunks:.1f} ms; tiles against chunks {tiles_vs_chunks}; "
+        f"trace of the tiles: {view_trace}")
     ro, rd, vd = (torch.as_tensor(x.reshape(-1, 3)[H * W // 2:][:8192],
                                   device=dev)
                   for x in ray_lib.get_rays_of_a_view(
@@ -2408,8 +2878,8 @@ def mpi_phase(torch, dev, tv, ka, kc, sweep_ops):
     chunk_trace = profile_step(
         torch, render_fn, (ro, rd, vd, 2, *clip), {},
         share_of=("sweep_fwd",))
-    log(f"[phase 7] one {H}x{W} view per ray: {view_ms:.1f} ms; trace of "
-        f"one 8192-ray render chunk: {chunk_trace}")
+    log(f"[phase 7] trace of one 8192-ray plain render chunk: "
+        f"{chunk_trace}")
     del model
 
     summary = {"config": "configs/synthetic/fixture_ndc_fern.py",
@@ -2423,22 +2893,30 @@ def mpi_phase(torch, dev, tv, ka, kc, sweep_ops):
                "black_psnr": black, "render_s": render_s,
                "render_checkpoint_reads_s": rtimer.seconds,
                "steps_s": steps_s, "between_steps_s": timer.seconds,
-               "view_ms": view_ms, "render_chunk_trace": chunk_trace,
+               "view_ms": view_ms, "view_ms_rays_windowed":
+               view_ms_windowed, "view_ms_rays_chunks": view_ms_chunks,
+               "tiles_vs_chunks": tiles_vs_chunks,
+               "view_tiles_trace": view_trace,
+               "render_chunk_trace": chunk_trace,
+               "draw_kinds": dict(kinds), "draw_classes_at_top": classes,
+               "bucket_build_s": timer.seconds.get("_build_segments"),
                "render_sweep_launches": render_launches,
                "tv_calls_by_form": dict(tvr.counts),
                "sweep_launches_by_form": forms,
                "step_traces": profiles}
+    summary["kernel_forms_checked"] = check_kernel_forms(
+        ka, kc, cap_ka, cap_kc, "NDC path")
     return mpi_kernel_checks(torch, tv, ka, kc, tvr, cap_a, cap_ar, cap_c,
-                             launches, render_launches,
-                             len(stats["psnr"])), summary
+                             render_launches, len(stats["psnr"])), summary
 
 
 def mpi_kernel_checks(torch, tv, ka, kc, tvr, cap_a, cap_ar, cap_c,
-                      launches, render_launches, n_views):
+                      render_launches, n_views):
     """Phase 7's kernel checks: each kernel of the NDC path against its
     plain version and timed, on the inputs of the run's calls."""
     entries = []
-    # K-F in every form the run launched, on the inputs of its last call.
+    # K-F in every form the run launched, most on the inputs of its last
+    # call.
     for form, (name, args, kw) in sorted(tvr.kept.items()):
         err, nums = tv_numbers(torch, tv, name, args, kw)
         log(f"[phase 7] K-F {form}: {nums}")
@@ -2447,27 +2925,27 @@ def mpi_kernel_checks(torch, tv, ka, kc, tvr, cap_a, cap_ar, cap_c,
              "source": "directvoxgo_tpu_torch/csrc/tv_add_grad.cu",
              "replaces": "directvoxgo_tpu/ops/tv.py:64 (_tv_rows_pallas)",
              "launches": tvr.counts[form], "max_abs_err": err}, **nums))
-    missing = set(tvr.counts) - set(tvr.kept)
-    if missing:
-        raise AssertionError(f"K-F forms {missing} ran, but not on the last "
-                             "dense or the last sparse step")
-    # K-A and K-C on the last step's inputs, K-A on the middle render chunk
+    # K-A and K-C on the last step of each path form (over the clip box, at
+    # the grids below 1.1 M voxels; a window box), K-A on the middle tile
     # of the last test view.
-    (slabs, a_rays, a_k, a_vb, a_wv), _ = cap_a.calls[-1]
-    slabs = slabs.detach()     # at k = 1 the slabs are the step's grid
-    err_a = check_sweep_rel(ka, slabs, a_rays, a_k, a_vb, a_wv,
-                            "MPI step, last step")
-    nums = fwd_numbers(torch, ka, slabs, a_rays, a_k, a_vb, a_wv)
-    log(f"[phase 7] K-A mpi step: {nums}")
-    entries.append(dict(
-        {"name": "sweep_fwd [mpi step]", "route": "cuda",
-         "source": "directvoxgo_tpu_torch/csrc/sweep_fwd.cu",
-         "replaces": "directvoxgo_tpu/ops/pallas_sweep_train.py:85",
-         "launches": launches["sweep_fwd"], "max_abs_err": err_a}, **nums))
+    names = {"step": "mpi step", "window step": "mpi window step"}
+    for form, (args, _) in cap_a.forms.items():
+        slabs, a_rays, a_k, a_vb, a_wv = args
+        slabs = slabs.detach()     # at k = 1 the slabs are the step's grid
+        err_a = check_sweep_rel(ka, slabs, a_rays, a_k, a_vb, a_wv,
+                                f"MPI {form}, last step")
+        nums = fwd_numbers(torch, ka, slabs, a_rays, a_k, a_vb, a_wv)
+        log(f"[phase 7] K-A {names[form.split(' ', 1)[1]]}: {nums}")
+        entries.append(dict(
+            {"name": f"sweep_fwd [{names[form.split(' ', 1)[1]]}]",
+             "route": "cuda",
+             "source": "directvoxgo_tpu_torch/csrc/sweep_fwd.cu",
+             "replaces": "directvoxgo_tpu/ops/pallas_sweep_train.py:85",
+             "launches": cap_a.counts[form], "max_abs_err": err_a}, **nums))
     r_slabs, r_rays, r_k = cap_ar.calls[len(cap_ar.calls) - 1 - len(
         cap_ar.calls) // (2 * n_views)][0]
     err_r = check_sweep_rel(ka, r_slabs, r_rays, r_k, None, 0,
-                            "MPI render chunk, middle of the last view")
+                            "MPI render tile, middle of the last view")
     nums = fwd_numbers(torch, ka, r_slabs, r_rays, r_k)
     log(f"[phase 7] K-A mpi render: {nums}")
     entries.append(dict(
@@ -2475,18 +2953,20 @@ def mpi_kernel_checks(torch, tv, ka, kc, tvr, cap_a, cap_ar, cap_c,
          "source": "directvoxgo_tpu_torch/csrc/sweep_fwd.cu",
          "replaces": "directvoxgo_tpu/ops/pallas_sweep_train.py:85",
          "launches": render_launches, "max_abs_err": err_r}, **nums))
-    (g, c_rays, c_k, c_shape, c_dtype, c_vb, c_wv), _ = cap_c.calls[-1]
-    err_c = check_bwd(kc, g, c_rays, c_k, c_shape, c_dtype, c_vb, c_wv,
-                      "MPI step, last step")
-    nums = bwd_numbers(torch, kc, g, c_rays, c_k, c_shape, c_dtype, c_vb,
-                       c_wv)
-    log(f"[phase 7] K-C mpi step: {nums}")
-    entries.append(dict(
-        {"name": "sweep_bwd [mpi step]", "route": "cuda",
-         "source": "directvoxgo_tpu_torch/csrc/sweep_bwd.cu",
-         "replaces": "directvoxgo_tpu/ops/pallas_sweep_train.py:247 "
-                     "(fold_bwd_partials :356)",
-         "launches": launches["sweep_bwd"], "max_abs_err": err_c}, **nums))
+    for form, (args, _) in cap_c.forms.items():
+        g, c_rays, c_k, c_shape, c_dtype, c_vb, c_wv = args
+        err_c = check_bwd(kc, g, c_rays, c_k, c_shape, c_dtype, c_vb, c_wv,
+                          f"MPI {form}, last step")
+        nums = bwd_numbers(torch, kc, g, c_rays, c_k, c_shape, c_dtype, c_vb,
+                           c_wv)
+        log(f"[phase 7] K-C {names[form.split(' ', 1)[1]]}: {nums}")
+        entries.append(dict(
+            {"name": f"sweep_bwd [{names[form.split(' ', 1)[1]]}]",
+             "route": "cuda",
+             "source": "directvoxgo_tpu_torch/csrc/sweep_bwd.cu",
+             "replaces": "directvoxgo_tpu/ops/pallas_sweep_train.py:247 "
+                         "(fold_bwd_partials :356)",
+             "launches": cap_c.counts[form], "max_abs_err": err_c}, **nums))
     return entries
 
 
@@ -2659,6 +3139,7 @@ def run(dev):
     errs.update(small_fused_checks(torch, dev, tf))
     errs["tv_add_grad"] = small_tv_checks(torch, dev, tv)
     errs["render_frame"] = small_frame_checks(torch, dev, kb)
+    errs["window"] = small_window_checks(torch, dev)
 
     from directvoxgo_tpu_torch import run as run_lib
     from directvoxgo_tpu_torch.config import Config
@@ -2829,9 +3310,11 @@ def run(dev):
             entry["small_shape_max_rel_err"] = errs["tv_add_grad"]
     # Phase 8: the frame-kernel harness (v1, v3, v4) and the op probe.
     harness_entries, training["harness"] = harness_phase(torch, dev, kb)
-    return kernels[:1] + train_entries[:4] + kernels[1:] \
-        + train_entries[4:] + fused_entries + mpi_entries \
-        + harness_entries, training
+    training["window_checks"] = errs["window"]
+    fwd = [e for e in train_entries if e["name"].startswith("sweep_fwd")]
+    return kernels[:1] + fwd + kernels[1:] \
+        + [e for e in train_entries if e not in fwd] + fused_entries \
+        + mpi_entries + harness_entries, training
 
 
 def frame_bound(f, stats):

@@ -1,13 +1,14 @@
 """Viewpoint rendering and evaluation.
 
-``render_viewpoints`` renders a list of poses: each view first tries the
-whole-frame camera sweep (:mod:`.render_sweep`, kernel K-B) and falls back
-to per-ray rendering (:func:`render_rays_chunked` over
+``render_viewpoints`` renders a list of poses: each perspective view first
+tries the whole-frame camera sweep (:mod:`.render_sweep`, kernel K-B) and
+falls back to per-ray rendering (:func:`render_rays_chunked` over
 ``DirectVoxGO.forward_sweep``, kernel K-A) when the sweep plan rejects the
-camera. NDC (forward-facing) views render per ray, every ray along the
-model's forced sweep axis (``DirectMPIGO.forward_sweep``, kernel K-A) in
-chunks over the occupancy clip box; the JAX package's 2D (u, v) windowed
-tiles are not ported (ROADMAP queue item 1).
+camera. NDC (forward-facing) views render along the model's forced sweep
+axis (``DirectMPIGO.forward_sweep``, kernel K-A): as pixel tiles, each a
+composed (bp, eu, ev) window of the clip box (:func:`render_frame_ndc_tiles`),
+else per ray in Morton-segment windows (:func:`_render_rays_windowed_2d`),
+else in chunks over the clip box.
 """
 
 from __future__ import annotations
@@ -27,6 +28,11 @@ from ..ops import sweep as sweep_ops
 
 def _round_up(x, m):
     return ((int(x) + m - 1) // m) * m
+
+
+# Least station-plane area (voxels) for the windowed NDC renders; below it
+# the windows' bookkeeping does not pay. Tests lower it to force them.
+WINDOWED_RENDER_MIN_PLANE = 128 * 128
 
 
 def write_png(path, img):
@@ -70,8 +76,15 @@ def make_render_fn(model, render_kwargs):
 def render_rays_chunked(render_fn, model, rays_o, rays_d, viewdirs, chunk):
     """Render a flat numpy ray list in fixed-size padded chunks, grouped by
     dominant axis (each chunk must share one; a model's
-    ``forced_sweep_axis`` takes every ray); results return in input order
-    as numpy arrays."""
+    ``forced_sweep_axis`` takes every ray, through the 2D windows of
+    :func:`_render_rays_windowed_2d` where they engage); results return in
+    input order as numpy arrays."""
+    forced = getattr(model, "forced_sweep_axis", None)
+    if forced is not None:
+        out = _render_rays_windowed_2d(render_fn, model, rays_o, rays_d,
+                                       viewdirs, chunk, int(forced))
+        if out is not None:
+            return out
     n = rays_o.shape[0]
     dev = model.device
     rgb_out = np.empty((n, 3), np.float32)
@@ -98,14 +111,271 @@ def render_rays_chunked(render_fn, model, rays_o, rays_d, viewdirs, chunk):
     return rgb_out, dep_out
 
 
+def _clip_box(model, axis):
+    """((bp, bu, bv), (bpo, buo, bvo), clipped?) of the model's clip box
+    along ``axis``, or the whole grid."""
+    csz, coff = model.sweep_clip_for_axis(axis)
+    if csz is not None:
+        return (tuple(int(x) for x in csz),
+                tuple(int(x) for x in np.asarray(coff)), True)
+    return (tuple(int(model.world_size[a]) for a in sweep_ops._PERMS[axis]),
+            (0, 0, 0), False)
+
+
+def _window_offsets(box, offs, eu, ev, ulo, vlo):
+    """[p, u, v] offsets of an (eu, ev) window at (ulo, vlo), shifted into
+    the clip box: the rows it then leaves out have an interpolated mask of
+    0, so the window stays exact."""
+    (bp, bu, bv), (bpo, buo, bvo) = box, offs
+    return np.asarray([bpo, min(max(int(ulo), buo), buo + bu - eu),
+                       min(max(int(vlo), bvo), bvo + bv - ev)], np.int32)
+
+
+def _render_rays_windowed_2d(render_fn, model, rays_o, rays_d, viewdirs,
+                             chunk, axis):
+    """Per-ray rendering of a forced-axis (MPI) model in 2D (u, v) windows.
+
+    A station of an MPI grid is a whole image plane, while the rays of one
+    Morton segment (:func:`..ops.sweep.build_ray_segments_2d` at
+    ``n_rand = chunk``) form an image tile with a compact footprint at
+    every depth: each segment renders as a composed (bp, Wu, Wv) window of
+    the clip box (exact: every interp row of its rays lies inside). The
+    rays are padded to whole chunks with copies of ray 0, which classify
+    like real rays. Returns ``(rgb, depth)`` numpy arrays, or None when the
+    plane is below ``WINDOWED_RENDER_MIN_PLANE`` or no segment gets a
+    window (the caller renders plain chunks).
+    """
+    perm = sweep_ops._PERMS[axis]
+    gu = int(model.world_size[perm[1]])
+    gv = int(model.world_size[perm[2]])
+    if gu * gv < WINDOWED_RENDER_MIN_PLANE:
+        return None
+    n = rays_o.shape[0]
+    pad = _round_up(max(n, 1), chunk) - n
+    ro, rd, vd = (np.concatenate([a, np.repeat(a[:1], pad, 0)]).astype(
+        np.float32) for a in (rays_o, rays_d, viewdirs))
+    box, offs, clipped = _clip_box(model, axis)
+    (bp, bu, bv), (bpo, buo, bvo) = box, offs
+    buckets = sweep_ops.build_ray_segments_2d(
+        ro, rd, model.xyz_min, model.xyz_max, model.world_size, axis,
+        n_rand=chunk, clip_box=(bpo, bpo + bp - 1, buo, buo + bu - 1,
+                                bvo, bvo + bv - 1) if clipped else None)
+
+    def eff(k):
+        return (k[0] if 0 < k[0] < bu else bu, k[1] if 0 < k[1] < bv else bv)
+
+    if all(k == (0, 0) or eff(k) == (bu, bv) for k in buckets):
+        return None
+    dev = model.device
+    outs = []
+    for key in sorted(buckets):
+        idx, ulo, vlo = buckets[key]
+        eu, ev = eff(key)
+        windowed = key != (0, 0) and (eu, ev) != (bu, bv)
+        for s in range(idx.shape[0]):
+            if windowed:
+                sizes = (bp, eu, ev)
+                off = _window_offsets(box, offs, eu, ev, ulo[s], vlo[s])
+            else:
+                sizes = box if clipped else None
+                off = np.asarray(offs, np.int32)
+            t = lambda a: torch.as_tensor(a[idx[s]], device=dev)  # noqa
+            outs.append((idx[s], render_fn(t(ro), t(rd), t(vd), axis, sizes,
+                                           off)))
+    rgb_out = np.empty((len(ro), 3), np.float32)
+    dep_out = np.empty((len(ro),), np.float32)
+    for sel, (rgb, dep) in outs:    # one sync, after every launch
+        rgb_out[sel] = rgb.cpu().numpy()
+        dep_out[sel] = dep.cpu().numpy()
+    return rgb_out[:n], dep_out[:n]
+
+
+def rays_of_view_ndc(K, c2w, H, W, inverse_y, flip_x, flip_y, device):
+    """The NDC rays of a view, made on ``device`` in f32 with the formulas
+    of :func:`..rays.get_rays_of_a_view` (center pixels): (rays_o, rays_d,
+    viewdirs), each [H * W, 3]."""
+    K = torch.as_tensor(np.asarray(K, np.float32), device=device)
+    c2w = torch.as_tensor(np.asarray(c2w, np.float32), device=device)
+    j, i = torch.meshgrid(
+        torch.arange(H, dtype=torch.float32, device=device),
+        torch.arange(W, dtype=torch.float32, device=device), indexing="ij")
+    i, j = i + 0.5, j + 0.5
+    if flip_x:
+        i = i.flip(1)
+    if flip_y:
+        j = j.flip(0)
+    if inverse_y:
+        dirs = torch.stack([(i - K[0, 2]) / K[0, 0], (j - K[1, 2]) / K[1, 1],
+                            torch.ones_like(i)], -1)
+    else:
+        dirs = torch.stack([(i - K[0, 2]) / K[0, 0],
+                            -(j - K[1, 2]) / K[1, 1], -torch.ones_like(i)],
+                           -1)
+    rays_d = dirs @ c2w[:3, :3].T
+    rays_o = c2w[:3, 3].expand(rays_d.shape)
+    viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+    focal, near = K[0, 0], 1.0
+    t = -(near + rays_o[..., 2]) / rays_d[..., 2]
+    ro = rays_o + t[..., None] * rays_d
+    o0 = -1.0 / (W / (2.0 * focal)) * ro[..., 0] / ro[..., 2]
+    o1 = -1.0 / (H / (2.0 * focal)) * ro[..., 1] / ro[..., 2]
+    o2 = 1.0 + 2.0 * near / ro[..., 2]
+    d0 = -1.0 / (W / (2.0 * focal)) * (rays_d[..., 0] / rays_d[..., 2]
+                                       - ro[..., 0] / ro[..., 2])
+    d1 = -1.0 / (H / (2.0 * focal)) * (rays_d[..., 1] / rays_d[..., 2]
+                                       - ro[..., 1] / ro[..., 2])
+    d2 = -2.0 * near / ro[..., 2]
+    return (torch.stack([o0, o1, o2], -1).reshape(-1, 3),
+            torch.stack([d0, d1, d2], -1).reshape(-1, 3),
+            viewdirs.reshape(-1, 3))
+
+
+def render_frame_ndc_tiles(render_fn, model, H, W, K, c2w, rk, chunk=8192,
+                           tile_hw=(64, 128),
+                           widths=(32, 48, 64, 96, 128)):
+    """Whole-frame NDC (forced-axis MPI) render as pixel tiles.
+
+    The rays are made on the device (:func:`rays_of_view_ndc`) and cut
+    into ``tile_hw`` tiles (the frame edge-padded to whole tiles); each
+    tile renders through ``render_fn`` as a composed (bp, eu, ev) window
+    of the clip box. A tile's window comes from its extreme pixel-centre
+    rays: along a tile edge the plane coordinate is a Moebius function of
+    the pixel index (NDC rays are projective in (i, j)), so the extremes
+    sit at the four corners, and along a ray it is linear in t, so they
+    sit at the clip box's p faces: 4 corners x 2 faces bound every interp
+    row (with the margins of :func:`..ops.sweep.build_ray_segments_2d`).
+    Window extents snap up to ``widths`` (else the box's extent). Every
+    tile's result stays on the device until one copy at the end.
+
+    Returns flat ``(rgb [H*W, 3], depth [H*W])`` numpy arrays, or None
+    when the model has no forced sweep axis or its plane is below
+    ``WINDOWED_RENDER_MIN_PLANE``.
+    """
+    axis = getattr(model, "forced_sweep_axis", None)
+    if axis is None:
+        return None
+    perm = sweep_ops._PERMS[axis]
+    gu = int(model.world_size[perm[1]])
+    gv = int(model.world_size[perm[2]])
+    if gu * gv < WINDOWED_RENDER_MIN_PLANE:
+        return None
+    th, tw = tile_hw
+    assert th * tw == chunk
+    nth, ntw = -(-H // th), -(-W // tw)
+    hp, wp = nth * th, ntw * tw
+    box, offs, clipped = _clip_box(model, axis)
+    (bp, bu, bv), (bpo, buo, bvo) = box, offs
+
+    # host: per-tile windows from the 4 corner pixel-centre rays (edge
+    # tiles clamp their pixel indices, as the padding does)
+    r0 = np.arange(nth) * th
+    r1 = np.minimum(r0 + th - 1, H - 1)
+    c0 = np.arange(ntw) * tw
+    c1 = np.minimum(c0 + tw - 1, W - 1)
+    jj = np.broadcast_to(
+        np.stack([r0, r1], 1)[:, None, :, None].astype(np.float64),
+        (nth, ntw, 2, 2)) + 0.5
+    ii = np.broadcast_to(
+        np.stack([c0, c1], 1)[None, :, None, :].astype(np.float64),
+        (nth, ntw, 2, 2)) + 0.5
+    inverse_y = bool(rk.get("inverse_y", False))
+    flip_x = bool(rk.get("flip_x", False))
+    flip_y = bool(rk.get("flip_y", False))
+    if flip_x:
+        ii = W - ii
+    if flip_y:
+        jj = H - jj
+    Kh = np.asarray(K, np.float64)
+    c2wh = np.asarray(c2w, np.float64)
+    if inverse_y:
+        dirs = np.stack([(ii - Kh[0, 2]) / Kh[0, 0],
+                         (jj - Kh[1, 2]) / Kh[1, 1], np.ones_like(ii)], -1)
+    else:
+        dirs = np.stack([(ii - Kh[0, 2]) / Kh[0, 0],
+                         -(jj - Kh[1, 2]) / Kh[1, 1], -np.ones_like(ii)], -1)
+    rd = dirs @ c2wh[:3, :3].T
+    ro = np.broadcast_to(c2wh[:3, 3], rd.shape)
+    focal = Kh[0, 0]
+    t_sh = -(1.0 + ro[..., 2]) / rd[..., 2]
+    ros = ro + t_sh[..., None] * rd
+    o_ndc = np.stack([-1.0 / (W / (2.0 * focal)) * ros[..., 0] / ros[..., 2],
+                      -1.0 / (H / (2.0 * focal)) * ros[..., 1] / ros[..., 2],
+                      1.0 + 2.0 / ros[..., 2]], -1)
+    d_ndc = np.stack([
+        -1.0 / (W / (2.0 * focal)) * (rd[..., 0] / rd[..., 2]
+                                      - ros[..., 0] / ros[..., 2]),
+        -1.0 / (H / (2.0 * focal)) * (rd[..., 1] / rd[..., 2]
+                                      - ros[..., 1] / ros[..., 2]),
+        -2.0 / ros[..., 2]], -1)
+    xyz_min = np.asarray(model.xyz_min, np.float64)
+    xyz_max = np.asarray(model.xyz_max, np.float64)
+    ws = np.asarray(model.world_size, np.float64)
+    scale = [(ws[a] - 1.0) / (xyz_max[a] - xyz_min[a]) for a in perm]
+    op_, ou_, ov_ = ((o_ndc[..., a] - xyz_min[a]) * sc
+                     for a, sc in zip(perm, scale))
+    dp_, du_, dv_ = (d_ndc[..., a] * sc for a, sc in zip(perm, scale))
+    dp_ = np.where(np.abs(dp_) < 1e-10, 1e-10, dp_)
+    t0 = (float(bpo) - op_) / dp_
+    t1 = (float(bpo + bp - 1) - op_) / dp_
+    guard = sweep_ops.SEG_GUARD
+    u_ends = np.clip(np.stack([ou_ + t0 * du_, ou_ + t1 * du_]),
+                     buo - 1.0, float(buo + bu))
+    v_ends = np.clip(np.stack([ov_ + t0 * dv_, ov_ + t1 * dv_]),
+                     bvo - 1.0, float(bvo + bv))
+    red = (0, 3, 4)        # the two faces, the four corners
+    u0t = np.maximum(0, np.floor(u_ends.min(axis=red) - guard))
+    u1t = np.minimum(gu - 1, np.floor(u_ends.max(axis=red) + guard) + 1)
+    v0t = np.maximum(0, np.floor(v_ends.min(axis=red) - guard))
+    v1t = np.minimum(gv - 1, np.floor(v_ends.max(axis=red) + guard) + 1)
+
+    def snap(need, extent):
+        out = np.full(need.shape, extent, np.int64)
+        for w in sorted((w for w in widths if w < extent), reverse=True):
+            out = np.where(need <= w, w, out)
+        return out
+
+    eu_t = snap((u1t - u0t + 1).astype(np.int64), bu)
+    ev_t = snap((v1t - v0t + 1).astype(np.int64), bv)
+
+    # device: rays once, cut into tiles by index (edge rows and columns
+    # repeat into the padding)
+    dev = model.device
+    rays = rays_of_view_ndc(K, c2w, H, W, inverse_y, flip_x, flip_y, dev)
+    rows = torch.clamp(torch.arange(hp, device=dev), max=H - 1)
+    cols = torch.clamp(torch.arange(wp, device=dev), max=W - 1)
+    pix = (rows[:, None] * W + cols[None, :]).reshape(
+        nth, th, ntw, tw).permute(0, 2, 1, 3).reshape(nth * ntw, chunk)
+    ro_t, rd_t, vd_t = (a[pix] for a in rays)
+    rgbs, deps = [], []
+    for k in range(nth * ntw):
+        ti, tj = divmod(k, ntw)
+        eu, ev = int(eu_t[ti, tj]), int(ev_t[ti, tj])
+        if (eu, ev) == (bu, bv):
+            sizes = box if clipped else None
+            off = np.asarray(offs, np.int32)
+        else:
+            sizes = (bp, eu, ev)
+            off = _window_offsets(box, offs, eu, ev, u0t[ti, tj],
+                                  v0t[ti, tj])
+        rgb, dep = render_fn(ro_t[k], rd_t[k], vd_t[k], axis, sizes, off)
+        rgbs.append(rgb)
+        deps.append(dep)
+    rgb = torch.stack(rgbs).reshape(nth, ntw, th, tw, 3).permute(
+        0, 2, 1, 3, 4).reshape(hp, wp, 3)[:H, :W]
+    dep = torch.stack(deps).reshape(nth, ntw, th, tw).permute(
+        0, 2, 1, 3).reshape(hp, wp)[:H, :W]
+    return (rgb.reshape(-1, 3).cpu().numpy(), dep.reshape(-1).cpu().numpy())
+
+
 def render_viewpoints(model, render_poses, HW, Ks, ndc, render_kwargs,
                       gt_imgs=None, savedir=None, render_factor=0,
                       eval_ssim=False, chunk=8192, flip_x=False,
                       flip_y=False, verbose=True):
     """Render a list of poses; compute PSNR (and SSIM) against ``gt_imgs``
     when given; write PNGs to ``savedir``. Returns (rgbs, depths, stats);
-    ``stats["path"]`` names each view's path: "frame" (the camera sweep)
-    or "rays" (per ray: the fallback, and every NDC view).
+    ``stats["path"]`` names each view's path: "frame" (the camera sweep),
+    "tiles" (an NDC view as windowed pixel tiles) or "rays" (per ray: the
+    fallback of both).
     """
     assert len(render_poses) == len(HW) and len(HW) == len(Ks)
     if render_factor != 0:
@@ -118,11 +388,16 @@ def render_viewpoints(model, render_poses, HW, Ks, ndc, render_kwargs,
     for i, c2w in enumerate(render_poses):
         H, W = (int(x) for x in HW[i])
         K = Ks[i]
-        out = None if ndc else render_sweep_lib.render_frame_sweep(
-            model, H, W, np.asarray(K), np.asarray(c2w), render_kwargs)
+        if ndc:
+            out = render_frame_ndc_tiles(
+                render_fn, model, H, W, np.asarray(K), np.asarray(c2w),
+                {**render_kwargs, "flip_x": flip_x, "flip_y": flip_y})
+        else:
+            out = render_sweep_lib.render_frame_sweep(
+                model, H, W, np.asarray(K), np.asarray(c2w), render_kwargs)
         if out is not None:
             rgb, depth = out
-            paths.append("frame")
+            paths.append("tiles" if ndc else "frame")
         else:
             rays_o, rays_d, viewdirs = ray_lib.get_rays_of_a_view(
                 H, W, K, c2w, ndc, inverse_y=render_kwargs["inverse_y"],

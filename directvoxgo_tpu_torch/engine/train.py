@@ -2,40 +2,40 @@
 
 One stage (:func:`scene_rep_reconstruction`) builds the model and its
 MaskedAdam, gathers the training rays into a pool on the device, and runs
-the step loop: every step draws an index batch of rays that share a
-dominant axis, renders it through the station sweep (kernel K-A),
+the step loop: every step draws an index batch of rays that share a sweep
+axis (:mod:`.draws`), renders it through the station sweep (kernel K-A),
 backpropagates (kernel K-C under ``station_sweep``'s backward) and updates
 the parameters in place. Around the steps it keeps the schedule of the JAX
 package's engine: per-voxel learning rates from the view count, the
 occupancy clip box with its hysteresis, mask renewal, progressive scaling
 with a fresh optimizer, TV state flips, progress lines and checkpoints.
 
+The draws are the JAX engine's default ones (:mod:`.draws`): on grids of
+more than 1.1 M voxels (or with ``steps_per_dispatch`` 1) a batch is one
+spatially sorted segment of one window class, trained as a composed clip
+box (``(bp, eu, ev)``) or as per-p-block windows (``('blk', B, eu, ev)``).
 PyTorch runs eagerly, so there is nothing to compile ahead of a step and no
 remote dispatch to hide: the JAX engine's precompile queue, compile epochs,
-step batching and guarded fetches have no counterpart here. Batches are
-drawn uniformly within an axis group; the spatial window buckets of the JAX
-engine (its ``bucket_tiles`` draws) are not ported yet.
+background sorts, step batching and guarded fetches have no counterpart
+here; every window class is drawable from the first step.
 
 With ``DVGO_FUSED_TRAIN`` set (:func:`..ops.train_fused.fused_enabled`) a
 stage whose model supports it trains through the fused step (kernels K-D
 and K-E) instead: each axis group is cut into same-class, direction-uniform
 512-ray tiles over the clip box
 (:func:`..ops.sweep.build_ray_tiles_blocktile`), a batch is ``N_rand / 512``
-tiles of one class, drawn in proportion to the class's ray count, and tiles
-no class covers train through the unfused step. The tiles are built in
-line, when a draw first meets a new grid or clip box.
+tiles of one class, drawn in proportion to the class's ray count; tiles no
+class covers train through the unfused step, re-bucketed into windows
+where windows engage.
 
 Forward-facing (NDC) configs train :class:`..models.dmpigo.DirectMPIGO`,
 whose rays all sweep along z (``forced_sweep_axis``); its LLFF schedule
 adds the TV gradient on every step (kernel K-F: dense over the whole grid,
-sparse over the whole grid, or sparse over the drawn clip box).
+sparse over the whole grid, or sparse over the drawn box).
 
-Not ported yet from the JAX engine: the spatial window buckets and segment
-draws (``bucket_tiles``, ``build_ray_segments(_2d|_blocked)``, the blocked
-step and the 2D (u, v) windowed MPI draws; ROADMAP queue item 1), step
-batching (item 2), the gather forward and the exact view count (item 3),
-the re-bucketing of the fused trainer's remainder (item 1),
-``--data_parallel`` (item 6), and the profiling and export flags.
+Not ported yet from the JAX engine: step batching (ROADMAP queue item 2),
+the gather forward and the exact view count (item 3), ``--data_parallel``
+(item 6), and the profiling and export flags.
 """
 
 from __future__ import annotations
@@ -54,10 +54,10 @@ from ..models.dmpigo import DirectMPIGO
 from ..models.dvgo import DirectVoxGO
 from ..ops import grid as grid_ops
 from ..ops import sweep as sweep_ops
-from ..ops import train_fused as fused_ops
 from ..ops import tv as tv_ops
 from ..optim import MaskedAdam
 from . import checkpoint as ckpt_lib
+from .draws import Draws
 
 
 def compute_bbox_by_cam_frustrm(cfg, HW, Ks, poses, i_train, near, far,
@@ -158,9 +158,13 @@ def make_train_step(model, optimizer, cfg_train, render_kwargs,
     reads nothing outside the box and ``skip_zero_grad`` leaves untouched
     voxels alone. Plain Adam decays moments everywhere, so those steps keep
     full-size gradients (zero outside the box) and a full-grid update.
-    ``wv > 0`` passes ``(v_base, wv)`` ray-tile windows to unclipped sweeps;
-    :func:`scene_rep_reconstruction` never sets it (its draws ride the clip
-    box), so it waits for a caller that draws window buckets.
+    A window draw is an ordinary ``clip_sizes`` box, ``(bp, eu, ev)`` at
+    the drawn offsets. ``clip_sizes = ('blk', B, eu, ev)`` selects the
+    blocked step: B per-p-block windowed sub-sweeps of the whole grid
+    (:meth:`DirectVoxGO.forward_sweep`'s ``block_windows``) whose (u, v)
+    starts arrive as ``clip_off`` [B, 2]; it keeps full-size gradients.
+    ``wv > 0`` passes ``(v_base, wv)`` ray-tile windows to unclipped
+    sweeps (no engine draw sets it; the window draws ride the clip box).
 
     ``clip_sizes = ('fblk', wu, wv, bp, bu, bv)`` selects the fused step
     (:meth:`DirectVoxGO.forward_sweep_fused`, kernels K-D and K-E) over the
@@ -172,7 +176,10 @@ def make_train_step(model, optimizer, cfg_train, render_kwargs,
     if axis is None:
         raise NotImplementedError(
             "only the sweep train step is ported (ROADMAP A: gather forward)")
-    fused, fused_win = False, None
+    fused, fused_win, blocked = False, None, None
+    if clip_sizes is not None and clip_sizes[0] == "blk":
+        blocked = tuple(int(x) for x in clip_sizes[1:])     # (B, eu, ev)
+        clip_sizes = None
     if clip_sizes is not None and clip_sizes[0] == "fblk":
         wu_f, wv_f = int(clip_sizes[1]), int(clip_sizes[2])
         fused_win = (wu_f, wv_f) if (wu_f or wv_f) else None
@@ -221,6 +228,10 @@ def make_train_step(model, optimizer, cfg_train, render_kwargs,
                 ret = model.forward_sweep_fused(
                     rays_o, rays_d, viewdirs, axis, target, grids=grids,
                     clip_offsets=clip_off, window=fused_win, **kwargs)
+            elif blocked is not None:
+                ret = model.forward_sweep(
+                    rays_o, rays_d, viewdirs, axis, block_windows=(
+                        blocked, (clip_off[:, 0], clip_off[:, 1])), **kwargs)
             else:
                 ret = model.forward_sweep(
                     rays_o, rays_d, viewdirs, axis, clip_sizes=clip_sizes,
@@ -386,110 +397,11 @@ def scene_rep_reconstruction(args, cfg, cfg_model, cfg_train, xyz_min,
 
     pool = {"rgb": to_dev(rgb_tr), "rays_o": to_dev(rays_o_tr),
             "rays_d": to_dev(rays_d_np), "viewdirs": to_dev(viewdirs_tr)}
-    n_rand = int(cfg_train.N_rand)
     rng = np.random.default_rng(getattr(args, "seed", 777))
-
-    # Group the pool by each ray's dominant axis so that every batch shares
-    # one sweep axis (MPI grids: every ray to z); the axis of a step is
-    # drawn with probability proportional to its group's size.
-    groups = sweep_ops.sweep_axes(model, rays_d_np)
-    group_idx = [np.flatnonzero(groups == ax) for ax in range(3)]
-    group_p = np.array([len(g) for g in group_idx], np.float64)
-    group_p = group_p / group_p.sum()
-    print("gather_training_rays: sweep axis groups",
-          [len(g) for g in group_idx])
-    group_gens = []
-    for g in group_idx:
-        if len(g) >= n_rand:
-            gen = ray_lib.batch_indices_generator(len(g), n_rand, rng=rng)
-            group_gens.append(lambda g=g, gen=gen: g[np.asarray(next(gen))])
-        elif len(g) > 0:
-            group_gens.append(
-                lambda g=g: g[rng.integers(0, len(g), n_rand)])
-        else:
-            group_gens.append(None)
-
-    # Fused-step tile buckets: axis -> (what they were built for, {('fblk',
-    # wu, wv, sign): pool indices [n_tiles, 512]} or None). Rebuilt in line
-    # when the grid or the clip plan changed since.
-    fused_tiles = (n_rand % fused_ops.NT == 0
-                   and fused_ops.fused_enabled(device)
-                   and model.supports_fused_step())
-    buckets = {}
-    rays_o_np = np.asarray(rays_o_tr).reshape(-1, 3) if fused_tiles else None
-
-    def fused_box(ax):
-        """The box a fused step of axis ``ax`` runs over: the clip box, or
-        the whole grid at zero offsets."""
-        csz, coff = clip_plan[ax]
-        if csz is not None:
-            return tuple(int(x) for x in csz), np.asarray(coff, np.int32)
-        return (tuple(int(model.world_size[a]) for a in sweep_ops._PERMS[ax]),
-                np.zeros(3, np.int32))
-
-    def tile_buckets(ax):
-        (bp, bu, bv), offs = fused_box(ax)
-        built_for = (tuple(model.world_size), (bp, bu, bv),
-                     tuple(int(o) for o in offs))
-        if ax in buckets and buckets[ax][0] == built_for:
-            return buckets[ax][1]
-        g = group_idx[ax]
-        keep = {}
-        if len(g) >= n_rand:
-            t0 = time.time()
-            box6 = None
-            if clip_plan[ax][0] is not None:
-                box6 = tuple(float(x) for o, b in zip(offs, (bp, bu, bv))
-                             for x in (o, o + b - 1))
-            tiles = sweep_ops.build_ray_tiles_blocktile(
-                rays_o_np[g], rays_d_np[g], model.xyz_min, model.xyz_max,
-                tuple(int(x) for x in model.world_size), ax, near, far,
-                cfg_model.stepsize, nt=fused_ops.NT, clip_box=box6)
-            fdim = model.k0_dim if model.rgbnet_direct else model.k0_dim - 3
-            rest = []
-            for kk, idx in tiles.items():
-                if idx.shape[0] == 0:
-                    continue
-                # a class the fused step does not take trains unfused
-                if kk[:2] == (0, 0) or fused_ops.fused_available(
-                        n_rand, bu, bv, fdim, int(model.rgbnet_width),
-                        float(model.fast_color_thres),
-                        int(model.rgbnet_depth), wu=int(kk[0]),
-                        wv=int(kk[1]), device=device):
-                    keep[("fblk", *kk)] = g[idx]
-                else:
-                    rest.append(g[idx])
-            rk0 = ("fblk", 0, 0, 0)
-            if rest:
-                keep[rk0] = np.concatenate(rest + ([keep[rk0]] if rk0 in keep
-                                                   else []), axis=0)
-            n_tiled = sum(v.size for v in keep.values())
-            print(f"scene_rep_reconstruction ({stage}): fused tiles axis "
-                  f"{ax}, box {(bp, bu, bv)}: "
-                  f"{ {k[1:]: int(v.shape[0]) for k, v in keep.items()} } "
-                  f"tiles per class, remainder "
-                  f"{keep[rk0].size / n_tiled if rk0 in keep else 0.0:.3f} "
-                  f"of rays, built in {time.time() - t0:.1f} s")
-        buckets[ax] = (built_for, keep or None)
-        return buckets[ax][1]
-
-    def next_batch(no_window=False):
-        """(pool indices, axis, fused step key or None)."""
-        ax = int(rng.choice(3, p=group_p))
-        bk = tile_buckets(ax) if fused_tiles and not no_window else None
-        if not bk or all(k[1:] == (0, 0, 0) for k in bk):
-            return group_gens[ax](), ax, None
-        keys = list(bk)
-        counts = np.asarray([bk[k].size for k in keys], np.float64)
-        kk = keys[int(rng.choice(len(keys), p=counts / counts.sum()))]
-        idx = bk[kk]
-        n_draw = n_rand // fused_ops.NT
-        rows = rng.choice(idx.shape[0], size=n_draw,
-                          replace=idx.shape[0] < n_draw)
-        sel = idx[rows].reshape(-1)
-        if kk[1:] == (0, 0, 0):      # remainder tiles: the unfused step
-            return sel, ax, None
-        return sel, ax, ("fblk", kk[1], kk[2], *fused_box(ax)[0])
+    # Occupancy-bbox sweep clipping: refreshed when the mask changes.
+    clip_plan = {}   # axis -> (sizes or None, offsets int32[3])
+    draws = Draws(model, cfg_train, cfg_model, rays_o_tr, rays_d_np, near,
+                  far, rng, clip_plan, device, stage)
 
     # View-count-based per-voxel lr; voxels seen by at most two views are
     # switched off.
@@ -505,9 +417,6 @@ def scene_rep_reconstruction(args, cfg, cfg_model, cfg_train, xyz_min,
             model.density.masked_fill_(cnt <= 2, -100.0)
         print(f"scene_rep_reconstruction ({stage}): voxel_count_views in "
               f"{time.time() - t0:.1f} s")
-
-    # Occupancy-bbox sweep clipping: refreshed when the mask changes.
-    clip_plan = {}   # axis -> (sizes or None, offsets int32[3])
 
     def refresh_clip():
         bb = grid_ops.mask_bbox_vox_device(model.mask).cpu().numpy()
@@ -528,6 +437,7 @@ def scene_rep_reconstruction(args, cfg, cfg_model, cfg_train, xyz_min,
             clip_plan[ax] = new
 
     refresh_clip()
+    draws.set_grid()
     pg_set = set(cfg_train.pg_scale)
 
     def tv_state_of(j):
@@ -567,16 +477,15 @@ def scene_rep_reconstruction(args, cfg, cfg_model, cfg_train, xyz_min,
             train_steps = {}
             clip_plan.clear()
             refresh_clip()
+            draws.set_grid()
 
         if tv_state != tv_state_of(global_step):
             tv_state = tv_state_of(global_step)
             train_steps = {}
 
-        # TV steps draw unwindowed: they need full-size gradients.
-        sel, axis, fused_key = next_batch(no_window=tv_state[0])
-        clip_sizes, clip_off = clip_plan[axis]
-        if fused_key is not None:
-            clip_sizes, clip_off = fused_key, fused_box(axis)[1]
+        sel, axis, clip_sizes, clip_off = draws.next_batch(tv_state[0])
+        if clip_sizes is None:
+            clip_sizes, clip_off = clip_plan[axis]
         key = (axis, clip_sizes)
         if key not in train_steps:
             train_steps[key] = make_train_step(

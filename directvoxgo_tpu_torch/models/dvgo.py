@@ -30,6 +30,10 @@ def _round_up(x, m):
     return ((int(x) + m - 1) // m) * m
 
 
+# Clip boxes whose station slabs the render cache keeps beside the grid's.
+SLAB_BOXES_KEPT = 4
+
+
 class DirectVoxGO(nn.Module):
     """Per-scene voxel-grid radiance field.
 
@@ -394,21 +398,33 @@ class DirectVoxGO(nn.Module):
     def _sweep_slabs(self, axis, k, clip_sizes, clip_offsets):
         """Station slabs [S, Gu, Gv, 2 + k0_dim] (density, mask, k0) of a
         sweep along ``axis`` over the clip box (or the whole grid), in
-        ``sweep_dtype``; the render path's cache (no gradient), built once
-        per view direction class, not per ray chunk."""
-        offs = (None if clip_sizes is None
-                else tuple(int(v) for v in np.asarray(clip_offsets)))
-        key = (axis, k, self.sweep_dtype, clip_sizes, offs)
+        ``sweep_dtype``; the render path's cache (no gradient). The whole
+        grid's slabs are built once per axis; a box's are a copy of their
+        slice (a station blends the same two slabs either way), and the
+        last ``SLAB_BOXES_KEPT`` boxes stay cached, so that the chunks of
+        a view share one copy and the windows of a tiled view do not pile
+        up."""
         cache = self.grid_cache("sweep_slabs")
-        if key in cache:
-            return cache[key]
-        with torch.no_grad():
-            grid_cat = self._stacked_grids(self.density, self.k0, self.mask,
-                                           axis, clip_sizes, offs)
-            cache[key] = sweep_ops._station_slabs(
-                sweep_ops.permute_grid(grid_cat, axis,
-                                       dtype=self.sweep_dtype),
-                k).contiguous()
+        whole = (axis, k, self.sweep_dtype)
+        if whole not in cache:
+            with torch.no_grad():
+                grid_cat = self._stacked_grids(
+                    self.density, self.k0, self.mask, axis, None, None)
+                cache[whole] = sweep_ops._station_slabs(
+                    sweep_ops.permute_grid(grid_cat, axis,
+                                           dtype=self.sweep_dtype),
+                    k).contiguous()
+        if clip_sizes is None:
+            return cache[whole]
+        (p0, u0, v0) = (int(v) for v in np.asarray(clip_offsets))
+        bp, bu, bv = (int(v) for v in clip_sizes)
+        key = whole + ((bp, bu, bv), (p0, u0, v0))
+        if key not in cache:
+            boxes = [kk for kk in cache if len(kk) == 5]
+            for old in boxes[:len(boxes) + 1 - SLAB_BOXES_KEPT]:
+                del cache[old]
+            cache[key] = cache[whole][p0 * k: (p0 + bp - 1) * k + 1,
+                                      u0: u0 + bu, v0: v0 + bv].contiguous()
         return cache[key]
 
     def _stacked_grids(self, density, k0, mask_g, axis, clip_sizes, offs):
@@ -427,7 +443,8 @@ class DirectVoxGO(nn.Module):
     def forward_sweep(self, rays_o, rays_d, viewdirs, axis, *, near, far, bg,
                       stepsize, render_depth=False, clip_sizes=None,
                       clip_offsets=None, grids_pre_clipped=False,
-                      tile_windows=None, grids=None, **_):
+                      tile_windows=None, block_windows=None, grids=None,
+                      **_):
         """Station-sweep volume rendering of a ray batch whose rays share
         the dominant ``axis``: density, mask and colour features are swept
         in one pass (kernel K-A), composited with early termination, and the
@@ -441,7 +458,10 @@ class DirectVoxGO(nn.Module):
         module's own tensors; with ``grids_pre_clipped`` they are already
         the clip box (xyz order), so their gradients stay box-sized (the
         region-sliced train step). ``tile_windows`` = (v_base, wv):
-        per-ray-tile v-windows of an unclipped sweep.
+        per-ray-tile v-windows of an unclipped sweep. ``block_windows`` =
+        ((B, wu, wv), (u_off, v_off)): per-p-block (u, v) windows of an
+        unclipped sweep (:func:`..ops.sweep.sweep_samples_blocked`, the
+        blocked train step), read from the grids with gradients.
 
         Returns a dict with ``rgb_marched [N, 3]``, ``alphainv_last [N]``,
         ``weights``, ``raw_alpha``, ``raw_rgb_cl``, ``wmask`` and optionally
@@ -452,7 +472,15 @@ class DirectVoxGO(nn.Module):
             clip_sizes=clip_sizes,
             clip_offsets=None if clip_sizes is None else clip_offsets,
             world_size=tuple(self.world_size))
-        if grids is None and not torch.is_grad_enabled():
+        if block_windows is not None and clip_sizes is None:
+            density, k0, mask_g = grids if grids is not None else (
+                self.density, self.k0, self.mask)
+            block_sizes, (u_off, v_off) = block_windows
+            out = sweep_ops.sweep_samples_blocked(
+                self._stacked_grids(density, k0, mask_g, axis, None, None),
+                rays_o, rays_d, self.xyz_min, self.xyz_max, axis, k,
+                block_sizes, u_off, v_off, interp_dtype=self.sweep_dtype)
+        elif grids is None and not torch.is_grad_enabled():
             out = sweep_ops.sweep_samples(
                 None, rays_o, rays_d, self.xyz_min, self.xyz_max, axis, k,
                 slabs=self._sweep_slabs(axis, k, clip_sizes, clip_offsets),

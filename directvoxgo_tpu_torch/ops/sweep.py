@@ -193,6 +193,39 @@ def sweep_samples(grid, rays_o, rays_d, xyz_min, xyz_max, axis, k,
             "p_offset": p_offset}
 
 
+def sweep_samples_blocked(grid, rays_o, rays_d, xyz_min, xyz_max, axis, k,
+                          block_sizes, u_off, v_off,
+                          interp_dtype=torch.bfloat16):
+    """Blocked sweep: B composed clip-box sub-sweeps, concatenated along S.
+
+    The station range is split into the p-blocks of
+    :func:`blocked_p_rows`; block b sweeps only the (rows_b + 1, Wu, Wv)
+    sub-box at its (u, v) offsets ``u_off[b]``, ``v_off[b]`` (ints, from
+    :func:`build_ray_segments_blocked`), one K-A launch forward and one
+    K-C launch backward each. ``block_sizes`` = (B, wu, wv); 0 means the
+    full extent. Returns the dict of :func:`sweep_samples`, with each
+    non-final block's boundary station dropped, so that the stations tile
+    [0, Gp-1] exactly once.
+    """
+    n_blocks, wu_w, wv_w = (int(x) for x in block_sizes)
+    perm = _PERMS[axis]
+    gp, gu, gv = (int(grid.shape[a]) for a in perm)
+    eu, ev = wu_w or gu, wv_w or gv
+    rows = blocked_p_rows(gp, n_blocks)
+    vals, ts = [], []
+    for b, (r0, r1) in enumerate(rows):
+        out = sweep_samples(
+            grid, rays_o, rays_d, xyz_min, xyz_max, axis, k,
+            interp_dtype=interp_dtype, clip_sizes=(r1 - r0 + 1, eu, ev),
+            clip_offsets=(r0, int(u_off[b]), int(v_off[b])))
+        last = b == len(rows) - 1
+        vals.append(out["vals"] if last else out["vals"][:, :, :-1])
+        ts.append(out["t"] if last else out["t"][:, :-1])
+    return {"vals": torch.cat(vals, 2), "t": torch.cat(ts, 1),
+            "forward": out["forward"], "interval": out["interval"],
+            "p_offset": 0.0}
+
+
 def dominant_axis(rays_d, xyz_min, xyz_max, world_size):
     """Per-ray dominant axis in voxel space (host-side grouping helper)."""
     rays_d = np.asarray(rays_d)
@@ -213,6 +246,326 @@ def sweep_axes(model, rays_d):
 
 def _round_up(x, m):
     return (int(x) + m - 1) // m * m
+
+
+# Guard band (voxels) added to host-computed segment supports before the
+# floor: rays made on the device may differ from the host's in the last
+# ulp, and a support sitting exactly on an integer would otherwise floor
+# one voxel tighter than the device rays' true support.
+SEG_GUARD = 1e-3
+
+
+def _voxel_rays_np(rays_o, rays_d, xyz_min, xyz_max, world_size, axis):
+    """:func:`rays_to_voxel` on numpy rays -> ((op, ou, ov), (dp, du, dv),
+    (gp, gu, gv), dp with its near-zeros replaced by 1e-10)."""
+    world_size = tuple(int(x) for x in world_size)
+    o_pv, d_pv = rays_to_voxel(np.asarray(rays_o), np.asarray(rays_d),
+                               xyz_min, xyz_max, world_size, axis)
+    dp = d_pv[0]
+    return (o_pv, d_pv, tuple(world_size[a] for a in _PERMS[axis]),
+            np.where(np.abs(dp) < 1e-10, 1e-10, dp))
+
+
+def _quant(x, g):
+    return np.clip((x / max(g, 1) * 1024).astype(np.int64), 0, 1023)
+
+
+def _spread_bits(stride):
+    """[1024] int64: bit b of each 10-bit key moved to bit ``stride * b``."""
+    keys = np.arange(1024, dtype=np.int64)
+    out = np.zeros(1024, np.int64)
+    for b in range(10):
+        out |= ((keys >> b) & 1) << (b * stride)
+    return out
+
+
+_SPREAD2, _SPREAD4 = _spread_bits(2), _spread_bits(4)
+
+
+def _morton4(keys):
+    """Interleave four 10-bit keys into one int64 Morton code: bit b of
+    ``keys[d]`` goes to bit 4b + d (by table, one lookup per key)."""
+    code = _SPREAD4[keys[0]]
+    for d_i, kk in enumerate(keys[1:], 1):
+        code = code | (_SPREAD4[kk] << d_i)
+    return code
+
+
+def _support(ends, g, idx):
+    """Inclusive voxel rows [r0, r1] that cover every interp row of the
+    rays ``idx`` [n_seg, n] (per segment) whose coordinate runs between
+    the two ``ends``."""
+    lo = np.maximum(0, np.floor(np.minimum(ends[0], ends[1]) - SEG_GUARD))
+    hi = np.minimum(g - 1, np.floor(np.maximum(ends[0], ends[1])
+                                    + SEG_GUARD) + 1)
+    return (lo[idx].min(1).astype(np.int64),
+            hi[idx].max(1).astype(np.int64))
+
+
+def _window_classes(idx, u0, u1, v0, v1, gu, gv, widths, max_classes):
+    """Class the segments ``idx`` [n_seg, n] by the (wu, wv) window their
+    support [u0, u1] x [v0, v1] needs (per segment, or per segment and
+    block when the bounds are [n_seg, B]): the narrowest of ``widths``
+    below the extent, 0 for the full extent. The ``max_classes`` most
+    populous classes are kept; each segment goes to the tightest kept
+    class that covers it, the rest to the ``(0, 0)`` key. Returns
+    ``{(wu, wv): (idx, u_off, v_off)}``, offsets int32 and clamped to
+    [0, G - W]."""
+    def fit(need, g):
+        out = np.zeros(need.shape, np.int64)
+        for w in sorted((w for w in widths if w < g), reverse=True):
+            out = np.where(need <= w, w, out)
+        return out
+
+    need_u, need_v = u1 - u0 + 1, v1 - v0 + 1
+    if need_u.ndim == 2:                       # the widest block decides
+        need_u, need_v = need_u.max(1), need_v.max(1)
+    wu_min, wv_min = fit(need_u, gu), fit(need_v, gv)
+    pairs = {}
+    for s in range(idx.shape[0]):
+        if wu_min[s] or wv_min[s]:
+            key = (int(wu_min[s]), int(wv_min[s]))
+            pairs[key] = pairs.get(key, 0) + 1
+    kept = sorted(pairs, key=lambda p: -pairs[p])[:max_classes]
+    out = {}
+    assigned = np.zeros(idx.shape[0], bool)
+    # tightest covers claim their segments first
+    for wu, wv in sorted(kept, key=lambda p: ((p[0] or 1 << 20)
+                                              * (p[1] or 1 << 20))):
+        ok = ~assigned
+        if wu:
+            ok &= (wu_min != 0) & (wu_min <= wu)
+        if wv:
+            ok &= (wv_min != 0) & (wv_min <= wv)
+        sel = np.flatnonzero(ok)
+        if not sel.size:
+            continue
+        assigned[sel] = True
+        offs = [np.zeros(lo[sel].shape, np.int32) if w == 0
+                else np.minimum(lo[sel], g - w).astype(np.int32)
+                for lo, w, g in ((u0, wu, gu), (v0, wv, gv))]
+        out[(int(wu), int(wv))] = (idx[sel], *offs)
+    rest = np.flatnonzero(~assigned)
+    if rest.size:
+        zeros = np.zeros(u0[rest].shape, np.int32)
+        out[(0, 0)] = (idx[rest], zeros, zeros.copy())
+    return out
+
+
+def _box_bounds(clip_box, gp, gu, gv):
+    """(p_lo, p_hi, u_lo, u_hi, v_lo, v_hi) of a ``clip_box`` (p_lo, p_hi)
+    or (p_lo, p_hi, u_lo, u_hi, v_lo, v_hi), inclusive voxel bounds in
+    permuted order; unbounded dims get the interp support [-1, G]."""
+    p_lo, p_hi = (0.0, gp - 1.0) if clip_box is None \
+        else (float(clip_box[0]), float(clip_box[1]))
+    u_lo, u_hi, v_lo, v_hi = (-1.0, float(gu), -1.0, float(gv)) \
+        if clip_box is None or len(clip_box) < 6 \
+        else tuple(float(x) for x in clip_box[2:6])
+    return p_lo, p_hi, u_lo, u_hi, v_lo, v_hi
+
+
+def build_tile_buckets(rays_o, rays_d, xyz_min, xyz_max, world_size, axis,
+                       tile_n=TILE_N, widths=(32, 64, 96)):
+    """Spatially bucketed ``tile_n``-ray tiles for per-tile v-windows.
+
+    The rays, sorted by a 4D Morton key of their (u, v) at the first and
+    last sweep planes, are cut into tiles; a tile's v-window covers its
+    rays' support at every station (u and v are linear in the plane
+    coordinate, so the clipped end planes bound it) plus 7 rows for the
+    8-alignment of the window start.
+
+    Returns ``{W: (idx [n_b, tile_n] int64, vlo [n_b] int32)}`` per width
+    class, ``0`` for tiles no class covers; ``idx`` indexes these rays.
+    """
+    n_tiles = rays_o.shape[0] // tile_n
+    if n_tiles == 0:
+        return {}
+    (op, ou, ov), (dp, du, dv), (gp, gu, gv), dp_s = _voxel_rays_np(
+        rays_o, rays_d, xyz_min, xyz_max, world_size, axis)
+    t0 = (0.0 - op) / dp_s
+    t1 = (gp - 1.0 - op) / dp_s
+    u_ends = np.clip(np.stack([ou + t0 * du, ou + t1 * du]), -1.0, gu)
+    v_ends = np.clip(np.stack([ov + t0 * dv, ov + t1 * dv]), -1.0, gv)
+    code = _morton4([_quant(u_ends[0], gu), _quant(v_ends[0], gv),
+                     _quant(u_ends[1], gu), _quant(v_ends[1], gv)])
+    order = np.argsort(code, kind="stable")
+    idx = order[: n_tiles * tile_n].reshape(n_tiles, tile_n)
+    r0, r1 = _support(v_ends, gv, idx)
+    needed = (r1 - r0 + 1) + 7
+    gv_p8 = _round_up(gv, 8)
+    out = {}
+    assigned = np.full(n_tiles, -1, np.int64)
+    for w in sorted(widths):
+        if w >= gv:
+            continue
+        sel_t = np.flatnonzero((assigned < 0) & (needed <= w))
+        if len(sel_t) == 0:
+            continue
+        assigned[sel_t] = w
+        vlo = np.minimum((r0[sel_t] // 8 * 8).astype(np.int32),
+                         gv_p8 - w).astype(np.int32)
+        out[int(w)] = (idx[sel_t], vlo)
+    rest = np.flatnonzero(assigned < 0)
+    if len(rest):
+        out[0] = (idx[rest], np.zeros(len(rest), np.int32))
+    return out
+
+
+def build_ray_segments(rays_o, rays_d, xyz_min, xyz_max, world_size, axis,
+                       n_rand=8192, tile_n=TILE_N,
+                       widths=(32, 48, 64, 96), clip_box=None):
+    """Spatially sorted ray segments with a v-window each.
+
+    Each draw unit is one batch, ``n_rand`` consecutive rays of a
+    v-endpoint-major Morton order (u bits as a low tiebreak), so all of a
+    batch's tiles share one segment-level v-window. ``clip_box`` ((p_lo,
+    p_hi, v_lo, v_hi), inclusive voxel bounds in permuted order) measures
+    the supports over the occupancy box: outside it every contribution is
+    zero, so a window that covers support and box stays exact.
+
+    Returns ``{W: (idx [n_seg, n_rand], seg_vlo [n_seg] int32, tile_vlo
+    [n_seg, n_rand // tile_n] int32)}``; ``W = 0`` is the full sweep.
+    """
+    n = rays_o.shape[0]
+    n_seg = n // n_rand
+    if n_seg == 0:
+        return {}
+    n_tile = n_rand // tile_n
+    (op, ou, ov), (dp, du, dv), (gp, gu, gv), dp_s = _voxel_rays_np(
+        rays_o, rays_d, xyz_min, xyz_max, world_size, axis)
+    p_lo, p_hi, v_lo, v_hi = (0.0, gp - 1.0, -1.0, float(gv)) \
+        if clip_box is None else tuple(float(x) for x in clip_box)
+    t0 = (p_lo - op) / dp_s
+    t1 = (p_hi - op) / dp_s
+    v_ends = np.clip(np.stack([ov + t0 * dv, ov + t1 * dv]), v_lo, v_hi)
+    u_ends = np.clip(np.stack([ou + t0 * du, ou + t1 * du]), -1.0, gu)
+    code = _SPREAD2[_quant(v_ends[0], gv)] \
+        | (_SPREAD2[_quant(v_ends[1], gv)] << 1)
+    code = (code << 10) | ((_quant(u_ends[0], gu) >> 5) << 5) \
+        | (_quant(u_ends[1], gu) >> 5)
+    order = np.argsort(code, kind="stable")
+    idx = order[: n_seg * n_rand].reshape(n_seg, n_rand)
+    r0_t, r1_t = _support(v_ends, gv, idx.reshape(n_seg * n_tile, tile_n))
+    r0_t, r1_t = r0_t.reshape(n_seg, n_tile), r1_t.reshape(n_seg, n_tile)
+    r0_s, r1_s = r0_t.min(1), r1_t.max(1)
+    needed = (r1_s - r0_s + 1) + 7     # forward window starts are 8-aligned
+    gv_p8 = _round_up(gv, 8)
+    out = {}
+    assigned = np.full(n_seg, -1, np.int64)
+    for w in sorted(widths):
+        if w >= gv:
+            continue
+        sel_s = np.flatnonzero((assigned < 0) & (needed <= w))
+        if len(sel_s) == 0:
+            continue
+        assigned[sel_s] = w
+        seg_vlo = np.minimum(r0_s[sel_s] // 8 * 8, gv_p8 - w).astype(np.int32)
+        tile_vlo = np.minimum(r0_t[sel_s] // 8 * 8,
+                              gv_p8 - w).astype(np.int32)
+        out[int(w)] = (idx[sel_s], seg_vlo, tile_vlo)
+    rest = np.flatnonzero(assigned < 0)
+    if len(rest):
+        out[0] = (idx[rest], np.zeros(len(rest), np.int32),
+                  np.zeros((len(rest), n_tile), np.int32))
+    return out
+
+
+def build_ray_segments_2d(rays_o, rays_d, xyz_min, xyz_max, world_size,
+                          axis, n_rand=4096, widths=(32, 64, 96, 128),
+                          max_classes=4, clip_box=None):
+    """Spatially sorted ray segments with both in-plane dims windowed.
+
+    A segment is ``n_rand`` consecutive rays of a 4-endpoint Morton order
+    ((u, v) at both clip planes: endpoint agreement is direction
+    agreement), so forward-facing segments are image tiles and
+    perspective ones per-view bundles, with compact (u, v) footprints
+    across every station. A segment trains as the composed clip box (gp,
+    Wu, Wv) at its offsets: every interp row of its rays lies inside
+    (endpoint-bounded supports, one voxel of interp margin). ``clip_box``:
+    (p_lo, p_hi) or (p_lo, p_hi, u_lo, u_hi, v_lo, v_hi), inclusive voxel
+    bounds in permuted order; supports are measured inside it (outside,
+    the interpolated mask is zero).
+
+    Returns ``{(wu, wv): (idx [n_seg, n_rand], seg_ulo [n_seg], seg_vlo
+    [n_seg])}``: a 0 slot means the full extent of that dim, ``(0, 0)`` is
+    the full-sweep fallback; at most ``max_classes`` window classes.
+    """
+    n_seg = rays_o.shape[0] // n_rand
+    if n_seg == 0:
+        return {}
+    (op, ou, ov), (dp, du, dv), (gp, gu, gv), dp_s = _voxel_rays_np(
+        rays_o, rays_d, xyz_min, xyz_max, world_size, axis)
+    p_lo, p_hi, u_lo, u_hi, v_lo, v_hi = _box_bounds(clip_box, gp, gu, gv)
+    t0 = (p_lo - op) / dp_s
+    t1 = (p_hi - op) / dp_s
+    u_ends = np.clip(np.stack([ou + t0 * du, ou + t1 * du]), u_lo, u_hi)
+    v_ends = np.clip(np.stack([ov + t0 * dv, ov + t1 * dv]), v_lo, v_hi)
+    code = _morton4([_quant(u_ends[0], gu), _quant(v_ends[0], gv),
+                     _quant(u_ends[1], gu), _quant(v_ends[1], gv)])
+    order = np.argsort(code, kind="stable")
+    idx = order[: n_seg * n_rand].reshape(n_seg, n_rand)
+    u0, u1 = _support(u_ends, gu, idx)
+    v0, v1 = _support(v_ends, gv, idx)
+    return _window_classes(idx, u0, u1, v0, v1, gu, gv, widths, max_classes)
+
+
+def blocked_p_rows(gp, n_blocks):
+    """Slab-row ranges of a blocked sweep: block b covers rows [b*pb,
+    min((b+1)*pb, gp-1)] inclusive, pb = ceil((gp-1)/B). Neighbouring
+    blocks share their boundary row; the sweep drops each non-final
+    block's last station, so the stations tile [0, gp-1] exactly once."""
+    pb = max(1, -(-(gp - 1) // max(1, n_blocks)))
+    rows = []
+    r = 0
+    while r < gp - 1:
+        rows.append((r, min(r + pb, gp - 1)))
+        r += pb
+    return rows
+
+
+def build_ray_segments_blocked(rays_o, rays_d, xyz_min, xyz_max, world_size,
+                               axis, n_rand=8192, n_blocks=6,
+                               widths=(32, 48, 64, 96), max_classes=6,
+                               clip_box=None):
+    """Spatially sorted ray segments with one (u, v) window per p-block.
+
+    As :func:`build_ray_segments_2d`, but the traversal is split into the
+    p-blocks of :func:`blocked_p_rows`: a perspective ray drifts across
+    the plane over the whole traversal, much less within a block. Each
+    segment trains as B composed clip boxes concatenated along the station
+    axis (:func:`sweep_samples_blocked`); per block, a ray's range is
+    bounded by its values at the block's edge planes (clamped to the
+    interp support and, with ``clip_box``, the occupancy box).
+
+    Returns ``{(wu, wv): (idx [n_seg, n_rand], u_off [n_seg, B] int32,
+    v_off [n_seg, B] int32)}``: (wu, wv) are the per-block window extents
+    (0 = full extent; ``(0, 0)`` = the unblocked fallback, zero offsets).
+    """
+    n_seg = rays_o.shape[0] // n_rand
+    if n_seg == 0:
+        return {}
+    (op, ou, ov), (dp, du, dv), (gp, gu, gv), dp_s = _voxel_rays_np(
+        rays_o, rays_d, xyz_min, xyz_max, world_size, axis)
+    p_lo, p_hi, u_lo, u_hi, v_lo, v_hi = _box_bounds(clip_box, gp, gu, gv)
+
+    def ends_at(p_a, p_b):
+        ta, tb = (p_a - op) / dp_s, (p_b - op) / dp_s
+        return (np.clip(np.stack([ou + ta * du, ou + tb * du]), u_lo, u_hi),
+                np.clip(np.stack([ov + ta * dv, ov + tb * dv]), v_lo, v_hi))
+
+    u_ends, v_ends = ends_at(p_lo, p_hi)
+    code = _morton4([_quant(u_ends[0], gu), _quant(v_ends[0], gv),
+                     _quant(u_ends[1], gu), _quant(v_ends[1], gv)])
+    order = np.argsort(code, kind="stable")
+    idx = order[: n_seg * n_rand].reshape(n_seg, n_rand)
+    bounds = [[], [], [], []]
+    for r0, r1 in blocked_p_rows(gp, n_blocks):
+        ub, vb = ends_at(float(r0), float(r1))
+        for lst, x in zip(bounds, (*_support(ub, gu, idx),
+                                   *_support(vb, gv, idx))):
+            lst.append(x)
+    u0, u1, v0, v1 = (np.stack(b, 1) for b in bounds)    # [n_seg, B]
+    return _window_classes(idx, u0, u1, v0, v1, gu, gv, widths, max_classes)
 
 
 def build_ray_tiles_blocktile(rays_o, rays_d, xyz_min, xyz_max,
@@ -303,15 +656,8 @@ def build_ray_tiles_blocktile(rays_o, rays_d, xyz_min, xyz_max,
     u_ends = np.clip(np.stack([ou + t0e * du, ou + t1e * du]), 0, bu)
     v_ends = np.clip(np.stack([ov + t0e * dv, ov + t1e * dv]), 0, bv)
 
-    def quant(x, g):
-        return np.clip((x / max(g, 1) * 1024).astype(np.int64), 0, 1023)
-
-    keys = [quant(u_ends[0], bu), quant(v_ends[0], bv),
-            quant(u_ends[1], bu), quant(v_ends[1], bv)]
-    code = np.zeros(n, np.int64)
-    for b in range(10):
-        for d_i, kk in enumerate(keys):
-            code |= ((kk >> b) & 1) << (b * 4 + d_i)
+    code = _morton4([_quant(u_ends[0], bu), _quant(v_ends[0], bv),
+                     _quant(u_ends[1], bu), _quant(v_ends[1], bv)])
 
     s_total = k * (bp - 1) + 1
     s_pad = _round_up(s_total, s_blk)
