@@ -23,7 +23,11 @@ Phases, each of which fails the run:
      train step against the clip-box step, an MPI window step with sparse
      TV against the unclipped one, a blocked step against the plain one,
      and an NDC frame as pixel tiles and as windowed chunks against the
-     chunked render) and at the main paths' full shapes after phases 3,
+     chunked render; every unfused step key kind - an 8-step chunk over a
+     clip box, a composed-box window, a blocked step, an MPI window under
+     dense and under sparse TV - replayed as a CUDA graph against the same
+     steps run eagerly from one state) and at the main paths' full shapes
+     after phases 3,
      4, 5, 6 and 7, there on the last call of every form each kernel took
      (K-A's instance and windowing, K-C's shared or global form);
   2. build a full-width lego fine checkpoint (160^3 grid, k0 12, MLP
@@ -43,14 +47,20 @@ Phases, each of which fails the run:
   5. train coarse then fine at full lego width through
      ``python -m directvoxgo_tpu_torch.run`` (in process) on a config that
      shortens only the iteration counts of
-     configs/synthetic/fixture_lego_sparse.py, and check the launch counts
-     against the steps and counted views, each form on its own channel
+     configs/synthetic/fixture_lego_sparse.py (its steps replayed as CUDA
+     graphs, the launch counts counting replays), and check the launch
+     counts against the steps and counted views, the share of replayed
+     steps, each form on its own channel
      instance of K-A and K-C (launch counts by form), that the fine stage
      drew window classes once its grid passed 1.1 M voxels, finite
      parameters, a rising train PSNR, exact zeros of the density cotangent
      outside the clip box, the checkpoints, and ``--render_test`` of the
      trained model; print the draws by step key at the top grid with their
-     median times and the seconds of each bucket build; trace three more
+     median times and the seconds of each bucket build; hold graphed steps
+     against eager ones from one state at full width (an 8-step coarse
+     chunk, a fine window step at 160^3, a blocked step built from the fine
+     pool), with each key's capture seconds, step wall ms, busy ms, idle
+     share and host launches graphed and eager; trace three more
      fine steps, and the last window step beside its batch over the clip
      box, and time ``voxel_count_views``; then a few train steps with
      ray-tile v-windows (a side path: no engine draw takes them); then the
@@ -65,7 +75,9 @@ Phases, each of which fails the run:
      re-bucketed into 2D and per-block windows once windows engage), and
      check that both kernels ran once per fused step, K-A and K-C once per
      unfused step (once per block of a blocked one), that at least half
-     of the fine steps were fused, that re-bucketed remainder classes were
+     of the steps where the JAX rule lets steps fuse (grids past 1.1 M
+     voxels) were fused and none elsewhere, that re-bucketed remainder
+     classes were
      drawn, and that the trained model's test PSNR beats a white frame's
      by 3 dB; print the tile classes, the remainder's share of rays,
      the fused step's time beside phase 5's unfused one and the gated
@@ -79,7 +91,9 @@ Phases, each of which fails the run:
      cut) through ``python -m directvoxgo_tpu_torch.run`` (in process), up
      to the 352x371x128 grid with dense then sparse TV on every step, and
      check one K-A and one K-C launch per step and two K-F launches (the TV
-     stencil: density and k0) per TV step, that the steps past 1.1 M
+     stencil: density and k0) per TV step, replays counted, the share of
+     replayed steps, graphed window steps against eager ones at the top
+     grid under dense and under sparse TV, that the steps past 1.1 M
      voxels drew 2D window classes, finite parameters, a rising train
      PSNR, the checkpoint, and ``--render_test`` of the three 756x1008 test
      views (as windowed pixel tiles) against an all-black frame; print the
@@ -203,11 +217,20 @@ class Capture:
         setattr(module, name, self)
 
     def __call__(self, *args, **kw):
+        import torch
+        # A call made while a train step is captured as a CUDA graph counts
+        # (per replay, with PerReplay) but keeps no inputs: they lie in the
+        # graphs' shared pool, where other graphs' replays overwrite them.
+        # Every step key's first call, which keeps them, is eager.
+        capturing = (torch.cuda.is_available()
+                     and torch.cuda.is_current_stream_capturing())
         if self.form is None:
-            self.calls.append((args, kw))
+            if not capturing:
+                self.calls.append((args, kw))
         else:
             form = self.form(*args, **kw)
-            self.forms[form] = (args, kw)
+            if not capturing or form not in self.forms:
+                self.forms[form] = (args, kw)
             self.counts[form] += 1
         out = self.orig(*args, **kw)
         if self.results is not None:
@@ -844,8 +867,11 @@ def small_tv_checks(torch, dev, tv):
     gen = torch.Generator(device="cpu").manual_seed(SEED + 7)
     n_cases = 0
     small = (None, ((2, 2, 2), (4, 3, 4)), ((0, 2, 2), (4, 3, 4)),
-             ((5, 0, 4), (4, 3, 4)), ((2, 2, 4), (4, 3, 4)))
-    large = (None, ((3, 2, 8), (30, 15, 36)), ((0, 5, 3), (37, 14, 45)))
+             ((5, 0, 4), (4, 3, 4)), ((2, 2, 4), (4, 3, 4)),
+             ((2, 1, 0), (4, 3, 8)))
+    large = (None, ((3, 2, 8), (30, 15, 36)), ((0, 5, 3), (37, 14, 45)),
+             ((3, 2, 0), (30, 15, 48)))
+    dev_paths = collections.Counter()
     for k in tv.launches_by_path:
         tv.launches_by_path[k] = 0
     for shape, boxes in (((9, 7, 8), small), ((9, 7, 8, 3), small),
@@ -892,13 +918,28 @@ def small_tv_checks(torch, dev, tv):
                             f"K-F {shape} bug_compat={bug} dense={dense} "
                             f"box={box} ({path} path): err {err} of "
                             f"{scale}")
+                    if box is not None:
+                        # the offsets as device data, as a train step
+                        # captured as a CUDA graph passes them
+                        offs_t = torch.tensor(offs, dtype=torch.int32,
+                                              device=dev)
+                        args_t = (p, g_in, offs_t) + args[3:]
+                        out_t = tv.tv_add_grad_box(*args_t)
+                        dev_paths[tv.path_of(p, g_in, offs_t)] += 1
+                        if not torch.equal(out_t, out):
+                            raise AssertionError(
+                                f"K-F {shape} box={box} dense={dense}: "
+                                "device offsets differ from host offsets")
                     n_cases += 1
     paths = dict(tv.launches_by_path)
     log(f"[phase 1] K-F tv_add_grad: {n_cases} small cases, each "
-        f"bit-identical to its plain and its first version; launches by "
+        f"bit-identical to its plain and its first version, boxes also "
+        f"with device offsets (their paths {dict(dev_paths)}); launches by "
         f"path {paths}")
-    if min(paths.values()) < 1:
-        raise AssertionError(f"K-F small cases missed a path: {paths}")
+    if min(paths.values()) < 1 or min(dev_paths.values()) < 1 \
+            or len(dev_paths) < 2:
+        raise AssertionError(f"K-F small cases missed a path: {paths}, "
+                             f"device offsets {dict(dev_paths)}")
     return 0.0
 
 
@@ -1137,6 +1178,142 @@ def small_window_checks(torch, dev):
     return errs
 
 
+# -------------------------------------------- phase 1: graphed steps
+
+def small_graph_checks(torch, dev):
+    """On the card, in the f32 parity mode, each unfused step key kind
+    replayed as a CUDA graph against the same steps run eagerly from one
+    state (:func:`graph_vs_eager`; the first step eager, the second
+    captured, the rest replays, each batch at its own offsets): an 8-step
+    chunk over a clip box under plain Adam (full-size gradients), a
+    composed-box window and a blocked step (region mode, box-sized Adam),
+    an MPI window under dense and under sparse TV (K-F's box form)."""
+    import numpy as np
+    from directvoxgo_tpu_torch.config import ConfigDict
+    from directvoxgo_tpu_torch.engine import train as train_lib
+    from directvoxgo_tpu_torch.engine.draws import Draws
+    from directvoxgo_tpu_torch.models.dmpigo import DirectMPIGO
+    from directvoxgo_tpu_torch.models.dvgo import DirectVoxGO
+    from directvoxgo_tpu_torch.ops import sweep as sweep_ops
+
+    def cfg(n_rand, w_tv=0.0, skip=("density", "k0")):
+        return ConfigDict(N_rand=n_rand, weight_main=1.0,
+                          weight_entropy_last=0.001, weight_rgbper=0.01,
+                          weight_tv_density=w_tv, weight_tv_k0=w_tv,
+                          lrate_decay=20, lrate_density=1e-1, lrate_k0=1e-1,
+                          lrate_rgbnet=1e-3, skip_zero_grad_fields=list(skip))
+
+    def pool_of(o, d, rng):
+        vd = d / np.linalg.norm(d, axis=-1, keepdims=True)
+        rgb = rng.uniform(0, 1, o.shape).astype(np.float32)
+        return {k: torch.as_tensor(np.ascontiguousarray(v, np.float32),
+                                   device=dev)
+                for k, v in (("rays_o", o), ("rays_d", d), ("viewdirs", vd),
+                             ("rgb", rgb))}
+
+    def check(what, model, ct, rk, tv, axis, key, pool, sels, offs):
+        opt = train_lib.create_optimizer_or_freeze_model(model, ct)
+        return graph_vs_eager(torch, dev, what, model,
+                              (opt, ct, rk, *tv), dict(axis=axis,
+                                                       clip_sizes=key),
+                              pool, np.asarray(sels), np.asarray(offs))
+
+    dvgo_kw = dict(xyz_min=[-1] * 3, xyz_max=[1] * 3, alpha_init=1e-2,
+                   fast_color_thres=1e-4, rgbnet_dim=6, rgbnet_direct=True,
+                   rgbnet_width=16, k_density=None, k_color=0)
+    rk = dict(near=0.5, far=6.0, bg=1.0, stepsize=0.5)
+    out = {}
+    # a perspective fan along x: 8 uniform batches over the clip box under
+    # plain Adam, then Morton segments of one class as composed boxes
+    rng = np.random.default_rng(20)
+    n = 8 * 512
+    ang = rng.uniform(-0.04, 0.04, (n, 2))
+    o = np.roll(np.tile([[0.15, -0.1, 3.0]], (n, 1)), -2, 1)
+    d = np.roll(np.stack([np.tan(ang[:, 0]) + rng.uniform(-0.1, 0.1, n),
+                          np.tan(ang[:, 1]), -np.ones(n)], -1), -2, 1)
+    o, d = o.astype(np.float32), d.astype(np.float32)
+    pool = pool_of(o, d, rng)
+    model = _f32_model(torch, DirectVoxGO, dict(
+        dvgo_kw, num_voxels=40 ** 3, num_voxels_base=40 ** 3),
+        _blob([0.1, -0.05, 0.05], 0.75), 19, dev)
+    sizes, offs = model.sweep_clip_for_axis(0, quantum=8)
+    sels = np.stack([rng.permutation(n)[:512] for _ in range(8)])
+    out["chunk over the clip box"] = check(
+        "small, 8-step chunk over the clip box", model,
+        cfg(512, skip=()), rk, (False, False), 0, sizes, pool, sels,
+        np.broadcast_to(np.asarray(offs, np.int32), (8, 3)))
+    box6 = tuple(float(x) for a, b in zip(offs, sizes) for x in (a, a + b - 1))
+    bk = sweep_ops.build_ray_segments_2d(
+        o, d, model.xyz_min, model.xyz_max, model.world_size, 0, n_rand=512,
+        widths=(16, 24, 32), clip_box=box6)
+    key = max((k for k in bk if k != (0, 0)
+               and Draws._eff(k, *sizes[1:]) != tuple(sizes[1:])),
+              key=lambda k: bk[k][0].shape[0])
+    eu, ev = Draws._eff(key, *sizes[1:])
+    idx, ulo, vlo = bk[key]
+    rows = range(min(5, idx.shape[0]))
+    out["window"] = check(
+        "small, composed-box window", model, cfg(512), rk, (False, False),
+        0, (sizes[0], eu, ev), pool, idx[list(rows)],
+        [Draws._clamped(offs, sizes[1:], (eu, ev), ulo[r], vlo[r])
+         for r in rows])
+
+    # a blocked step
+    rng = np.random.default_rng(32)
+    n = 6 * 512
+    ang = rng.uniform(-0.12, 0.12, (n, 2))
+    o = np.tile([[0.1, 0.1, 3.0]], (n, 1)).astype(np.float32)
+    d = np.stack([np.tan(ang[:, 0]) + 0.05, np.tan(ang[:, 1]), -np.ones(n)],
+                 -1).astype(np.float32)
+    model = _f32_model(torch, DirectVoxGO, dict(
+        dvgo_kw, num_voxels=48 ** 3, num_voxels_base=48 ** 3),
+        _blob([0.05, -0.1, 0.0], 0.6), 31, dev)
+    bk = sweep_ops.build_ray_segments_blocked(
+        o, d, model.xyz_min, model.xyz_max, model.world_size, 2, n_rand=512,
+        n_blocks=4, widths=(16, 24, 32, 40))
+    key = max((k for k in bk if k != (0, 0)),
+              key=lambda k: bk[k][0].shape[0])
+    idx, uo, vo = bk[key]
+    rows = list(range(min(5, idx.shape[0])))
+    gu, gv = (int(model.world_size[a]) for a in sweep_ops._PERMS[2][1:])
+    out["blocked"] = check(
+        "small, blocked", model, cfg(512), rk, (False, False), 2,
+        ("blk", uo.shape[1], *Draws._eff(key, gu, gv)), pool_of(o, d, rng),
+        idx[rows], [np.stack([uo[r], vo[r]], 1) for r in rows])
+
+    # MPI image tiles under dense and under sparse TV
+    rng = np.random.default_rng(3)
+    mpi_kw = dict(xyz_min=[-1, -1, 0], xyz_max=[1, 1, 1],
+                  num_voxels=48 * 48 * 32, mpi_depth=32,
+                  fast_color_thres=1e-4, rgbnet_dim=6, rgbnet_width=16)
+    n = 4096
+    o = np.stack([rng.uniform(-0.6, 0.6, n), rng.uniform(-0.6, 0.6, n),
+                  np.zeros(n)], -1).astype(np.float32)
+    d = np.stack([rng.uniform(-0.05, 0.05, n), rng.uniform(-0.05, 0.05, n),
+                  np.ones(n)], -1).astype(np.float32)
+    pool = pool_of(o, d, rng)
+    for tv_form, tv in (("dense", (True, True)), ("sparse", (True, False))):
+        model = _f32_model(torch, DirectMPIGO, mpi_kw, lambda m: np.random
+                           .default_rng(4).normal(0, 1, tuple(m.world_size))
+                           .astype(np.float32), 5, dev)
+        bk = sweep_ops.build_ray_segments_2d(
+            o, d, model.xyz_min, model.xyz_max, model.world_size, 2,
+            n_rand=256, widths=(16, 24, 32))
+        gp, gu, gv = (int(model.world_size[a]) for a in sweep_ops._PERMS[2])
+        key = max((k for k in bk if k != (0, 0)),
+                  key=lambda k: bk[k][0].shape[0])
+        eu, ev = Draws._eff(key, gu, gv)
+        idx, ulo, vlo = bk[key]
+        rows = list(range(min(5, idx.shape[0])))
+        out[f"mpi window, {tv_form} TV"] = check(
+            f"small, MPI window, {tv_form} TV", model, cfg(256, 1e-2),
+            dict(near=0.0, far=1.0, bg=1.0, stepsize=1.0), tv, 2,
+            (gp, eu, ev), pool, idx[rows],
+            [Draws._clamped(np.zeros(3, np.int32), (gu, gv), (eu, ev),
+                            ulo[r], vlo[r]) for r in rows])
+    return out
+
+
 # ----------------------------------------------------------------- phase 5
 
 def write_train_config():
@@ -1152,7 +1329,7 @@ def write_train_config():
 
 
 def draw_kind(key):
-    """The kind of a batch by the step key ``Draws.next_batch`` drew for it
+    """The kind of a batch by the step key ``Draws.next_chunk`` drew for it
     (None: the stage's clip box)."""
     if key is None:
         return "plain"
@@ -1173,34 +1350,51 @@ def sweep_launches(steps):
 
 
 class StepRecorder:
-    """Wraps ``engine.train.make_train_step``: every step it builds is
+    """Wraps ``engine.graphs.StepGraphs.call``, through which every train
+    step runs (eagerly, captured as a CUDA graph, or replayed): each step is
     synchronised and timed on the host clock, and its PSNR, stage (coarse:
-    no colour MLP), grid size and the draw it took (``Draws.next_batch``,
-    wrapped too: its kind and step key) are recorded."""
+    no colour MLP), grid size, the draw it took (``Draws.next_chunk``,
+    wrapped too: its kind and step key) and how it ran are recorded, with
+    its inputs, so that it can be run again eagerly. Wraps
+    ``engine.train.make_train_step`` to know what each step was made of."""
+
+    RECENT = 8    # the last batches kept per step key
 
     def __init__(self, train_lib):
         from directvoxgo_tpu_torch.engine import draws as draws_lib
-        self.train_lib = train_lib
+        from directvoxgo_tpu_torch.engine import graphs as graphs_lib
+        self.train_lib, self.graphs_cls = train_lib, graphs_lib.StepGraphs
         self.orig = train_lib.make_train_step
-        # (stage, voxels, ms, psnr, loss, fused step?, draw kind, draw key)
+        self.orig_call = graphs_lib.StepGraphs.call
+        # (stage, voxels, ms, psnr, loss, fused step?, draw kind, draw key,
+        #  how it ran: "eager", "capture" or "replay")
         self.steps = []
         self.last = {}    # (stage, fused step?) -> (step, args, kwargs)
         self.last_kind = {}   # (stage, draw kind) -> (step, args, kwargs)
         self.last_tv = {}   # TV form of a step ("dense", "sparse", "none")
         #                     -> (step, args, kwargs, voxels)
         self.made = {}    # id(step) -> (model, args, kwargs) it was made of
+        self.kept = []    # the steps made (their ids stay theirs)
+        self.recent = {}  # id(step) -> its last RECENT (pool, sel, off)
+        self.kind_of = {}  # id(step) -> (stage, draw kind, TV form, voxels)
         self.inside = None   # (stage, kind) of the step being taken, if any
         self.draw = None     # step key of the last draw
         self.draws_cls = draws_lib.Draws
-        self.orig_draw = draws_lib.Draws.next_batch
+        self.orig_draw = draws_lib.Draws.next_chunk
         rec = self
 
-        def next_batch(draws, apply_tv):
-            out = rec.orig_draw(draws, apply_tv)
+        def next_chunk(draws, n_sub, apply_tv):
+            out = rec.orig_draw(draws, n_sub, apply_tv)
             rec.draw = out[2]
             return out
 
-        draws_lib.Draws.next_batch = next_batch
+        def call(graphs, key, step, pool, row, n_rand, off_shape, out,
+                 host_off=None):
+            return rec.call(graphs, key, step, pool, row, n_rand, off_shape,
+                            out, host_off)
+
+        draws_lib.Draws.next_chunk = next_chunk
+        graphs_lib.StepGraphs.call = call
         train_lib.make_train_step = self
 
     def form(self, *_, **__):
@@ -1209,38 +1403,47 @@ class StepRecorder:
         return step_form(*self.inside) if self.inside else "counted view"
 
     def __call__(self, model, *args, **kw):
-        import torch
         step = self.orig(model, *args, **kw)
+        self.made[id(step)] = (model, args, kw)
+        self.kept.append(step)
+        return step
+
+    def call(self, graphs, key, step, pool, row, n_rand, off_shape, out,
+             host_off):
+        import torch
+        model, args, kw = self.made[id(step)]
         stage = "fine" if model.rgbnet is not None else "coarse"
         clip = kw.get("clip_sizes")
         fused = clip is not None and clip[0] == "fblk"
-        apply_tv, tv_dense = args[3], args[4]
-        tv = ("dense" if tv_dense else "sparse") if apply_tv else "none"
-
-        def timed(*a, **k):
-            kind, key = draw_kind(self.draw), self.draw
-            self.last[(stage, fused)] = (step, a, k)
-            self.last_kind[(stage, kind)] = (step, a, k)
-            self.last_tv[tv] = (step, a, k, int(np_prod(model.world_size)))
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            self.inside = (stage, kind)
-            try:
-                loss, psnr = step(*a, **k)
-            finally:
-                self.inside = None
-            torch.cuda.synchronize()
-            self.steps.append((stage, int(np_prod(model.world_size)),
-                               (time.perf_counter() - t0) * 1e3,
-                               float(psnr), float(loss), fused, kind, key))
-            return loss, psnr
-
-        self.made[id(step)] = (model, args, kw)
-        return timed
+        tv = ("dense" if args[4] else "sparse") if args[3] else "none"
+        kind, dkey = draw_kind(self.draw), self.draw
+        voxels = int(np_prod(model.world_size))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        self.inside = (stage, kind)
+        try:
+            how = self.orig_call(graphs, key, step, pool, row, n_rand,
+                                 off_shape, out, host_off)
+        finally:
+            self.inside = None
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        a = (pool, row[:n_rand].clone(), host_off if host_off is not None
+             else row[n_rand:].to(torch.int32).reshape(off_shape).clone())
+        self.last[(stage, fused)] = (step, a, {})
+        self.last_kind[(stage, kind)] = (step, a, {})
+        self.last_tv[tv] = (step, a, {}, voxels)
+        self.recent.setdefault(id(step), collections.deque(
+            maxlen=self.RECENT)).append(a)
+        self.kind_of[id(step)] = (stage, kind, tv, voxels)
+        self.steps.append((stage, voxels, ms, float(out[1]), float(out[0]),
+                           fused, kind, dkey, how))
+        return how
 
     def restore(self):
         self.train_lib.make_train_step = self.orig
-        self.draws_cls.next_batch = self.orig_draw
+        self.draws_cls.next_chunk = self.orig_draw
+        self.graphs_cls.call = self.orig_call
 
     def unwindowed(self, step):
         """The step that ``step`` (a recorded step) would be over the clip
@@ -1250,6 +1453,32 @@ class StepRecorder:
         sizes, offs = model.sweep_clip_for_axis(kw["axis"])
         return self.orig(model, *args, axis=kw["axis"],
                          clip_sizes=sizes), offs
+
+
+class PerReplay:
+    """Registers counters by form (``collections.Counter`` attributes
+    ``counts`` of a :class:`Capture` or a recorder) with the train steps'
+    CUDA graphs (``engine.graphs.COUNTERS``), so that, like the kernels'
+    own counters, they count each replay and not the capture."""
+
+    def __init__(self, *objs):
+        from directvoxgo_tpu_torch.engine import graphs as graphs_lib
+        self.graphs_lib = graphs_lib
+        self.added = [(o, "counts") for o in objs]
+        graphs_lib.COUNTERS.extend(self.added)
+
+    def restore(self):
+        for item in self.added:
+            self.graphs_lib.COUNTERS.remove(item)
+
+
+def how_steps_ran(steps):
+    """Share of these recorded steps replayed from a CUDA graph, and the
+    counts of eager steps and captures."""
+    by = collections.Counter(s[8] for s in steps)
+    return {"replayed_share": by["replay"] / max(len(steps), 1),
+            "captures": by["capture"], "eager": by["eager"],
+            "replays": by["replay"]}
 
 
 def np_prod(xs):
@@ -1736,6 +1965,7 @@ def train_phase(torch, dev, ka, kb, kc, sweep_ops):
     count_timer = CallTimer(torch, [
         (DirectVoxGO, "voxel_count_views"),
         (draws_lib.Draws, "_build_segments")])
+    per_replay = PerReplay(cap_a, cap_c, cap_ka, cap_kc)
     ka.launches = ka.launches_windowed = kb.launches = kc.launches = 0
     ka.launches_by_form.clear()
     kc.launches_by_form.clear()
@@ -1746,6 +1976,7 @@ def train_phase(torch, dev, ka, kb, kc, sweep_ops):
         torch.cuda.synchronize()
     finally:
         rec.restore()
+        per_replay.restore()
         for cap in (cap_kc, cap_ka, cap_c, cap_a):
             cap.restore()
         count_timer.restore()
@@ -1804,6 +2035,16 @@ def train_phase(torch, dev, ka, kb, kc, sweep_ops):
                                  f"not match {want} (channels {c_of})")
     classes = draw_classes(fine_top)
     log(f"[phase 5] fine draws at {top} voxels by step key: {classes}")
+    # The steps ran as CUDA graphs: replayed after each key's eager first
+    # step and its capture; a whole chunk keeps one axis.
+    ran = {stage: how_steps_ran(st) for stage, st in (("coarse", coarse),
+                                                      ("fine", fine))}
+    log(f"[phase 5] steps by how they ran: {ran}; median fine step at "
+        f"{top} voxels {median([s[2] for s in fine_top]):.2f} ms (eager "
+        f"engine: {EAGER_STEP_MS['lego fine at 160^3']} ms)")
+    if not all(r["replayed_share"] > MIN_REPLAYED_SHARE
+               for r in ran.values()):
+        raise AssertionError(f"too few steps were replayed: {ran}")
 
     # Where a fine step's time goes: three more steps of the last one,
     # traced (the checkpoints are written; these steps are not saved).
@@ -1986,6 +2227,27 @@ def train_phase(torch, dev, ka, kb, kc, sweep_ops):
         raise AssertionError("windowed train steps did not run through the "
                              "windowed kernels")
 
+    # Graphed steps against eager ones from one state, at full width: an
+    # 8-step coarse chunk, a fine window step at the top grid, a blocked
+    # step (its batches built here from the fine pool).
+    graph_checks = {}
+    for name, stage, kind, vox in (("lego coarse chunk", "coarse", "plain",
+                                    None),
+                                   ("lego fine window", "fine", "window",
+                                    top)):
+        st = busiest_step(rec, stage, kind, voxels=vox)
+        model_g, args_g, kw_g = rec.made[id(st)]
+        graph_checks[name] = graph_vs_eager(
+            torch, dev, name, model_g, args_g, kw_g, *recent_batches(rec, st))
+    model_g, args_g, kw_g = rec.made[id(st)]
+    pool_g = rec.recent[id(st)][0][0]
+    b_key, b_sels, b_offs = blocked_batches(torch, model_g, pool_g,
+                                            kw_g["axis"],
+                                            int(cfg.fine_train.N_rand))
+    graph_checks["lego fine blocked"] = graph_vs_eager(
+        torch, dev, "lego fine blocked", model_g, args_g,
+        dict(kw_g, clip_sizes=b_key), pool_g, b_sels, b_offs)
+
     # Every form the training path launched, on the inputs of its last
     # call there, against the plain version and timed.
     entries = []
@@ -2063,6 +2325,8 @@ def train_phase(torch, dev, ka, kb, kc, sweep_ops):
                "fine_draw_classes_at_top": classes,
                "fine_step_trace": step_trace,
                "fine_window_vs_unwindowed": window_trace,
+               "steps_by_how_they_ran": ran,
+               "graphed_vs_eager": graph_checks,
                "kernel_forms_checked": form_errs}
     return entries, summary
 
@@ -2220,47 +2484,157 @@ def fused_numbers(torch, tf, args, cfg, gp, cot):
 
 
 def profile_step(torch, step, args, kwargs, n_steps=3, share_of=()):
-    """``n_steps`` more calls of a train step under ``torch.profiler``: per
-    step the host wall time (with the profiler's own cost in it), the
-    device's busy time (the sum of its kernels and copies) and idle share,
-    the kernel count, the ten kernels and the ten operators with the most
-    device time (ms per step) and, for each name in ``share_of``, the share
-    of the busy time in kernels whose name holds it. None when the profiler
-    records no device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    step(*args, **kwargs)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    """``n_steps`` more calls of a train step (or render) under
+    ``torch.profiler``, after one untraced call: ``tools.trace_step.
+    profile_steps``'s numbers per step (wall, busy, idle share, launches,
+    top kernels and operators, the busy share of each name in
+    ``share_of``)."""
+    from directvoxgo_tpu_torch.tools.trace_step import profile_steps
+
+    def steps():
         for _ in range(n_steps):
             step(*args, **kwargs)
+    return profile_steps(steps, n_steps, share_of,
+                         warm=lambda: step(*args, **kwargs))
+
+
+# ----------------------------------------- train steps: graphed vs eager
+
+# The eager engine's median step wall ms, host clock around a synced step,
+# on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 5): lego fine at
+# 160^3 over all draws, fern at the top grid with dense and with sparse TV.
+# Earlier figures, logged beside this run's medians on stderr only: the
+# JSON lines carry what this run measured.
+EAGER_STEP_MS = {"lego fine at 160^3": 11.45, "fern dense TV": 22.39,
+                 "fern sparse TV": 10.51}
+# The share of a training run's steps that must have been replayed from a
+# CUDA graph (the rest: each key's eager first step and its capture).
+MIN_REPLAYED_SHARE = 0.5
+def graph_vs_eager(torch, dev, what, model, make_args, make_kw, pool, sels,
+                   offs):
+    """The steps of one step key on ``sels`` [n, N] and ``offs`` [n, ...]
+    (host arrays), from one state (copies of ``model`` and its optimizer,
+    ``make_args[0]``), replayed as CUDA graphs (``StepGraphs``: the first
+    step eager, the second captured) and run eagerly (``graphed=False``):
+    the losses agree within ``WINDOW_TOL[0]`` relative and the parameters
+    within ``WINDOW_TOL[1]`` of their scale (K-C sums in another order each
+    run, and Adam turns such noise near zero gradients into steps). Then
+    both go on over the same batches, timed and traced; returns the
+    numbers."""
+    import copy
+    import numpy as np
+    from directvoxgo_tpu_torch.engine import graphs as graphs_lib
+    from directvoxgo_tpu_torch.engine import train as train_lib
+    from directvoxgo_tpu_torch.tools.trace_step import profile_steps
+    n = sels.shape[0]
+    key = (make_kw["axis"], make_kw.get("clip_sizes"))
+    runs = {}
+    for graphed in (True, False):
+        m, opt = copy.deepcopy((model, make_args[0]))
+        step = train_lib.make_train_step(m, opt, *make_args[1:], **make_kw)
+        sg = graphs_lib.StepGraphs(dev, graphed=graphed)
+        sg.reset(scratch=(np_prod(m.world_size), 2 + m.k0_dim))
+        res = sg.run(key, step, pool, sels, offs).cpu().numpy()
+        runs[graphed] = (m, step, sg, res)
+    (mg, _, sg_g, res_g), (me, _, sg_e, res_e) = runs[True], runs[False]
+    d_loss = np.abs(res_g[:, 0] - res_e[:, 0])
+    d_par, scale = [], []
+    for a, b in zip(mg.parameters(), me.parameters()):
+        d_par.append(float((a - b).detach().abs().max()))
+        scale.append(max(1.0, float(b.detach().abs().max())))
+    ok = (np.isfinite(res_g).all() and np.isfinite(res_e).all()
+          and bool(np.all(d_loss <= WINDOW_TOL[0]
+                          * np.maximum(1.0, np.abs(res_e[:, 0]))))
+          and all(d <= WINDOW_TOL[1] * sc for d, sc in zip(d_par, scale))
+          and dict(sg_g.stats) == {"eager": 1, "capture": 1,
+                                   "replay": n - 2})
+    log(f"[graphs] {what}: key {key}, {n} steps ({dict(sg_g.stats)}): "
+        f"largest loss difference {float(d_loss.max()):.3e} (loss "
+        f"{float(res_e[-1, 0]):.6f}), largest parameter difference "
+        f"{max(d_par):.3e}")
+    if not ok:
+        raise AssertionError(f"graphed steps of {what} differ from eager "
+                             f"ones: loss {d_loss.tolist()}, parameters "
+                             f"{d_par}, runs {dict(sg_g.stats)}")
+    out = {"key": str(key), "steps": n, "max_loss_diff": float(d_loss.max()),
+           "max_param_diff": max(d_par),
+           "capture_s": next(iter(sg_g.capture_s.values()))}
+    for graphed, name in ((True, "graphed"), (False, "eager")):
+        m, step, sg, _ = runs[graphed]
+        chunk = (lambda sg=sg, step=step:
+                 sg.run(key, step, pool, sels, offs))
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / n_steps
-    kernels, operators = [], []
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0.0))
-        if dev_us <= 0:
+        t0 = time.perf_counter()
+        chunk()
+        torch.cuda.synchronize()
+        out[f"{name}_wall_ms"] = (time.perf_counter() - t0) * 1e3 / n
+        out[f"{name}_trace"] = profile_steps(chunk, n)
+    log(f"[graphs] {what}: {out}")
+    del runs
+    return out
+
+
+def blocked_batches(torch, model, pool, axis, n_rand, n_max=8):
+    """A blocked step key ``('blk', B, eu, ev)`` of ``model`` and up to
+    ``n_max`` of its batches (pool indices [n, N], per-block (u, v) starts
+    [n, B, 2]): the axis group's rays of the pool (a seeded subset of at
+    most 400,000) through ``build_ray_segments_blocked``, the most
+    populous window class."""
+    import numpy as np
+    from directvoxgo_tpu_torch.engine import draws as draws_lib
+    from directvoxgo_tpu_torch.ops import sweep as sweep_ops
+    ro = pool["rays_o"].cpu().numpy()
+    rd = pool["rays_d"].cpu().numpy()
+    g = np.flatnonzero(sweep_ops.sweep_axes(model, rd) == axis)
+    if g.size > 400_000:
+        g = np.sort(np.random.default_rng(SEED).choice(g, 400_000,
+                                                       replace=False))
+    ws = tuple(int(x) for x in model.world_size)
+    bk = sweep_ops.build_ray_segments_blocked(
+        ro[g], rd[g], model.xyz_min, model.xyz_max, ws, axis,
+        n_rand=n_rand, n_blocks=6, widths=draws_lib.WINDOW_WIDTHS,
+        max_classes=4)
+    cls = max((k for k in bk if k != (0, 0)),
+              key=lambda k: bk[k][0].shape[0])
+    idx, uo, vo = bk[cls]
+    # at least three batches (eager, capture, a replay); a class of fewer
+    # segments repeats them
+    n = max(3, min(n_max, idx.shape[0]))
+    idx, uo, vo = (np.resize(x, (n, *x.shape[1:])) for x in (idx, uo, vo))
+    perm = sweep_ops._PERMS[axis]
+    key = ("blk", int(uo.shape[1]),
+           *draws_lib.Draws._eff(cls, ws[perm[1]], ws[perm[2]]))
+    offs = np.stack([np.stack([uo[r], vo[r]], 1) for r in range(n)])
+    return key, g[idx[:n]], offs.astype(np.int32)
+
+
+def recent_batches(rec, step):
+    """The last batches of a recorded step: (pool, sels [n, N], offs [n,
+    ...]) as host arrays."""
+    import numpy as np
+    batches = list(rec.recent[id(step)])
+    sels = np.stack([b[1].cpu().numpy() for b in batches])
+    offs = np.stack([np.asarray(b[2].cpu() if hasattr(b[2], "cpu")
+                                else b[2]) for b in batches])
+    return batches[0][0], sels, offs
+
+
+def busiest_step(rec, stage, kind, tv=None, voxels=None):
+    """Of the recorded steps of ``stage`` (None: any) and draw ``kind``
+    (and TV form, grid size), the step object with the most recent
+    batches; None if there is none."""
+    best = None
+    for st in rec.kept:
+        form = rec.kind_of.get(id(st))
+        if (form is None or form[1] != kind
+                or (stage is not None and form[0] != stage)
+                or (tv is not None and form[2] != tv)
+                or (voxels is not None and form[3] != voxels)):
             continue
-        row = {"name": ev.key[:48], "ms": round(dev_us / 1e3 / n_steps, 4),
-               "calls": ev.count / n_steps, "key": ev.key}
-        (kernels if ev.device_type == DeviceType.CUDA else operators).append(
-            row)
-    if not kernels:
-        return None
-    busy = sum(r["ms"] for r in kernels)
-    shares = {name: sum(r["ms"] for r in kernels if name in r["key"]) / busy
-              for name in share_of}
-    for r in kernels + operators:
-        del r["key"]
-    top = lambda rows: sorted(rows, key=lambda r: -r["ms"])[:10]  # noqa: E731
-    return {"wall_ms": wall, "device_busy_ms": busy,
-            "device_idle_share": max(0.0, 1.0 - busy / wall),
-            "kernel_launches": sum(r["calls"] for r in kernels),
-            "top_kernels": top(kernels), "top_operators": top(operators),
-            **({"busy_share_of": shares} if share_of else {})}
+        if best is None or len(rec.recent[id(st)]) > len(
+                rec.recent[id(best)]):
+            best = st
+    return best
 
 
 def fused_phase(torch, dev, tf, ka, kc, sweep_ops, phase5):
@@ -2297,6 +2671,7 @@ def fused_phase(torch, dev, tf, ka, kc, sweep_ops, phase5):
     cap_ka = Capture(sweep_ops, "sweep_fwd", form=ka_form(ka))
     cap_kc = Capture(sweep_ops, "sweep_bwd", form=kc_form(torch, kc))
     builds = CallTimer(torch, [(draws_lib.Draws, "_build_fused")])
+    per_replay = PerReplay(cap_ka, cap_kc)
     tf.launches_fwd = tf.launches_bwd = ka.launches = kc.launches = 0
     env_before = os.environ.get("DVGO_FUSED_TRAIN")
     os.environ["DVGO_FUSED_TRAIN"] = "1"
@@ -2311,6 +2686,7 @@ def fused_phase(torch, dev, tf, ka, kc, sweep_ops, phase5):
         else:
             os.environ["DVGO_FUSED_TRAIN"] = env_before
         rec.restore()
+        per_replay.restore()
         counter.restore()
         for cap in (cap_kc, cap_ka, cap_t, cap_e):
             cap.restore()
@@ -2330,9 +2706,17 @@ def fused_phase(torch, dev, tf, ka, kc, sweep_ops, phase5):
     # One K-D and one K-E launch per fused step; the unfused steps (the
     # remainder: over the clip box, or re-bucketed into 2D windows and
     # per-block windows where windows engage) one K-A and one K-C launch
-    # each, or one per block.
+    # each, or one per block. As in the JAX engine, steps fuse only where
+    # it takes one step a dispatch (grids past 1.1 M voxels): there at
+    # least half of them do, and none below.
+    allowed = [s for s in run_steps
+               if s[1] > draws_lib.SMALL_GRID_VOXELS]
+    log(f"[phase 6] fusing allowed on {len(allowed)} of {len(run_steps)} "
+        f"steps; steps by how they ran: {how_steps_ran(run_steps)}")
     if not (all(s[0] == "fine" for s in run_steps)
-            and len(run_steps) == N_FINE and 2 * len(fused) >= N_FINE
+            and len(run_steps) == N_FINE and allowed
+            and 2 * len(fused) >= len(allowed)
+            and all(s[1] > draws_lib.SMALL_GRID_VOXELS for s in fused)
             and len(fused_top) >= MIN_TOP_STEPS // 2
             and kinds["window"] + kinds["blocked"] > 0
             and launches["train_fwd"] == launches["train_bwd"] == len(fused)
@@ -2438,6 +2822,8 @@ def fused_phase(torch, dev, tf, ka, kc, sweep_ops, phase5):
                "white_psnr": phase5["white_psnr"], "tiles": tiles,
                "draw_kinds": dict(kinds), "draw_classes_at_top": classes,
                "tile_build_s": builds.seconds.get("_build_fused"),
+               "fusing_allowed_steps": len(allowed),
+               "steps_by_how_they_ran": how_steps_ran(run_steps),
                "step_traces": profiles,
                "remainder_kernel_forms_checked": form_errs}
     return entries, summary
@@ -2505,12 +2891,12 @@ class TVRecorder:
     the boxed ``tv_add_grad_box`` in its module): every call still launches
     (and counts) as before; calls are counted by form (dense or sparse,
     whole grid or box, k0 or density, and the kernel's path,
-    ``tv.path_of``), and the inputs of a form's first call and of the calls
-    made during the steps in ``keep_steps`` (1-based) are cloned, so that
-    every form can be replayed exactly, most on its last call."""
+    ``tv.path_of``), and the inputs of a form's last eager call are
+    cloned (the train steps replay as CUDA graphs; each step key's first
+    call is eager), so that every form can be replayed exactly."""
 
-    def __init__(self, torch, tv_mod, mpi_mod, rec, keep_steps):
-        self.torch, self.rec, self.keep_steps = torch, rec, set(keep_steps)
+    def __init__(self, torch, tv_mod, mpi_mod):
+        self.torch = torch
         self.tv = tv_mod
         self.counts = collections.Counter()
         self.kept = {}      # form -> (entry, args, kwargs)
@@ -2534,8 +2920,12 @@ class TVRecorder:
                     f"{' box' if boxed else ''} "
                     f"{'k0' if param.dim() == 4 else 'density'}, {path}")
             self.counts[form] += 1
-            if (len(self.rec.steps) + 1 in self.keep_steps
-                    or form not in self.kept):
+            # Each eager call keeps its inputs (the last eager call of a
+            # form: a step key's first call at the top grid); a call made
+            # while a step is captured as a CUDA graph keeps none (its
+            # tensors lie in the graphs' shared pool, which other graphs'
+            # replays overwrite).
+            if not self.torch.cuda.is_current_stream_capturing():
                 self.kept[form] = (name, (param.detach().clone(),
                                           grad.clone(), *args), dict(kw))
             return orig(param, grad, *args, **kw)
@@ -2596,7 +2986,7 @@ def tv_numbers(torch, tv, name, args, kw):
         n_term = int(core.sum())
     n_bytes = 4 * (n_param + 2 * grad.numel())
     ops = 27 * n_term + grad.numel()
-    path = tv.path_of(param, grad, offs)
+    path = tv.path_of(param, grad, args[2] if boxed else offs)
     prev_call = prev_tv_call(torch, name, args, kw)
     prev_out = prev_call()
     prev_same = bool(torch.equal(prev_out, out))
@@ -2657,8 +3047,7 @@ def mpi_phase(torch, dev, tv, ka, kc, sweep_ops):
     logdir = os.path.join(cfg.basedir, cfg.expname)
 
     rec = StepRecorder(train_lib)
-    tvr = TVRecorder(torch, tv, mpi_mod, rec,
-                     (FERN_TV_DENSE_BEFORE - 1, FERN_ITERS))
+    tvr = TVRecorder(torch, tv, mpi_mod)
     cap_a = Capture(sweep_ops, "sweep_fwd", form=rec.form)
     cap_c = Capture(sweep_ops, "sweep_bwd", form=rec.form)
     cap_ka = Capture(sweep_ops, "sweep_fwd", form=ka_form(ka))
@@ -2684,6 +3073,7 @@ def mpi_phase(torch, dev, tv, ka, kc, sweep_ops):
         (ckpt_lib, "load_checkpoint_file"),
         (draws_lib.Draws, "_build_segments")])
     train_lib.scene_rep_reconstruction = timed_stage
+    per_replay = PerReplay(cap_a, cap_c, cap_ka, cap_kc, tvr)
     ka.launches = kc.launches = tv.launches = 0
     ka.launches_by_form.clear()
     kc.launches_by_form.clear()
@@ -2696,6 +3086,7 @@ def mpi_phase(torch, dev, tv, ka, kc, sweep_ops):
         timer.restore()
         train_lib.scene_rep_reconstruction = orig_stage
         rec.restore()
+        per_replay.restore()
         tvr.restore()
         for cap in (cap_kc, cap_ka, cap_c, cap_a):
             cap.restore()
@@ -2756,6 +3147,23 @@ def mpi_phase(torch, dev, tv, ka, kc, sweep_ops):
     if not psnr_last > psnr_first:
         raise AssertionError(f"train PSNR did not rise: {psnr_first} -> "
                              f"{psnr_last}")
+    ran = how_steps_ran(steps)
+    log(f"[phase 7] steps by how they ran: {ran}; median top-grid step "
+        f"{step_ms['dense_tv']:.2f} ms dense TV, {step_ms['sparse_tv']:.2f} "
+        f"ms sparse TV (eager engine: {EAGER_STEP_MS['fern dense TV']} ms "
+        f"dense TV, {EAGER_STEP_MS['fern sparse TV']} ms sparse TV)")
+    if not ran["replayed_share"] > MIN_REPLAYED_SHARE:
+        raise AssertionError(f"too few steps were replayed: {ran}")
+    # Graphed window steps against eager ones from one state, at the top
+    # grid: under dense TV (full-size gradients, whole-grid K-F and Adam)
+    # and under sparse TV (region mode, K-F's box form on device offsets).
+    graph_checks = {}
+    for tv_form in ("dense", "sparse"):
+        st = busiest_step(rec, None, "window", tv=tv_form, voxels=top)
+        model_g, args_g, kw_g = rec.made[id(st)]
+        graph_checks[f"fern window, {tv_form} TV"] = graph_vs_eager(
+            torch, dev, f"fern window, {tv_form} TV", model_g, args_g, kw_g,
+            *recent_batches(rec, st))
 
     # The checkpoint loads back, with finite parameters at the top grid.
     path = os.path.join(logdir, "fine_last.tar")
@@ -2899,6 +3307,8 @@ def mpi_phase(torch, dev, tv, ka, kc, sweep_ops):
                "view_tiles_trace": view_trace,
                "render_chunk_trace": chunk_trace,
                "draw_kinds": dict(kinds), "draw_classes_at_top": classes,
+               "steps_by_how_they_ran": ran,
+               "graphed_vs_eager": graph_checks,
                "bucket_build_s": timer.seconds.get("_build_segments"),
                "render_sweep_launches": render_launches,
                "tv_calls_by_form": dict(tvr.counts),
@@ -3140,6 +3550,7 @@ def run(dev):
     errs["tv_add_grad"] = small_tv_checks(torch, dev, tv)
     errs["render_frame"] = small_frame_checks(torch, dev, kb)
     errs["window"] = small_window_checks(torch, dev)
+    errs["graphs"] = small_graph_checks(torch, dev)
 
     from directvoxgo_tpu_torch import run as run_lib
     from directvoxgo_tpu_torch.config import Config
@@ -3311,6 +3722,7 @@ def run(dev):
     # Phase 8: the frame-kernel harness (v1, v3, v4) and the op probe.
     harness_entries, training["harness"] = harness_phase(torch, dev, kb)
     training["window_checks"] = errs["window"]
+    training["small_graph_checks"] = errs["graphs"]
     fwd = [e for e in train_entries if e["name"].startswith("sweep_fwd")]
     return kernels[:1] + fwd + kernels[1:] \
         + [e for e in train_entries if e not in fwd] + fused_entries \

@@ -83,7 +83,7 @@ def opt_state_to_jax(optimizer):
     st = optimizer.state
     per_lr = st["per_lr"]
     return {
-        "step": np.asarray(st["step"], np.int32),
+        "step": np.asarray(int(st["step"]), np.int32),
         "exp_avg": {n: _moments_to_jax(n, ts)
                     for n, ts in st["exp_avg"].items()},
         "exp_avg_sq": {n: _moments_to_jax(n, ts)
@@ -96,7 +96,7 @@ def opt_state_from_jax(state_np, optimizer):
     """Load a JAX optimizer pytree (numpy leaves) into the port's
     MaskedAdam, for the groups it trains."""
     st = optimizer.state
-    st["step"] = int(state_np["step"])
+    st["step"].fill_(int(state_np["step"]))
     for key in ("exp_avg", "exp_avg_sq"):
         for name, group in optimizer.groups.items():
             st[key][name] = _moments_from_jax(name, state_np[key][name],

@@ -49,10 +49,12 @@
 //    grid slabs. The split scales the block's partial sum rather than each
 //    tap, as the plain version scales the station's whole sum;
 //  - the accumulator is a scratch buffer that stays zero between calls, and
-//    each touched voxel is marked with the call's epoch in a byte per voxel:
-//    the finishing pass copies only the touched voxels into the zero-filled
-//    output (16 contiguous bytes a thread) and zeroes them again in the
-//    scratch, so no call fills or casts the whole f32 grid.
+//    each touched voxel is marked in a byte per voxel: the finishing pass
+//    copies only the touched voxels into the zero-filled output and zeroes
+//    them and their marks again, so no call fills or casts the whole f32
+//    grid. Marks and scratch are zero between calls, so a call takes no
+//    state from the host: a train step captured as a CUDA graph replays
+//    the same launches with the same arguments.
 // The order of the f32 reductions varies from run to run, so the sums
 // differ in their last bits between runs.
 
@@ -312,21 +314,31 @@ __device__ __forceinline__ void store_out(__nv_bfloat16* o, float x) {
 }
 
 // The voxels this call touched (flag == epoch) from the scratch into the
-// zero-filled output, rounded to its dtype, and zeroed again in the
-// scratch. Thread t takes 16 bytes of the scratch, float4 t % (as / 4) of
-// voxel t / (as / 4), so that a warp reads and zeroes 512 contiguous
-// bytes; as = 1 (one channel): one float a thread.
+// zero-filled output, rounded to its dtype, and zeroed again in the scratch,
+// their flags cleared. Thread t takes 16 bytes of the scratch, float4 t % per
+// of voxel t / per (per: the voxel's as / 4 float4s rounded up to a power of
+// two, the lanes past as / 4 idle; as = 1, one channel: one float a thread),
+// so that a warp reads and zeroes contiguous bytes and holds every thread of
+// its voxels. Each lane reads its voxel's flag, the warp meets at
+// __syncwarp, and only then does lane q = 0 clear the flag: no flag is
+// cleared while a thread of its voxel still reads it. The loop runs while
+// the warp's first item is in range, so all 32 lanes reach every
+// __syncwarp.
 template <typename OUT>
 __global__ void __launch_bounds__(FINISH_THREADS)
-sweep_bwd_finish(float* __restrict__ acc, int as,
-                 const uint8_t* __restrict__ flags, int epoch,
+sweep_bwd_finish(float* __restrict__ acc, int as, int per,
+                 uint8_t* __restrict__ flags, int epoch,
                  OUT* __restrict__ out, int n_vox, int c) {
-  const unsigned per = as == 1 ? 1 : as / 4;     // threads a voxel
   const unsigned n_items = (unsigned)n_vox * per;
-  for (unsigned t = blockIdx.x * FINISH_THREADS + threadIdx.x; t < n_items;
-       t += gridDim.x * FINISH_THREADS) {
-    const unsigned v = t / per, q = t - v * per;
-    if (flags[v] != (uint8_t)epoch) continue;
+  const unsigned nq = as == 1 ? 1 : as / 4, sh = __ffs(per) - 1;
+  for (unsigned base = blockIdx.x * FINISH_THREADS + (threadIdx.x & ~31u);
+       base < n_items; base += gridDim.x * FINISH_THREADS) {
+    const unsigned t = base + (threadIdx.x & 31u);
+    const unsigned v = t >> sh, q = t & (per - 1);
+    const bool hit = t < n_items && q < nq && flags[v] == (uint8_t)epoch;
+    __syncwarp();
+    if (!hit) continue;
+    if (q == 0) flags[v] = 0;
     OUT* o = out + (size_t)v * c;
     if (as == 1) {
       store_out(o, acc[v]);
@@ -411,8 +423,8 @@ int dvgo_sweep_bwd_limits(int device, int* limits) {
 // g: station cotangents g[s, c, n] at element strides (gs_s, gs_c, gs_n),
 // f32; rays [6, N] f32 rows (op, ou, ov, dp, du, dv) with dp != 0; acc: the
 // [Gp, Gu, Gv, as] f32 scratch (as = acc_stride(c)), ZERO at
-// entry; flags [Gp, Gu, Gv] bytes, none equal to epoch (1..255) at entry:
-// the touched voxels get epoch. S = k*(Gp-1)+1. window_mode 0: full
+// entry; flags [Gp, Gu, Gv] bytes, zero at entry (the finishing pass
+// clears the ones it consumes): the touched voxels get epoch (1..255). S = k*(Gp-1)+1. window_mode 0: full
 // transpose (v_base unused); 1: ray r counts only v-taps in [v_base[r /
 // tile_n], +wv); 2: every ray counts only v-taps in [v_base[seg_idx], +wv).
 // chunks 0: the global form; chunks > 0: the shared form with chunks ray
@@ -438,24 +450,27 @@ int dvgo_sweep_bwd(const float* g, long long gs_s, long long gs_c,
 }
 
 // out [Gp*Gu*Gv, c] (bf16 if out_is_bf16 else f32), zero-filled by the
-// caller, gets the voxels flagged with epoch; those are zeroed in acc.
-int dvgo_sweep_bwd_finish(float* acc, int as, const unsigned char* flags,
+// caller, gets the voxels flagged with epoch; those are zeroed in acc and
+// their flags cleared to 0.
+int dvgo_sweep_bwd_finish(float* acc, int as, unsigned char* flags,
                           int epoch, void* out, int out_is_bf16,
                           long long n_vox, int c, void* stream) {
-  const long long items = n_vox * (as == 1 ? 1 : as / 4);
-  if (c < 1 || as != acc_stride(c) || n_vox < 1 || items >= (1LL << 31) ||
-      epoch < 1 || epoch > 255)
+  int per = 1;
+  while (as > 1 && per < as / 4) per *= 2;
+  const long long items = n_vox * per;
+  if (c < 1 || as != acc_stride(c) || n_vox < 1 || per > 32 ||
+      items >= (1LL << 31) || epoch < 1 || epoch > 255)
     return cudaErrorInvalidValue;
   const long long want = (items + FINISH_THREADS - 1) / FINISH_THREADS;
   const unsigned blocks = (unsigned)(want < 132 * 32 ? want : 132 * 32);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (out_is_bf16)
     sweep_bwd_finish<__nv_bfloat16><<<blocks, FINISH_THREADS, 0, st>>>(
-        acc, as, flags, epoch, static_cast<__nv_bfloat16*>(out), (int)n_vox,
-        c);
+        acc, as, per, flags, epoch, static_cast<__nv_bfloat16*>(out),
+        (int)n_vox, c);
   else
     sweep_bwd_finish<float><<<blocks, FINISH_THREADS, 0, st>>>(
-        acc, as, flags, epoch, static_cast<float*>(out), (int)n_vox, c);
+        acc, as, per, flags, epoch, static_cast<float*>(out), (int)n_vox, c);
   return cudaGetLastError();
 }
 

@@ -48,6 +48,13 @@
 //  - strided (dvgo_tv_add_grad): the first version, one thread per
 //    element, g read through its strides (autograd's channel slices of a
 //    stacked grid's gradient) and boxes at any offset.
+// Both entries take the box's offsets as host integers or, with a non-null
+// `offs`, as int32 [3] in device memory, read by every block at its start
+// and clamped into the grid: a train step captured as a CUDA graph then
+// replays each step's box where its draw put it. The wrapper picks the
+// rows path for device offsets only where every offset the box admits
+// keeps the flat run in whole vectors (C a multiple of 4, or the box
+// spanning the grid's z).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -80,9 +87,14 @@ tv_add_grad_kernel(const float* __restrict__ p, const float* __restrict__ g,
                    int ox, int oy, int oz, int bx, int by, int bz,
                    long long g_sx, long long g_sy, long long g_sz,
                    long long g_sc, long long n, float wx, float wy,
-                   float wz, int dense) {
+                   float wz, int dense, const int* __restrict__ offs) {
   const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
   if (i >= n) return;
+  if (offs) {
+    ox = min(max(__ldg(offs), 0), gx - bx);
+    oy = min(max(__ldg(offs + 1), 0), gy - by);
+    oz = min(max(__ldg(offs + 2), 0), gz - bz);
+  }
   long long r = i;
   const int ch = (int)(r % c);
   r /= c;
@@ -163,8 +175,14 @@ struct Ring {
 template <bool DENSE>
 __global__ void __launch_bounds__(THREADS)
 tv_rows_kernel(const float* __restrict__ p, const float* __restrict__ g,
-               float* __restrict__ out, RowArgs a) {
+               float* __restrict__ out, RowArgs a,
+               const int* __restrict__ offs) {
   constexpr int DIST = Ring<DENSE>::DIST, NBUF = Ring<DENSE>::NBUF;
+  if (offs) {
+    a.ox = min(max(__ldg(offs), 0), a.gx - a.bx);
+    a.oy = min(max(__ldg(offs + 1), 0), a.gy - a.by);
+    a.ozc = min(max(__ldg(offs + 2) * a.c, 0), a.gzc - a.run);
+  }
   extern __shared__ float4 smem4[];
   float* gt = reinterpret_cast<float*>(smem4);   // g tiles [NBUF][TY][GT]
   float* smem = gt + NBUF * TY * GT;             // p planes (DENSE)
@@ -322,7 +340,7 @@ int sm_count();
 
 template <bool DENSE>
 int launch_rows(const float* p, const float* g, float* out, RowArgs a,
-                cudaStream_t st) {
+                const int* offs, cudaStream_t st) {
   // x slices: enough blocks for several waves, at least 16 planes each (a
   // slice stages planes beyond its own).
   const int tiles = (a.run + TR - 1) / TR * ((a.by + TY - 1) / TY);
@@ -337,7 +355,7 @@ int launch_rows(const float* p, const float* g, float* out, RowArgs a,
   dim3 grid((a.run + TR - 1) / TR, (a.by + TY - 1) / TY, slices);
   if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidConfiguration;
   tv_rows_kernel<DENSE><<<grid, dim3(TR / 4, TY), smem, st>>>(p, g, out,
-                                                               a);
+                                                               a, offs);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -366,11 +384,14 @@ const char* dvgo_error_string(int code) {
 // contiguous, the box at (ox, oy, oz) (the whole grid: offsets 0, sizes =
 // the grid's). out must not alias p or g. wx, wy, wz: the x, y, z terms'
 // weights, already divided by 6. dense = 0: the term only where g != 0.
+// offs: null, or int32 [3] in device memory holding the box's (ox, oy, oz),
+// which the kernel reads (clamped into the grid) in place of the host's
+// (then 0).
 int dvgo_tv_add_grad(const float* p, const float* g, float* out, int gx,
                      int gy, int gz, int c, int ox, int oy, int oz, int bx,
                      int by, int bz, long long g_sx, long long g_sy,
                      long long g_sz, long long g_sc, float wx, float wy,
-                     float wz, int dense, void* stream) {
+                     float wz, int dense, const int* offs, void* stream) {
   if (gx < 1 || gy < 1 || gz < 1 || c < 1 || bx < 1 || by < 1 || bz < 1 ||
       ox < 0 || oy < 0 || oz < 0 || ox + bx > gx || oy + by > gy ||
       oz + bz > gz)
@@ -381,20 +402,21 @@ int dvgo_tv_add_grad(const float* p, const float* g, float* out, int gx,
   tv_add_grad_kernel<<<(unsigned)blocks, THREADS, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       p, g, out, gx, gy, gz, c, ox, oy, oz, bx, by, bz, g_sx, g_sy, g_sz,
-      g_sc, n, wx, wy, wz, dense);
+      g_sc, n, wx, wy, wz, dense, offs);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The rows path: as dvgo_tv_add_grad, with g's channel stride 1 (or c = 1)
 // and every offset into g under 2^31; p and out 16-byte aligned; gz*c,
 // oz*c and bz*c multiples of 4; c at most 32; the grid under 2^31
-// elements.
+// elements. Device offsets (offs non-null) must keep oz*c a multiple of 4
+// for every offset the box admits (the wrapper's rule).
 int dvgo_tv_add_grad_rows(const float* p, const float* g, float* out, int gx,
                           int gy, int gz, int c, int ox, int oy, int oz,
                           int bx, int by, int bz, long long g_sx,
                           long long g_sy, long long g_sz, long long g_sc,
                           float wx, float wy, float wz, int dense,
-                          void* stream) {
+                          const int* offs, void* stream) {
   if (gx < 1 || gy < 1 || gz < 1 || c < 1 || c > H_MAX || bx < 1 ||
       by < 1 || bz < 1 || ox < 0 || oy < 0 || oz < 0 || ox + bx > gx ||
       oy + by > gy || oz + bz > gz || (gz * c) % 4 || (oz * c) % 4 ||
@@ -425,8 +447,8 @@ int dvgo_tv_add_grad_rows(const float* p, const float* g, float* out, int gx,
   a.wy = wy;
   a.wz = wz;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dense ? launch_rows<true>(p, g, out, a, st)
-               : launch_rows<false>(p, g, out, a, st);
+  return dense ? launch_rows<true>(p, g, out, a, offs, st)
+               : launch_rows<false>(p, g, out, a, offs, st);
 }
 
 }  // extern "C"

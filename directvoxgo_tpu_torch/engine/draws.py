@@ -1,22 +1,27 @@
 """Batch draws of the training loop: axis groups, window buckets, classes.
 
 Every batch shares one sweep axis: the pool is grouped by each ray's
-dominant axis (a model's ``forced_sweep_axis`` takes every ray) and the
-axis of a batch is drawn in proportion to its group's size. Within the
-group the draw follows the JAX package's engine:
+dominant axis (a model's ``forced_sweep_axis`` takes every ray). The
+draws come in chunks, as the JAX package's engine takes them
+(:meth:`Draws.next_chunk`, its ``next_chunk(n_sub, no_window)`` with the
+loop's ``no_window`` rule): the axis of a chunk is drawn once, in
+proportion to its group's size, and all of the chunk's batches come from
+that group. Within the group the draw follows that engine:
 
 - On grids whose steps the JAX engine batches (at most 1.1 M voxels, or
-  any ``steps_per_dispatch`` above 1: :meth:`Draws.windows_engage`) the
-  batch is uniform within the group, as that engine's scanned steps draw.
-  The fused trainer (``DVGO_FUSED_TRAIN``) draws its same-class tiles there
-  too; its remainder trains unfused.
-- On the others a batch is one spatially sorted segment of one window
-  class and trains as a composed clip box (kernels K-A and K-C read only
-  the window): forced-axis (MPI) pools as 2D (u, v) windows with the
-  station extent pinned to the grid's, perspective pools as 2D windows
-  over the occupancy box, as per-p-block windows under ``bucket_blocked``
-  (the ``('blk', B, eu, ev)`` step) or as v-windows with ``bucket_2d``
-  off. With the fused trainer the tiles come first and the remainder is
+  any ``steps_per_dispatch`` above 1: :meth:`Draws.dispatch_width` above 1)
+  every batch is uniform within the group, as that engine's scanned steps
+  draw. It never draws a window class or a fused tile there: its
+  ``no_window`` holds whenever a chunk has more than one step or the
+  dispatch width is above 1, and for the fused trainer's TV steps.
+- On the others (one step a chunk) a batch is one spatially sorted segment
+  of one window class and trains as a composed clip box (kernels K-A and
+  K-C read only the window): forced-axis (MPI) pools as 2D (u, v) windows
+  with the station extent pinned to the grid's, perspective pools as 2D
+  windows over the occupancy box, as per-p-block windows under
+  ``bucket_blocked`` (the ``('blk', B, eu, ev)`` step) or as v-windows
+  with ``bucket_2d`` off. With the fused trainer (``DVGO_FUSED_TRAIN``)
+  same-class tiles come first and the remainder, which trains unfused, is
   re-bucketed through 2D windows, then blocked windows
   (:func:`rebucket_remainder`). A class is drawn in proportion to its ray
   count and a segment uniformly within it. Windows compose with the clip
@@ -29,6 +34,10 @@ a renewal (the forced-axis build measures no box and is kept); each build
 prints its seconds.
 A TV step of the fused trainer draws uniformly (its step needs full-size
 gradients, which the fused step does not give).
+
+With all axes ready, a chunk consumes the stage's generator exactly as the
+JAX engine's steady state does: one ``rng.choice(3, p=group_p)``, then
+the group's draws.
 """
 
 from __future__ import annotations
@@ -97,11 +106,11 @@ def rebucket_remainder(keep, g, rays_o, rays_d, xyz_min, xyz_max,
 
 
 class Draws:
-    """The draws of one stage: ``next_batch(apply_tv)`` returns ``(pool
-    indices, axis, step key or None, clip offsets or None)``; a None key
-    means the stage's clip box (``clip_plan[axis]``). Call
-    :meth:`set_grid` at the stage start and after every progressive
-    rescale, once ``clip_plan`` is fresh."""
+    """The draws of one stage: ``next_chunk(n_sub, apply_tv)`` returns
+    ``(pool indices [n_sub, N_rand], axis, step key or None, clip offsets
+    [n_sub, ...] or None)``; a None key means the stage's clip box
+    (``clip_plan[axis]``). Call :meth:`set_grid` at the stage start and
+    after every progressive rescale, once ``clip_plan`` is fresh."""
 
     def __init__(self, model, cfg_train, cfg_model, rays_o, rays_d, near,
                  far, rng, clip_plan, device, stage):
@@ -144,23 +153,31 @@ class Draws:
                             and n_rand % fused_ops.NT == 0
                             and fused_ops.fused_enabled(device)
                             and model.supports_fused_step())
-        self.windowed = False
+        self.n_dispatch, self.windowed = 1, False
         self.buckets = {}        # axis -> (built for, bucket dict or None)
 
     # ------------------------------------------------------------ builds
 
-    def windows_engage(self):
-        """Whether the JAX engine would take one step a dispatch on the
-        current grid (its ``dispatch_width() == 1``): windows engage only
-        then."""
+    def dispatch_width(self):
+        """Steps the JAX engine takes a dispatch on the current grid (its
+        ``dispatch_width()``): ``steps_per_dispatch``, by default 8 on
+        grids of up to 1.1 M voxels and 1 above."""
         small = int(np.prod(self.model.world_size)) <= SMALL_GRID_VOXELS
         return max(int(self.cfg_train.get(
-            "steps_per_dispatch", 8 if small else 1)), 1) == 1
+            "steps_per_dispatch", 8 if small else 1)), 1)
+
+    def windows_engage(self):
+        """Whether the JAX engine would take one step a dispatch on the
+        current grid (:meth:`dispatch_width` 1): windows engage only
+        then."""
+        return Draws.dispatch_width(self) == 1
 
     def set_grid(self):
-        """Re-evaluate the window rule and build the segment buckets for
-        the current grid and clip boxes (the fused tiles build in line)."""
-        self.windowed = self.windows_engage()
+        """Re-evaluate the dispatch width and the window rule, and build the
+        segment buckets for the current grid and clip boxes (the fused
+        tiles build in line)."""
+        self.n_dispatch = self.dispatch_width()
+        self.windowed = self.n_dispatch == 1
         if self.windowed and not self.fused_tiles \
                 and (self.bucket_ok or self.bucket2d_ok):
             for ax in ([int(self.forced)] if self.bucket2d_ok
@@ -284,29 +301,38 @@ class Draws:
 
     # ------------------------------------------------------------- draws
 
-    def next_batch(self, apply_tv):
+    def next_chunk(self, n_sub, apply_tv):
+        """The batches of a chunk of ``n_sub`` steps: the axis drawn once,
+        then ``n_sub`` batches of that group. Under the JAX loop's
+        ``no_window`` (``n_sub > 1``, a dispatch width above 1, or a TV step
+        of the fused trainer) each is uniform within the group; else (one
+        step where windows engage) the window classes and fused tiles
+        draw."""
         ax = int(self.rng.choice(3, p=self.group_p))
-        bk = None
-        if self.fused_tiles:
-            if not apply_tv:
-                bk = self._buckets_of(ax)
-        elif self.windowed and (self.bucket_ok or self.bucket2d_ok):
+        no_window = (n_sub > 1 or self.n_dispatch > 1
+                     or (apply_tv and self.fused_tiles))
+        if not no_window and self.windowed \
+                and (self.bucket_ok or self.bucket2d_ok):
             bk = self._buckets_of(ax)
-        if bk:
-            keys = [k for k in bk if isinstance(k, tuple)]
-            # a fused build keeps its branch when the re-bucketing took
-            # every remainder ray (no 'fblk' key left)
-            if self.fused_tiles:
-                out = self._draw_fused(ax, bk)
-            elif any(k[0] == "blk" for k in keys):
-                out = self._draw_blocked(ax, bk)
-            elif keys:
-                out = self._draw_2d(ax, bk)
-            else:
-                out = self._draw_1d(ax, bk)
+            out = None
+            if bk:
+                keys = [k for k in bk if isinstance(k, tuple)]
+                # a fused build keeps its branch when the re-bucketing
+                # took every remainder ray (no 'fblk' key left)
+                if self.fused_tiles:
+                    out = self._draw_fused(ax, bk)
+                elif any(k[0] == "blk" for k in keys):
+                    out = self._draw_blocked(ax, bk)
+                elif keys:
+                    out = self._draw_2d(ax, bk)
+                else:
+                    out = self._draw_1d(ax, bk)
             if out is not None:
-                return out
-        return self.group_gens[ax](), ax, None, None
+                sel, ax, key, off = out
+                return (np.asarray(sel)[None], ax, key,
+                        None if off is None else np.asarray(off)[None])
+        return (np.stack([self.group_gens[ax]() for _ in range(n_sub)]),
+                ax, None, None)
 
     def _pick(self, cands, counts):
         counts = np.asarray(counts, np.float64)

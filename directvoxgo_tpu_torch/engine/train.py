@@ -10,19 +10,27 @@ package's engine: per-voxel learning rates from the view count, the
 occupancy clip box with its hysteresis, mask renewal, progressive scaling
 with a fresh optimizer, TV state flips, progress lines and checkpoints.
 
+Steps come in chunks, as the JAX engine dispatches them (its step
+batching): :func:`chunk_len` cuts up to ``Draws.dispatch_width()`` steps
+(8 on grids of up to 1.1 M voxels, else 1, re-evaluated at every
+progressive rescale) that share one axis draw and cross no event. On a
+CUDA device every unfused step key replays as a CUDA graph of its step
+(:mod:`.graphs`), the port's counterpart of the JAX engine's one dispatch;
+the CPU runs the same steps eagerly.
+
 The draws are the JAX engine's default ones (:mod:`.draws`): on grids of
 more than 1.1 M voxels (or with ``steps_per_dispatch`` 1) a batch is one
 spatially sorted segment of one window class, trained as a composed clip
 box (``(bp, eu, ev)``) or as per-p-block windows (``('blk', B, eu, ev)``).
 PyTorch runs eagerly, so there is nothing to compile ahead of a step and no
 remote dispatch to hide: the JAX engine's precompile queue, compile epochs,
-background sorts, step batching and guarded fetches have no counterpart
-here; every window class is drawable from the first step.
+background sorts and guarded fetches have no counterpart here; every
+window class is drawable from the first step.
 
 With ``DVGO_FUSED_TRAIN`` set (:func:`..ops.train_fused.fused_enabled`) a
 stage whose model supports it trains through the fused step (kernels K-D
-and K-E) instead: each axis group is cut into same-class, direction-uniform
-512-ray tiles over the clip box
+and K-E) where windows engage, as the JAX engine does: each axis group is
+cut into same-class, direction-uniform 512-ray tiles over the clip box
 (:func:`..ops.sweep.build_ray_tiles_blocktile`), a batch is ``N_rand / 512``
 tiles of one class, drawn in proportion to the class's ray count; tiles no
 class covers train through the unfused step, re-bucketed into windows
@@ -33,9 +41,10 @@ whose rays all sweep along z (``forced_sweep_axis``); its LLFF schedule
 adds the TV gradient on every step (kernel K-F: dense over the whole grid,
 sparse over the whole grid, or sparse over the drawn box).
 
-Not ported yet from the JAX engine: step batching (ROADMAP queue item 2),
-the gather forward and the exact view count (item 3), ``--data_parallel``
-(item 6), and the profiling and export flags.
+Not ported yet from the JAX engine: the gather forward and the exact view
+count (ROADMAP queue item 3), ``--data_parallel`` (item 6), and the
+profiling and export flags. The fused step keys run eagerly: their box
+offsets are host data into K-D and K-E.
 """
 
 from __future__ import annotations
@@ -58,6 +67,7 @@ from ..ops import tv as tv_ops
 from ..optim import MaskedAdam
 from . import checkpoint as ckpt_lib
 from .draws import Draws
+from .graphs import StepGraphs
 
 
 def compute_bbox_by_cam_frustrm(cfg, HW, Ks, poses, i_train, near, far,
@@ -151,16 +161,21 @@ def make_train_step(model, optimizer, cfg_train, render_kwargs,
     place.
 
     ``clip_sizes`` (permuted order) bounds the sweep to the occupancy box
-    whose start voxels arrive as ``clip_off``. Region mode: when every
-    trainable grid is a ``skip_zero_grad`` group (and TV is off or sparse),
-    the step differentiates with respect to the box slices of the grids, so
-    gradients and the Adam update stay box-sized; exact because the sweep
-    reads nothing outside the box and ``skip_zero_grad`` leaves untouched
-    voxels alone. Plain Adam decays moments everywhere, so those steps keep
-    full-size gradients (zero outside the box) and a full-grid update.
-    A window draw is an ordinary ``clip_sizes`` box, ``(bp, eu, ev)`` at
-    the drawn offsets. ``clip_sizes = ('blk', B, eu, ev)`` selects the
-    blocked step: B per-p-block windowed sub-sweeps of the whole grid
+    whose start voxels arrive as ``clip_off``: host integers, or an int32
+    tensor on the model's device. The step reads them as device data
+    wherever it cuts a box (the grids' boxes through their flat voxel
+    indices, the rays' shift, K-F's boxed TV, the Adam region), and reads
+    no other value from the host, so that :mod:`.graphs` can capture it as
+    a CUDA graph whose replays take each draw's offsets. Region mode: when
+    every trainable grid is a ``skip_zero_grad`` group (and TV is off or
+    sparse), the step differentiates with respect to the box slices of the
+    grids, so gradients and the Adam update stay box-sized; exact because
+    the sweep reads nothing outside the box and ``skip_zero_grad`` leaves
+    untouched voxels alone. Plain Adam decays moments everywhere, so those
+    steps keep full-size gradients (zero outside the box) and a full-grid
+    update. A window draw is an ordinary ``clip_sizes`` box, ``(bp, eu,
+    ev)`` at the drawn offsets. ``clip_sizes = ('blk', B, eu, ev)`` selects
+    the blocked step: B per-p-block windowed sub-sweeps of the whole grid
     (:meth:`DirectVoxGO.forward_sweep`'s ``block_windows``) whose (u, v)
     starts arrive as ``clip_off`` [B, 2]; it keeps full-size gradients.
     ``wv > 0`` passes ``(v_base, wv)`` ray-tile windows to unclipped
@@ -171,7 +186,8 @@ def make_train_step(model, optimizer, cfg_train, render_kwargs,
     (bp, bu, bv) box with per-cell (wu, wv) windows, (0, 0) for none. Its
     batches must be same-class and direction-uniform
     (:func:`..ops.sweep.build_ray_tiles_blocktile`), and it needs region
-    mode: the kernels take the box slices of the grids.
+    mode: the kernels take the box slices of the grids. Its offsets are
+    host data (the fused keys run eagerly).
     """
     if axis is None:
         raise NotImplementedError(
@@ -201,27 +217,49 @@ def make_train_step(model, optimizer, cfg_train, render_kwargs,
                    and all_skip and grid_names != [])
     assert not fused or region_mode, \
         "fused step keys require region mode (pre-clipped box grids)"
+    dev = model.density.device
     if region_mode:
         inv = {ax: i for i, ax in enumerate(sweep_ops._PERMS[axis])}
         sizes_xyz = tuple(int(clip_sizes[inv[a]]) for a in range(3))
+        # the permuted offsets' positions of x, y, z (made here, outside
+        # any capture)
+        inv_t = torch.as_tensor([inv[a] for a in range(3)], device=dev)
+
+    def host_boxes(clip_off):
+        """The fused step's box slices of the grids (host offsets)."""
+        offs_xyz = tuple(int(clip_off[inv[a]]) for a in range(3))
+        box = tuple(slice(o, o + s) for o, s in zip(offs_xyz, sizes_xyz))
+        boxed = {n: getattr(model, n).detach()[box]
+                 for n in ("density", "k0")}
+        return boxed, model.mask[box], (offs_xyz, sizes_xyz)
 
     def train_step(pool, sel, clip_off, v_base=None):
         target = pool["rgb"][sel]
         rays_o, rays_d = pool["rays_o"][sel], pool["rays_d"][sel]
         viewdirs = pool["viewdirs"][sel]
-        clip_off = np.asarray(clip_off, np.int32)
+        if fused:
+            clip_off = np.asarray(clip_off.cpu() if torch.is_tensor(clip_off)
+                                  else clip_off, np.int32)
+        elif not torch.is_tensor(clip_off):
+            clip_off = torch.as_tensor(np.asarray(clip_off, np.int32),
+                                       device=dev)
 
         leaves = {n: list(optimizer.groups[n]["params"]) for n in trainable}
-        grids = None
-        if region_mode:
-            offs_xyz = tuple(int(clip_off[inv[a]]) for a in range(3))
-            box = tuple(slice(o, o + s) for o, s in zip(offs_xyz, sizes_xyz))
-            boxed = {n: getattr(model, n).detach()[box]
+        grids = region = None
+        if fused:
+            boxed, mask_box, region = host_boxes(clip_off)
+        elif region_mode:
+            region = grid_ops.DeviceBox(clip_off, sizes_xyz,
+                                        model.world_size,
+                                        sweep_ops._PERMS[axis])
+            boxed = {n: region.take(getattr(model, n).detach())
                      for n in ("density", "k0")}
+            mask_box = region.take(model.mask)
+        if region_mode:
             for n in grid_names:
                 boxed[n].requires_grad_(True)
                 leaves[n] = [boxed[n]]
-            grids = (boxed["density"], boxed["k0"], model.mask[box])
+            grids = (boxed["density"], boxed["k0"], mask_box)
 
         with torch.enable_grad():
             if fused:
@@ -231,7 +269,8 @@ def make_train_step(model, optimizer, cfg_train, render_kwargs,
             elif blocked is not None:
                 ret = model.forward_sweep(
                     rays_o, rays_d, viewdirs, axis, block_windows=(
-                        blocked, (clip_off[:, 0], clip_off[:, 1])), **kwargs)
+                        blocked, (clip_off[:, 0], clip_off[:, 1])),
+                    **kwargs)
             else:
                 ret = model.forward_sweep(
                     rays_o, rays_d, viewdirs, axis, clip_sizes=clip_sizes,
@@ -266,6 +305,8 @@ def make_train_step(model, optimizer, cfg_train, render_kwargs,
                 # Boxed sparse TV: the term on the box, its neighbours read
                 # from the full grid (edge voxels of the box need their
                 # true neighbours), gated by the batch gradient.
+                offs_xyz = (region[0] if fused else
+                            clip_off.index_select(0, inv_t).contiguous())
                 sx, sy, sz = model.tv_axis_scales()
                 for name, wn in (("density", w_tv_density), ("k0", w_tv_k0)):
                     if wn <= 0 or name not in grads:
@@ -283,13 +324,31 @@ def make_train_step(model, optimizer, cfg_train, render_kwargs,
                     grads["k0"] = [model.k0_total_variation_grad(
                         model.k0, grads["k0"][0], w_tv_k0 / n_rand,
                         tv_dense)]
-            regions = ({n: (offs_xyz, sizes_xyz) for n in grid_names}
+            regions = ({n: region for n in grid_names}
                        if region_mode else None)
             optimizer.step(grads, regions=regions)
             psnr = -10.0 * torch.log10(mse.detach())
         return loss.detach(), psnr
 
     return train_step
+
+
+def chunk_len(i, n_dispatch, n_iters, pg_set, tv_state_of, i_print,
+              i_weights):
+    """Steps of the chunk that starts at step ``i`` (the JAX engine's
+    ``chunk_len``): up to ``n_dispatch``, never crossing a progressive
+    rescale, a mask renewal or a TV-state change, ending on ``i_print`` and
+    ``i_weights`` steps and at ``n_iters``; quantised to {1,
+    n_dispatch}."""
+    length = 1
+    while length < n_dispatch:
+        j = i + length
+        if (j > n_iters or j in pg_set or (j + 500) % 1000 == 0
+                or tv_state_of(j) != tv_state_of(i)
+                or (j - 1) % i_print == 0 or (j - 1) % i_weights == 0):
+            break
+        length += 1
+    return length if length == n_dispatch else 1
 
 
 def gather_training_rays(model, cfg, cfg_train, data_dict, render_kwargs):
@@ -326,7 +385,8 @@ def gather_training_rays(model, cfg, cfg_train, data_dict, render_kwargs):
 def scene_rep_reconstruction(args, cfg, cfg_model, cfg_train, xyz_min,
                              xyz_max, data_dict, stage,
                              coarse_ckpt_path=None, device=None):
-    """One optimisation stage; returns the trained model."""
+    """One optimisation stage; returns the trained model. On a CUDA device
+    its unfused steps replay as CUDA graphs (:mod:`.graphs`)."""
     device = resolve_device(device)
     t_stage = time.time()
     if stage == "fine" and not cfg.fine_model_and_render.get(
@@ -450,7 +510,16 @@ def scene_rep_reconstruction(args, cfg, cfg_model, cfg_train, xyz_min,
     print(f"scene_rep_reconstruction ({stage}): setup in "
           f"{time.time() - t_stage:.1f} s")
     psnr_lst = []
-    train_steps = {}   # (axis, clip sizes) -> step of the current tv state
+    steps = StepGraphs(device)
+
+    def fresh_steps():
+        # the whole grid's voxels and the sweep's channels: K-C's largest
+        # scratch of the stage
+        steps.reset(scratch=(int(np.prod(model.world_size)),
+                             2 + model.k0_dim))
+        return {}
+
+    train_steps = fresh_steps()   # (axis, clip sizes) -> step of the tv state
     tv_state = None
     loss = None
     time0 = time.time()
@@ -474,32 +543,42 @@ def scene_rep_reconstruction(args, cfg, cfg_model, cfg_train, xyz_min,
             optimizer = create_optimizer_or_freeze_model(model, cfg_train)
             with torch.no_grad():
                 model.density.sub_(1.0)
-            train_steps = {}
+            train_steps = fresh_steps()
             clip_plan.clear()
             refresh_clip()
-            draws.set_grid()
+            draws.set_grid()     # the dispatch width too
 
         if tv_state != tv_state_of(global_step):
             tv_state = tv_state_of(global_step)
-            train_steps = {}
+            train_steps = fresh_steps()
 
-        sel, axis, clip_sizes, clip_off = draws.next_batch(tv_state[0])
+        # A chunk of steps on one axis, as the JAX engine dispatches them;
+        # windows and fused tiles only one step at a time.
+        n_sub = chunk_len(global_step, draws.n_dispatch, cfg_train.N_iters,
+                          pg_set, tv_state_of, args.i_print, args.i_weights)
+        sels, axis, clip_sizes, offs = draws.next_chunk(n_sub, tv_state[0])
         if clip_sizes is None:
             clip_sizes, clip_off = clip_plan[axis]
+            offs = np.broadcast_to(np.asarray(clip_off, np.int32),
+                                   (n_sub, 3))
         key = (axis, clip_sizes)
         if key not in train_steps:
             train_steps[key] = make_train_step(
                 model, optimizer, cfg_train, render_kwargs, *tv_state,
                 axis=axis, clip_sizes=clip_sizes)
-        loss, psnr = train_steps[key](
-            pool, torch.as_tensor(sel, device=device), clip_off)
-        psnr_lst.append(psnr)
+        # the fused keys' offsets are host data into K-D and K-E: eager
+        res = steps.run(key, train_steps[key], pool, sels, offs,
+                        eager=clip_sizes is not None
+                        and clip_sizes[0] == "fblk")
+        loss = res[-1, 0]
+        psnr_lst.append(res[:, 1])
+        global_step += n_sub - 1
 
         if global_step % args.i_print == 0:
             eps_time = time.time() - time0
             eps_str = (f"{eps_time//3600:02.0f}:{eps_time//60%60:02.0f}:"
                        f"{eps_time%60:02.0f}")
-            psnr_avg = float(torch.stack(psnr_lst).mean())
+            psnr_avg = float(torch.cat(psnr_lst).mean())
             print(f"scene_rep_reconstruction ({stage}): iter "
                   f"{global_step:6d} / Loss: {float(loss):.9f} / "
                   f"PSNR: {psnr_avg:5.2f} / Eps: {eps_str}")

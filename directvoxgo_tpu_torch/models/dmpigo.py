@@ -122,6 +122,7 @@ class DirectMPIGO(nn.Module):
 
     device = DirectVoxGO.device
     grid_points = DirectVoxGO.grid_points
+    bounds_on = DirectVoxGO.bounds_on
     grid_cache = DirectVoxGO.grid_cache
     _coarse_mask_src = DirectVoxGO._coarse_mask_src
     _mask_from_coarse_ckpt = DirectVoxGO._mask_from_coarse_ckpt
@@ -281,6 +282,7 @@ class DirectMPIGO(nn.Module):
             density, k0, mask_g = grids if grids is not None else (
                 self.density, self.k0, self.mask)
             offs = (None if clip_sizes is None or grids_pre_clipped
+                    else clip_offsets if torch.is_tensor(clip_offsets)
                     else [int(v) for v in np.asarray(clip_offsets)])
             grid_cat = self._stacked_grids(
                 density, k0, mask_g, 2,
@@ -294,8 +296,7 @@ class DirectMPIGO(nn.Module):
 
         dev = rays_o.device
         t_lo, t_hi = rm.ray_aabb_tminmax(
-            rays_o, rays_d, torch.as_tensor(self.xyz_min, device=dev),
-            torch.as_tensor(self.xyz_max, device=dev), near, far)
+            rays_o, rays_d, *self.bounds_on(dev), near, far)
         valid = ((t >= t_lo[:, None]) & (t <= t_hi[:, None])
                  & (t_hi > t_lo)[:, None] & (mask_s > 0))
         alpha = rm.raw2alpha(density_s, self.act_shift,

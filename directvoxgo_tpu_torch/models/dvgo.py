@@ -216,6 +216,15 @@ class DirectVoxGO(nn.Module):
             **self.rgbnet_kwargs,
         }
 
+    def bounds_on(self, device):
+        """(xyz_min, xyz_max) as f32 tensors on ``device``, copied once: a
+        train step captured as a CUDA graph may not copy from the host."""
+        cache = self.__dict__.setdefault("_bounds_cache", {})
+        if device not in cache:
+            cache[device] = tuple(torch.as_tensor(b, device=device)
+                                  for b in (self.xyz_min, self.xyz_max))
+        return cache[device]
+
     def grid_cache(self, name):
         """A dict for arrays derived from the grids and the mask (station
         slabs), emptied when any of them is replaced or modified in place."""
@@ -266,9 +275,10 @@ class DirectVoxGO(nn.Module):
     @torch.no_grad()
     def update_occupancy_cache(self):
         """Periodic mask renewal: ``mask &= maxpool(alpha) >
-        fast_color_thres``."""
+        fast_color_thres``, in place (the train steps captured as CUDA
+        graphs read the mask where it lies)."""
         alpha = grid_ops.max_pool3d_same(self.activate_density(self.density))
-        self.mask = self.mask & (alpha > self.fast_color_thres)
+        self.mask.logical_and_(alpha > self.fast_color_thres)
 
     def sweep_clip_for_axis(self, axis, quantum=16, fixed_sizes=None,
                             bbox=None):
@@ -429,11 +439,17 @@ class DirectVoxGO(nn.Module):
 
     def _stacked_grids(self, density, k0, mask_g, axis, clip_sizes, offs):
         """[X, Y, Z, 2 + k0_dim] (density, mask, k0) in ``sweep_dtype``,
-        sliced to the clip box (``clip_sizes`` permuted, ``offs`` ints)
-        before the cast; differentiable in density and k0."""
+        sliced to the clip box (``clip_sizes`` permuted, ``offs`` ints, or
+        an integer tensor on the grids' device read as device data) before
+        the cast; differentiable in density and k0."""
         sdt = self.sweep_dtype
-        if clip_sizes is not None:
-            inv = {ax: i for i, ax in enumerate(sweep_ops._PERMS[axis])}
+        inv = {ax: i for i, ax in enumerate(sweep_ops._PERMS[axis])}
+        if clip_sizes is not None and torch.is_tensor(offs):
+            box = grid_ops.DeviceBox(
+                offs, tuple(int(clip_sizes[inv[a]]) for a in range(3)),
+                density.shape, sweep_ops._PERMS[axis])
+            density, mask_g, k0 = (box.take(t) for t in (density, mask_g, k0))
+        elif clip_sizes is not None:
             sl = tuple(slice(offs[inv[a]], offs[inv[a]]
                              + int(clip_sizes[inv[a]])) for a in range(3))
             density, mask_g, k0 = density[sl], mask_g[sl], k0[sl]
@@ -489,6 +505,7 @@ class DirectVoxGO(nn.Module):
             density, k0, mask_g = grids if grids is not None else (
                 self.density, self.k0, self.mask)
             offs = (None if clip_sizes is None or grids_pre_clipped
+                    else clip_offsets if torch.is_tensor(clip_offsets)
                     else [int(v) for v in np.asarray(clip_offsets)])
             grid_cat = self._stacked_grids(
                 density, k0, mask_g, axis,
@@ -500,10 +517,8 @@ class DirectVoxGO(nn.Module):
         vals, t, fwd = out["vals"], out["t"], out["forward"]
         density_s, mask_s, k0_cl = vals[0], vals[1], vals[2:]
 
-        dev = rays_o.device
         t_lo, t_hi = rm.ray_aabb_tminmax(
-            rays_o, rays_d, torch.as_tensor(self.xyz_min, device=dev),
-            torch.as_tensor(self.xyz_max, device=dev), near, far)
+            rays_o, rays_d, *self.bounds_on(rays_o.device), near, far)
         valid = ((t >= t_lo[:, None]) & (t <= t_hi[:, None])
                  & (t_hi > t_lo)[:, None] & (mask_s > 0))
         interval = (out["interval"] / self.voxel_size_base)[:, None]

@@ -72,7 +72,9 @@ def positional_encoding(x, n_freqs):
     """[x, sin(x*2^i), cos(x*2^i)] embedding along the last dim."""
     if n_freqs <= 0:
         return x
-    freqs = torch.tensor([2.0 ** i for i in range(n_freqs)], dtype=x.dtype,
-                         device=x.device)
+    # 1, 2, 4, ... made on the device (exact products of 2): a step
+    # captured as a CUDA graph may not copy from the host
+    freqs = torch.full((n_freqs,), 2.0, dtype=x.dtype,
+                       device=x.device).cumprod(0) / 2.0
     emb = (x[..., None] * freqs).reshape(*x.shape[:-1], -1)
     return torch.cat([x, torch.sin(emb), torch.cos(emb)], -1)

@@ -43,6 +43,53 @@ def occupancy_lookup_parts(mask, x, y, z, xyz_min, xyz_max):
     return mask.reshape(-1)[lin] & inb
 
 
+class DeviceBox:
+    """A box of ``sizes`` voxels (xyz) of a grid of ``dims`` (xyz) whose
+    start voxel is device data: ``off``, an integer tensor [3] holding the
+    start along the axes ``perm`` (``off[i]`` along axis ``perm[i]``; the
+    sweep's permuted order, or xyz). Reads and writes go through the box's
+    flat element indices, made on the device from ``off``, so that a step
+    captured as a CUDA graph takes the offsets of each replay, not those of
+    its capture. :meth:`take` is differentiable (its gradient is the
+    full-size scatter of the box's).
+
+    The indices address single elements, one per voxel and channel, made
+    once per channel count: on the card a gather of whole voxel rows of 12
+    floats ran several times slower than the element-wise one, and
+    indexing with three broadcast ``off + arange`` vectors per axis
+    (``t[ix, iy, iz]``, ``index_put_``) slower too (PERF.md,
+    ``tools/trace_step.py``)."""
+
+    def __init__(self, off, sizes, dims, perm=(0, 1, 2)):
+        self.sizes = tuple(int(s) for s in sizes)
+        self.dims = tuple(int(d) for d in dims)
+        o = off.to(torch.int64)
+        strides = (self.dims[1] * self.dims[2], self.dims[2], 1)
+        parts = [(torch.arange(self.sizes[a], device=off.device)
+                  + o[list(perm).index(a)]) * strides[a] for a in range(3)]
+        self.idx = (parts[0][:, None, None] + parts[1][None, :, None]
+                    + parts[2][None, None, :]).reshape(-1)
+        self._by_channels = {1: self.idx}
+
+    def _index(self, t):
+        """The box's flat element indices in ``t`` ([X, Y, Z(, C)])."""
+        c = t.numel() // (self.dims[0] * self.dims[1] * self.dims[2])
+        if c not in self._by_channels:
+            self._by_channels[c] = (self.idx[:, None] * c + torch.arange(
+                c, device=self.idx.device)).reshape(-1)
+        return self._by_channels[c]
+
+    def take(self, t):
+        """The box of ``t`` ([X, Y, Z(, C)]) as a new tensor."""
+        return t.reshape(-1).index_select(0, self._index(t)).reshape(
+            *self.sizes, *t.shape[3:])
+
+    def put(self, t, vals):
+        """Write ``vals`` (box-shaped) into the box of ``t`` (contiguous),
+        in place."""
+        t.view(-1).index_copy_(0, self._index(t), vals.reshape(-1))
+
+
 def bilinear_sample_parts(plane, iu, iv):
     """Bilinear interpolation of a ``[U, V(, C)]`` plane at continuous
     coordinates (iu, iv), clamped to the plane's edge."""

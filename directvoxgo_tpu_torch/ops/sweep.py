@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .grid import DeviceBox
 from .sweep_bwd import sweep_bwd
 from .sweep_fwd import TILE_N, sweep_fwd
 
@@ -144,7 +145,7 @@ def sweep_samples(grid, rays_o, rays_d, xyz_min, xyz_max, axis, k,
     grid: [Gx, Gy, Gz, C] channels-last stacked grids (density, mask as
     float, colour features), differentiable; ``k`` stations per voxel.
     ``clip_sizes`` ((p, u, v) extents, permuted order) and ``clip_offsets``
-    ([3] ints) restrict the sweep to the occupancy box: samples outside it
+    ([3] ints, or an integer tensor on the rays' device) restrict the sweep to the occupancy box: samples outside it
     read zero, exact because the box bounds everything with interpolated
     mask > 0. ``pre_clipped``: ``grid`` is already the box (gradients stay
     box-sized); ``world_size`` is then the full grid's extents, for the
@@ -155,15 +156,27 @@ def sweep_samples(grid, rays_o, rays_d, xyz_min, xyz_max, axis, k,
 
     Returns dict: vals [C, N, S], t [N, S], forward [N] (True where t
     ascends with the station index), interval [N] (world distance between
-    consecutive stations), p_offset (float: the sweep-axis voxel of station
-    0, the clip box's start; 0 unclipped).
+    consecutive stations), p_offset (the sweep-axis voxel of station 0, the
+    clip box's start, a float; a 0-d tensor for tensor offsets; 0
+    unclipped).
     """
     if world_size is None:
         world_size = grid.shape[:3]
     o_pv, d_pv = rays_to_voxel(rays_o, rays_d, xyz_min, xyz_max,
                                world_size, axis)
     p_offset = 0.0
-    if clip_sizes is not None:
+    if clip_sizes is not None and torch.is_tensor(clip_offsets):
+        # offsets as device data (a train step, whose CUDA graph must read
+        # each replay's): the box through its flat voxel indices
+        offs_f = clip_offsets.to(torch.float32)
+        if slabs is None and not pre_clipped:
+            inv = {ax: i for i, ax in enumerate(_PERMS[axis])}
+            grid = DeviceBox(clip_offsets, tuple(
+                int(clip_sizes[inv[a]]) for a in range(3)),
+                grid.shape[:3], _PERMS[axis]).take(grid)
+        o_pv = tuple(o - offs_f[i] for i, o in enumerate(o_pv))
+        p_offset = offs_f[0]
+    elif clip_sizes is not None:
         offs = [int(v) for v in np.asarray(clip_offsets)]
         if slabs is None and not pre_clipped:
             inv = {ax: i for i, ax in enumerate(_PERMS[axis])}
@@ -201,7 +214,8 @@ def sweep_samples_blocked(grid, rays_o, rays_d, xyz_min, xyz_max, axis, k,
     The station range is split into the p-blocks of
     :func:`blocked_p_rows`; block b sweeps only the (rows_b + 1, Wu, Wv)
     sub-box at its (u, v) offsets ``u_off[b]``, ``v_off[b]`` (ints, from
-    :func:`build_ray_segments_blocked`), one K-A launch forward and one
+    :func:`build_ray_segments_blocked`, or integer tensors on the rays'
+    device, read as device data), one K-A launch forward and one
     K-C launch backward each. ``block_sizes`` = (B, wu, wv); 0 means the
     full extent. Returns the dict of :func:`sweep_samples`, with each
     non-final block's boundary station dropped, so that the stations tile
@@ -214,10 +228,15 @@ def sweep_samples_blocked(grid, rays_o, rays_d, xyz_min, xyz_max, axis, k,
     rows = blocked_p_rows(gp, n_blocks)
     vals, ts = [], []
     for b, (r0, r1) in enumerate(rows):
+        if torch.is_tensor(u_off):
+            offs = torch.stack([torch.full_like(u_off[b], r0), u_off[b],
+                                v_off[b]])
+        else:
+            offs = (r0, int(u_off[b]), int(v_off[b]))
         out = sweep_samples(
             grid, rays_o, rays_d, xyz_min, xyz_max, axis, k,
             interp_dtype=interp_dtype, clip_sizes=(r1 - r0 + 1, eu, ev),
-            clip_offsets=(r0, int(u_off[b]), int(v_off[b])))
+            clip_offsets=offs)
         last = b == len(rows) - 1
         vals.append(out["vals"] if last else out["vals"][:, :, :-1])
         ts.append(out["t"] if last else out["t"][:, :-1])

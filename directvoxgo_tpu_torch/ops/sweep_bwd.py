@@ -17,7 +17,11 @@ which sums a station's taps there first (:func:`shared_form` picks it from
 the shape and the card's limits). The accumulator is a scratch buffer per
 device that stays zero between calls; a byte per voxel marks the voxels a
 call touched, and the finishing pass copies only those into the
-zero-filled output and zeroes them again in the scratch.
+zero-filled output and zeroes them and their marks again. So every call
+passes the same arguments for the same shapes, and a train step captured
+as a CUDA graph replays its K-C launches as they are; the scratch must be
+large enough before the capture (:func:`reserve_scratch`), since a graph
+cannot follow it to a new buffer.
 
 The kernel sums with f32 reductions, whose order varies from run to run:
 two runs agree to f32 rounding of the sums (and, after the cast to a bf16
@@ -45,9 +49,11 @@ SHARED_THREADS = 512
 # Waves of shared-form blocks: more blocks than SM slots keep the card
 # busy while some blocks zero or flush their plane.
 SHARED_WAVES = 4
-# torch.device -> [f32 scratch accumulator (zero between calls), uint8
-# touch marks, the last call's epoch 1..255] (:func:`take_scratch`).
+# torch.device -> (f32 scratch accumulator, uint8 touch marks), both zero
+# between calls (:func:`take_scratch`).
 _scratch = {}
+# The value a call marks its voxels with (the finishing pass clears them).
+EPOCH = 1
 _limits = {}   # device index -> device_limits()
 
 
@@ -159,23 +165,31 @@ def device_limits(device):
 
 
 def take_scratch(device, n_vox, a_s):
-    """The scratch of ``device`` (a ``torch.device``; grown to ``n_vox``
-    voxels of ``a_s`` floats, zero between calls) and its touch marks, with
-    this call's epoch: marks of earlier calls never equal it (all are
-    cleared when the epoch wraps past 255)."""
+    """(accumulator, touch marks) of ``device`` (a ``torch.device``), grown
+    to ``n_vox`` voxels of ``a_s`` floats, both zero between calls. Growing
+    them while a CUDA graph is being captured raises: the graph would keep
+    writing the old buffers (:func:`reserve_scratch` first)."""
     st = _scratch.get(device)
     if st is None or st[0].numel() < n_vox * a_s or st[1].numel() < n_vox:
+        if torch.cuda.is_available() and \
+                torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"sweep_bwd: the scratch must grow to {n_vox} voxels x "
+                f"{a_s} during a CUDA graph capture; reserve it first")
         old = (0, 0) if st is None else (st[0].numel(), st[1].numel())
-        st = [torch.zeros(max(n_vox * a_s, old[0]), dtype=torch.float32,
+        st = (torch.zeros(max(n_vox * a_s, old[0]), dtype=torch.float32,
                           device=device),
               torch.zeros(max(n_vox, old[1]), dtype=torch.uint8,
-                          device=device), 0]
+                          device=device))
         _scratch[device] = st
-    st[2] += 1
-    if st[2] > 255:
-        st[1].zero_()
-        st[2] = 1
     return st
+
+
+def reserve_scratch(device, n_vox, c):
+    """Grow the scratch of ``device`` (a CUDA ``torch.device`` with its
+    index) to ``n_vox`` voxels of ``c`` channels now, so that no later call
+    of up to that size reallocates it."""
+    take_scratch(device, int(n_vox), acc_stride(int(c)))
 
 
 def sweep_bwd_plain(g, rays, k, grid_shape, interp_dtype, v_base=None, wv=0):
@@ -249,7 +263,7 @@ def sweep_bwd(g, rays, k, grid_shape, interp_dtype, v_base=None, wv=0,
     shared, chunks = plan(gu, gv, c, n, s_total,
                           device_limits(g.device.index))
     n_vox, a_s = gp * gu * gv, acc_stride(c)
-    acc, marks, epoch = take_scratch(g.device, n_vox, a_s)
+    acc, marks = take_scratch(g.device, n_vox, a_s)
     direct = out_dtype in (torch.bfloat16, torch.float32)
     out = torch.zeros((gp, gu, gv, c), device=g.device,
                       dtype=out_dtype if direct else torch.float32)
@@ -257,13 +271,13 @@ def sweep_bwd(g, rays, k, grid_shape, interp_dtype, v_base=None, wv=0,
     err = lib.dvgo_sweep_bwd(
         g.data_ptr(), *g.stride(), rays.data_ptr(),
         v_base.data_ptr() if wv else None, acc.data_ptr(), a_s,
-        marks.data_ptr(), epoch, n, s_total, gu, gv, c, int(k),
+        marks.data_ptr(), EPOCH, n, s_total, gu, gv, c, int(k),
         int(interp_dtype == torch.bfloat16), wv,
         0 if not wv else (2 if segment else 1), TILE_N,
         v_base.shape[0] - 1 if segment else 0, chunks, stream)
     if not err:
         err = lib.dvgo_sweep_bwd_finish(
-            acc.data_ptr(), a_s, marks.data_ptr(), epoch, out.data_ptr(),
+            acc.data_ptr(), a_s, marks.data_ptr(), EPOCH, out.data_ptr(),
             int(out.dtype == torch.bfloat16), n_vox, c, stream)
     if err:
         # the scratch may hold sums now: a later call starts a fresh one

@@ -39,7 +39,7 @@ def _lib():
                                      + [ctypes.c_int] * 10
                                      + [ctypes.c_longlong] * 4
                                      + [ctypes.c_float] * 3
-                                     + [ctypes.c_int, ctypes.c_void_p])
+                                     + [ctypes.c_int] + [ctypes.c_void_p] * 2)
     lib.dvgo_tv_add_grad.restype = ctypes.c_int
     # The rows path takes the same arguments.
     lib.dvgo_tv_add_grad_rows.argtypes = lib.dvgo_tv_add_grad.argtypes
@@ -116,7 +116,8 @@ def total_variation_add_grad_plain(param, grad, wx, wy, wz, dense_mode,
 
 def rows_path(dims, c, offs, sizes, g_strides, p_address):
     """Whether K-F takes its rows path (x-marching tiles, 16-byte vectors
-    of p and out) for a box of ``sizes`` at ``offs`` in a grid ``dims`` of
+    of p and out) for a box of ``sizes`` at ``offs`` (None: offsets that
+    are device data, any the box admits) in a grid ``dims`` of
     ``c`` channels, whose gradient has element strides ``g_strides`` (four,
     the channel's last), p starting at byte ``p_address``: the gradient
     dense with its channels innermost (contiguous, or a permutation of its
@@ -124,8 +125,11 @@ def rows_path(dims, c, offs, sizes, g_strides, p_address):
     grid; not a channel slice) and every offset into it under 2^31, the
     grid's row, the box's offset and its run along the flat (z, c) axis
     whole vectors of 4 floats, p 16-byte aligned, at most
-    ``ROWS_MAX_CHANNELS`` channels and a grid under 2^31 elements. Anything
-    else takes the strided path."""
+    ``ROWS_MAX_CHANNELS`` channels and a grid under 2^31 elements. Device
+    offsets keep the box's offset in whole vectors only where every
+    admissible offset does: ``c`` a multiple of 4, or the box spanning the
+    grid's z (an MPI window's full station extent). Anything else takes the
+    strided path."""
     if c > 1 and g_strides[3] != 1:
         return False
     dense, step = True, c
@@ -137,27 +141,32 @@ def rows_path(dims, c, offs, sizes, g_strides, p_address):
     n = dims[0] * dims[1] * dims[2] * c
     return (dense and c <= ROWS_MAX_CHANNELS
             and n < ROWS_MAX_ELEMENTS and reach < ROWS_MAX_ELEMENTS
-            and (dims[2] * c) % 4 == 0 and (offs[2] * c) % 4 == 0
+            and (dims[2] * c) % 4 == 0
+            and ((offs[2] * c) % 4 == 0 if offs is not None
+                 else c % 4 == 0 or sizes[2] == dims[2])
             and (sizes[2] * c) % 4 == 0 and p_address % 16 == 0)
 
 
 def path_of(param, grad_box, offs=(0, 0, 0)):
     """The path K-F takes for ``param`` and the box gradient ``grad_box``
-    at ``offs``: "rows" or "strided" (:func:`rows_path`; the output is a
-    fresh allocation, which the caching allocator aligns)."""
+    at ``offs`` (ints, or a tensor: device offsets): "rows" or "strided"
+    (:func:`rows_path`; the output is a fresh allocation, which the caching
+    allocator aligns)."""
     c = int(param.shape[3]) if param.dim() == 4 else 1
     g_strides = tuple(grad_box.stride()) + ((1,) if param.dim() == 3 else ())
     rows = rows_path(tuple(int(d) for d in param.shape[:3]), c,
-                     tuple(int(o) for o in offs),
+                     None if torch.is_tensor(offs)
+                     else tuple(int(o) for o in offs),
                      tuple(int(d) for d in grad_box.shape[:3]), g_strides,
                      param.data_ptr())
     return "rows" if rows else "strided"
 
 
 def _launch(param, grad_box, offs, w, dense_mode):
-    """K-F over the box of ``param`` (contiguous) at ``offs`` whose
-    gradient is ``grad_box`` (any strides); returns a new contiguous tensor
-    (it never writes ``param`` or ``grad_box``)."""
+    """K-F over the box of ``param`` (contiguous) at ``offs`` (ints, or an
+    int32 [3] tensor on the device, which the kernel reads) whose gradient
+    is ``grad_box`` (any strides); returns a new contiguous tensor (it
+    never writes ``param`` or ``grad_box``)."""
     global launches
     if not (param.is_cuda and grad_box.device == param.device):
         raise ValueError("tv_add_grad: param and grad must be on one CUDA "
@@ -173,6 +182,16 @@ def _launch(param, grad_box, offs, w, dense_mode):
         raise ValueError("tv_add_grad: expects a contiguous param")
     dims = tuple(int(d) for d in param.shape[:3])
     sizes = tuple(int(d) for d in grad_box.shape[:3])
+    offs_dev = None
+    if torch.is_tensor(offs):
+        if (offs.device != param.device or offs.dtype != torch.int32
+                or offs.shape != (3,) or not offs.is_contiguous()):
+            raise ValueError("tv_add_grad: device offsets must be a "
+                             "contiguous int32 [3] on the grid's device")
+        offs_dev, offs = offs, (0, 0, 0)
+        if any(s > d for s, d in zip(sizes, dims)):
+            raise ValueError(f"tv_add_grad: box {sizes} exceeds the grid "
+                             f"{dims}")
     offs = tuple(int(o) for o in offs)
     if any(o < 0 or o + s > d for o, s, d in zip(offs, sizes, dims)):
         raise ValueError(f"tv_add_grad: box {sizes} at {offs} is not inside "
@@ -184,11 +203,12 @@ def _launch(param, grad_box, offs, w, dense_mode):
     lib = _lib()
     stream = torch.cuda.current_stream(param.device).cuda_stream
     ptrs = (param.data_ptr(), grad_box.data_ptr(), out.data_ptr())
-    path = path_of(param, grad_box, offs)
+    path = path_of(param, grad_box, offs if offs_dev is None else offs_dev)
     fn = lib.dvgo_tv_add_grad_rows if path == "rows" else \
         lib.dvgo_tv_add_grad
     err = fn(*ptrs, *dims, c, *offs, *sizes, *g_strides,
-             *(float(x) for x in w), int(bool(dense_mode)), stream)
+             *(float(x) for x in w), int(bool(dense_mode)),
+             None if offs_dev is None else offs_dev.data_ptr(), stream)
     if err:
         raise RuntimeError("tv_add_grad launch failed: "
                            + lib.dvgo_error_string(err).decode())
@@ -221,10 +241,13 @@ def tv_add_grad_box(param, grad_box, offs, wx, wy, wz, dense_mode=False,
     ``dense_mode``. The stencil reads the box's neighbours from the whole
     grid and edge-replicates only at the grid border, so the result is the
     box of :func:`total_variation_add_grad` over a full-size gradient that
-    is ``grad_box`` inside the box. A new tensor; kernel K-F on CUDA
-    tensors."""
-    offs = tuple(int(o) for o in offs)
+    is ``grad_box`` inside the box. ``offs`` may be an int32 [3] tensor on
+    the grid's device: the kernel then reads it (a train step captured as
+    a CUDA graph). A new tensor; kernel K-F on CUDA tensors."""
+    if not torch.is_tensor(offs):
+        offs = tuple(int(o) for o in offs)
     if param.device.type == "cpu" and grad_box.device.type == "cpu":
+        offs = tuple(int(o) for o in offs)
         return tv_add_grad_box_plain(param, grad_box, offs, wx, wy, wz,
                                      dense_mode, bug_compat)
     return _launch(param, grad_box, offs,

@@ -84,7 +84,8 @@ def test_mpi_window_draws_pin_the_station_extent(capsys):
         if step == 20:       # a renewal shrinks the p clip
             clip_plan[2] = ((gp - 4, gu - 8, gv - 8),
                             np.asarray([2, 4, 4], np.int32))
-        sel, ax, key, off = draws.next_batch(apply_tv=True)
+        sels, ax, key, offs = draws.next_chunk(1, apply_tv=True)
+        sel, off = sels[0], offs[0]
         assert ax == 2 and sel.shape == (512,)
         bp, eu, ev = key
         assert bp == gp and (eu, ev) != (gu - 8, gv - 8)

@@ -233,8 +233,8 @@ def test_new_entry_points_are_declared(monkeypatch):
                                      "dvgo_tv_add_grad_rows"}
     assert {"dvgo_render_frame", "dvgo_render_frame_queue_stats"} <= set(
         b_lib.prototypes)
-    for lib, fn, n in ((f_lib, "dvgo_tv_add_grad_rows", 22),
-                       (f_lib, "dvgo_tv_add_grad", 22),
+    for lib, fn, n in ((f_lib, "dvgo_tv_add_grad_rows", 23),
+                       (f_lib, "dvgo_tv_add_grad", 23),
                        (b_lib, "dvgo_render_frame_queue_stats", 2),
                        (b_lib, "dvgo_render_frame", 37)):
         params = [p for p in lib.prototypes[fn].split(",") if p.strip()]

@@ -562,8 +562,8 @@ def _args(**kw):
 def test_engine_trains_fused_on_the_tiny_fixture(tmp_path, monkeypatch,
                                                  capsys):
     """``train()`` with ``DVGO_FUSED_TRAIN=force`` on the CPU: the coarse
-    stage (no colour MLP) trains unfused, the fine stage draws same-class
-    tiles and takes fused steps (the wrappers' plain versions count them),
+    stage (no colour MLP) trains unfused, the fine stage (one step a
+    dispatch) draws same-class tiles and takes fused steps (the wrappers' plain versions count them),
     rebuilds its tiles at the progressive rescale, and writes a checkpoint
     that the JAX package loads and renders above 25 dB. Without the switch
     the same engine takes no fused step."""
@@ -575,6 +575,9 @@ def test_engine_trains_fused_on_the_tiny_fixture(tmp_path, monkeypatch,
     cfg.coarse_train.lrate_density = 0.3
     cfg.fine_train.N_iters, cfg.fine_train.N_rand = 120, 512
     cfg.fine_train.pg_scale = [60]
+    # the JAX engine fuses only where it takes one step a dispatch: at its
+    # default width of 8 on a grid this small every batch is uniform
+    cfg.fine_train.steps_per_dispatch = 1
     cfg.coarse_model_and_render.num_voxels = 24 ** 3
     cfg.coarse_model_and_render.num_voxels_base = 24 ** 3
     cfg.fine_model_and_render.num_voxels = 32 ** 3

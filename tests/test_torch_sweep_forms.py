@@ -1,7 +1,7 @@
 """The Python side of kernels K-A and K-C around their instances and forms:
 the load width, stations a thread and instance K-A picks, the rule that
-picks K-C's shared-memory form and its chunks, the scratch accumulator's
-epochs, and the strided cotangent that autograd hands K-C. The kernels themselves run only on the card (``chip_smoke.py``
+picks K-C's shared-memory form and its chunks, the scratch accumulator
+and its marks, and the strided cotangent that autograd hands K-C. The kernels themselves run only on the card (``chip_smoke.py``
 holds every instance and form against its plain version there); here the
 wrappers take their plain versions, on CPU tensors.
 """
@@ -100,22 +100,29 @@ def test_shared_chunks(n, s_total, plane, want):
 
 
 def test_scratch_epochs_grow_and_wrap():
-    """The scratch grows to the largest grid asked for; each call gets the
-    next epoch, and past 255 the marks are cleared and the epoch is 1."""
+    """The scratch grows to the largest grid asked for and keeps its
+    buffers while they are large enough; every call marks with the one
+    constant epoch, since the finishing pass clears the marks it consumes
+    (so a CUDA graph's replays need no new epoch), and take_scratch never
+    clears marks itself."""
     dev = torch.device("cpu")
     kc._scratch.pop(dev, None)
     try:
-        acc, marks, epoch = kc.take_scratch(dev, 10, 4)
-        assert (acc.numel(), marks.numel(), epoch) == (40, 10, 1)
-        marks[3] = epoch
-        acc2, marks2, epoch2 = kc.take_scratch(dev, 5, 16)
-        assert (acc2.numel(), marks2.numel(), epoch2) == (80, 10, 1)
+        acc, marks = kc.take_scratch(dev, 10, 4)
+        assert (acc.numel(), marks.numel()) == (40, 10)
+        marks[3] = kc.EPOCH
+        acc2, marks2 = kc.take_scratch(dev, 5, 16)
+        assert (acc2.numel(), marks2.numel()) == (80, 10)
         assert not marks2.any()
-        for want in range(2, 256):
-            assert kc.take_scratch(dev, 5, 16)[2] == want
-        marks2[:] = 255
-        st = kc.take_scratch(dev, 5, 16)
-        assert st[2] == 1 and not st[1].any() and st[0] is acc2
+        for _ in range(300):
+            st = kc.take_scratch(dev, 5, 16)
+            assert st[0] is acc2 and st[1] is marks2
+        marks2[:] = kc.EPOCH
+        assert kc.take_scratch(dev, 5, 16)[1].all()
+        assert kc.EPOCH == 1
+        kc.reserve_scratch(dev, 20, 14)       # 14 channels: stride 16
+        acc3, marks3 = kc.take_scratch(dev, 5, 16)
+        assert (acc3.numel(), marks3.numel()) == (320, 20)
     finally:
         kc._scratch.pop(dev, None)
 
