@@ -115,7 +115,32 @@ Phases, each of which fails the run:
      cost against its bound and one library call), and check that K-B ran
      in its v1, v3 and v4 forms and K-G for every class; then the v1, v3
      and v4 forms against their plain and first versions at the bench
-     shape, timed with their layout adapters apart.
+     shape, timed with their layout adapters apart;
+  9. the gather path (``query_mode='gather'``, the reference-faithful
+     point sampling in plain f32 PyTorch): (a) train lego coarse then fine
+     through ``python -m directvoxgo_tpu_torch.run`` (in process) on a
+     config that sets ``query_mode`` and cuts only the iteration counts of
+     configs/synthetic/fixture_lego_sparse.py (3000 coarse steps with the
+     exact view count, 300 fine through four rescales to 160^3), then
+     ``--render_test``; check that no K-A to K-E launch happened, that the
+     gather key was replayed as a CUDA graph, a rising train PSNR, finite
+     parameters, that the 4 test views went per ray and beat a white
+     frame; print the exact count's seconds and its freeze mask against
+     the sweep form's on the same rays (agreement at least 0.97, IoU), the
+     median gather step at 160^3 with its trace, one 800^2 view per ray and
+     the peak memory; (d) a few grid-LIIF steps (``feat_unfold``) at 160^3
+     on the trained grid, their time and peak memory; (b) train
+     DirectMPIGO on fern (configs/synthetic/fixture_ndc_fern.py with
+     ``query_mode`` set and its iteration counts cut) to 352x371x128 with
+     dense then sparse TV on every step, check two K-F launches a step and
+     no other kernel's, replays counted, the rising PSNR and the test views
+     per ray against an all-black frame; K-F's whole-grid forms of those
+     steps against their plain versions, timed; (c) one gather step per
+     colour mode (coarse, fine direct and not, ``posbase_pe``,
+     ``rgbnet_full_implicit``, grid-LIIF with and without ``feat_unfold``)
+     on the card and on the CPU from one state (loss 1e-5 relative,
+     parameters 1e-5 of their scale), and graphed gather steps against
+     eager ones.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line (one
 entry per kernel and form, each with the launches of the path it belongs
@@ -2937,7 +2962,7 @@ class TVRecorder:
             setattr(mod, name, orig)
 
 
-def tv_numbers(torch, tv, name, args, kw):
+def tv_numbers(torch, tv, name, args, kw, phase="7"):
     """K-F on these inputs, against its plain version and timed: the
     largest error beside the largest |TV| entry (the plain output minus the
     gradient), the zero patterns, and the bound: the gradient read and the
@@ -2999,7 +3024,7 @@ def tv_numbers(torch, tv, name, args, kw):
     # launches it
     kernel = (("tv_add_grad_kernel",) if path == "strided" else
               ("tv_rows_kernel", bool(dense)))
-    log(f"[phase 7] K-F tv_add_grad {'box' if boxed else 'grid'} "
+    log(f"[phase {phase}] K-F tv_add_grad {'box' if boxed else 'grid'} "
         f"{'dense' if dense else 'sparse'} param {tuple(param.shape)} box "
         f"{sizes} at {offs}: max|kernel-plain|={err:.3e} of the largest "
         f"|TV| {scale:.3e}, zero pattern differs at {zeros_differ}, gated "
@@ -3520,6 +3545,573 @@ def harness_phase(torch, dev, kb):
     return entries, harness
 
 
+# ----------------------------------------------------------------- phase 9
+
+# The cuts of configs/synthetic/fixture_lego_sparse.py for the gather path:
+# query_mode 'gather' in both stages, and the iteration counts only (coarse
+# 5000 -> 3000 with its per-voxel lr, now the exact view count; fine 20000
+# -> 300, pg_scale [1000, 2000, 3000, 4000] -> [50, 100, 150, 200], so 100
+# fine steps run at 160^3). Everything else is the config's. The gather
+# coarse stage starts slowly on this fixture: its density gradients stay
+# below Adam's eps for the first thousand steps or so (the JAX package's
+# gather steps take the same losses, step for step, on the CPU), so it
+# keeps phase 5's coarse count.
+GATHER_CONFIG = os.path.join(CKPT_DIR, "train_lego_gather.py")
+G_COARSE, G_FINE, G_PG_SCALE = 3000, 300, [50, 100, 150, 200]
+# ... and of configs/synthetic/fixture_ndc_fern.py: query_mode 'gather',
+# fine N_iters 25000 -> 300, pg_scale [2000, 4000, 6000, 8000] -> [50, 100,
+# 150, 200], tv_dense_before 10000 -> 250 (both TV phases at the top grid,
+# 352x371x128; TV on every step).
+GATHER_FERN_CONFIG = os.path.join(CKPT_DIR, "train_fern_gather.py")
+GF_ITERS, GF_PG_SCALE, GF_TV_DENSE_BEFORE = 300, [50, 100, 150, 200], 250
+# The JAX package's bound on the freeze mask's agreement between the two
+# view-count forms (tests/test_model.py:298-338).
+COUNT_AGREEMENT_MIN = 0.97
+# Card against CPU, one gather step from one state: loss relative, and the
+# parameters against their scale.
+GATHER_CPU_TOL = (1e-5, 1e-5)
+# Grid-LIIF steps at lego fine width.
+LIIF_STEPS = 4
+# The frame kernel's 800^2 lego view (PERF.md section 6, K-B; NVIDIA H100
+# 80GB HBM3 at 700 W), logged on stderr beside the per-ray gather view; the
+# JSON lines carry only what this run measured.
+FRAME_800_MS = 3.70
+
+
+def write_gather_configs():
+    os.makedirs(CKPT_DIR, exist_ok=True)
+    with open(GATHER_CONFIG, "w") as f:
+        f.write(f"_base_ = {TRAIN_BASE!r}\n"
+                "expname = 'train_lego_gather'\n"
+                "basedir = './logs/chip_smoke'\n"
+                f"coarse_train = {{'N_iters': {G_COARSE}}}\n"
+                f"fine_train = {{'N_iters': {G_FINE}, "
+                f"'pg_scale': {G_PG_SCALE}}}\n"
+                "coarse_model_and_render = {'query_mode': 'gather'}\n"
+                "fine_model_and_render = {'query_mode': 'gather'}\n")
+    with open(GATHER_FERN_CONFIG, "w") as f:
+        f.write(f"_base_ = {FERN_BASE!r}\n"
+                "expname = 'train_fern_gather'\n"
+                "basedir = './logs/chip_smoke'\n"
+                f"fine_train = {{'N_iters': {GF_ITERS}, "
+                f"'pg_scale': {GF_PG_SCALE}, "
+                f"'tv_dense_before': {GF_TV_DENSE_BEFORE}}}\n"
+                "fine_model_and_render = {'query_mode': 'gather'}\n")
+
+
+def zero_launches(ka, kb, kc, tf, tv):
+    ka.launches = ka.launches_windowed = kb.launches = kc.launches = 0
+    tf.launches_fwd = tf.launches_bwd = tv.launches = 0
+
+
+def launch_counts(ka, kb, kc, tf, tv):
+    return {"sweep_fwd": ka.launches, "sweep_bwd": kc.launches,
+            "render_frame": kb.launches, "train_fused_fwd": tf.launches_fwd,
+            "train_fused_bwd": tf.launches_bwd, "tv_add_grad": tv.launches}
+
+
+def gather_run(torch, cfg_path, render_test, timer_targets, tvr_mod=None,
+               tv=None):
+    """``run.main`` on a gather config (train, then ``--render_test`` when
+    asked), in process, with its steps recorded (:class:`StepRecorder`),
+    the K-F calls by form (``tvr_mod``: the model module whose TV the
+    steps call) and the seconds of ``timer_targets``; returns (recorder,
+    K-F recorder or None, timer, render stats or None, seconds, peak
+    device bytes)."""
+    from directvoxgo_tpu_torch import run as run_lib
+    from directvoxgo_tpu_torch.engine import train as train_lib
+    rec = StepRecorder(train_lib)
+    tvr = TVRecorder(torch, tv, tvr_mod) if tvr_mod is not None else None
+    timer = CallTimer(torch, timer_targets)
+    cap_r = Capture(run_lib, "render_viewpoints", results=True)
+    per_replay = PerReplay(tvr) if tvr is not None else None
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    try:
+        run_lib.main(["--config", cfg_path, "--no_reload", "--i_print",
+                      "100", "--device", "cuda"]
+                     + (["--render_test"] if render_test else []))
+        torch.cuda.synchronize()
+    finally:
+        cap_r.restore()
+        timer.restore()
+        rec.restore()
+        if tvr is not None:
+            per_replay.restore()
+            tvr.restore()
+    stats = cap_r.results[0][2] if cap_r.results else None
+    return (rec, tvr, timer, stats, time.time() - t0,
+            torch.cuda.max_memory_allocated())
+
+
+def gather_step_numbers(torch, rec, stage, voxels):
+    """The recorded steps of ``stage`` at ``voxels``: their median host
+    ms after the first tenth, and a trace of three more calls of the last
+    one (busy ms, idle share), with the device memory those calls held at
+    their peak and before them (bytes)."""
+    steps = [s for s in rec.steps if s[0] == stage and s[1] == voxels]
+    ms = median([s[2] for s in steps[len(steps) // 10:]])
+    step, a, k = rec.last[(stage, False)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    trace = profile_step(torch, step, a, k)
+    trace["peak_bytes"] = torch.cuda.max_memory_allocated()
+    trace["bytes_before"] = before
+    return len(steps), ms, trace
+
+
+def count_agreement(torch, model, count_kw, exact):
+    """The sweep form of the view count (``DVGO_COUNT_FORM=sweep``) on the
+    rays and grid of an exact one (``voxel_count_views``' keywords
+    ``count_kw``), timed, and the two freeze masks (count <= 2): (seconds,
+    agreement, IoU, freeze shares)."""
+    os.environ["DVGO_COUNT_FORM"] = "sweep"
+    try:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        sweep = model.voxel_count_views(**count_kw)
+        torch.cuda.synchronize()
+        sweep_s = time.time() - t0
+    finally:
+        del os.environ["DVGO_COUNT_FORM"]
+    fe, fs = exact <= 2, sweep <= 2
+    agree = float((fe == fs).float().mean())
+    iou = float((fe & fs).sum()) / max(float((fe | fs).sum()), 1.0)
+    return sweep_s, agree, iou, float(fe.float().mean()), \
+        float(fs.float().mean())
+
+
+def gather_cpu_case(torch, mode, device, seed=3):
+    """A small gather model of colour ``mode`` on ``device``, from seeded
+    numpy (a density blob, random k0 and MLP), and its train step with
+    512 rays along +-x from a pool of 1024: (model, optimizer, step, pool,
+    batch)."""
+    import numpy as np
+    from directvoxgo_tpu_torch.config import Config
+    from directvoxgo_tpu_torch.engine import train as train_lib
+    from directvoxgo_tpu_torch.models.dvgo import DirectVoxGO
+    kw = {"coarse": dict(rgbnet_dim=0),
+          "fine direct": dict(rgbnet_dim=12, rgbnet_direct=True),
+          "fine": dict(rgbnet_dim=12, rgbnet_direct=False),
+          "posbase_pe": dict(rgbnet_dim=12, posbase_pe=3),
+          "full_implicit": dict(rgbnet_dim=12, rgbnet_full_implicit=True),
+          "liif unfold": dict(rgbnet_dim=6, implicit_voxel_feat=True,
+                              feat_unfold=True),
+          "liif": dict(rgbnet_dim=6, implicit_voxel_feat=True,
+                       feat_unfold=False)}[mode]
+    fine = kw["rgbnet_dim"] > 0
+    model = DirectVoxGO(
+        xyz_min=[-1.6, -1.0, -0.5], xyz_max=[1.6, 1.0, 0.5],
+        num_voxels=32 * 20 * 10, num_voxels_base=32 * 20 * 10,
+        alpha_init=1e-2, fast_color_thres=1e-4, rgbnet_depth=3,
+        rgbnet_width=32, query_mode="gather",
+        k_density=48 if fine else None, k_color=16 if fine else 0,
+        device=device, generator=torch.Generator().manual_seed(seed), **kw)
+    rng = np.random.default_rng(seed)
+    pts = model.grid_points().cpu().numpy()
+    dens = (12.0 * np.exp(-(pts[..., 0] / 1.1) ** 2 - (pts[..., 1] / 0.35)
+                          ** 2 - (pts[..., 2] / 0.3) ** 2) - 8.0
+            + rng.normal(0, 0.5, pts.shape[:3]))
+    with torch.no_grad():
+        model.density.copy_(torch.as_tensor(dens.astype(np.float32)))
+        model.k0.copy_(torch.as_tensor(rng.normal(
+            0, 0.5, tuple(model.k0.shape)).astype(np.float32)))
+    model.update_occupancy_cache()
+    cfg = Config.fromfile(os.path.join(REPO, "configs", "default.py"))
+    ct = cfg.fine_train if fine else cfg.coarse_train
+    ct.N_rand = 512
+    ct.weight_tv_density = ct.weight_tv_k0 = 1e-3
+    opt = train_lib.create_optimizer_or_freeze_model(model, ct)
+    n = 1024
+    ro = np.stack([np.where(rng.uniform(size=n) < 0.5, -3.0, 3.0),
+                   rng.uniform(-0.3, 0.3, n), rng.uniform(-0.3, 0.3, n)],
+                  -1).astype(np.float32)
+    rd = np.stack([-np.sign(ro[:, 0]), rng.uniform(-0.15, 0.15, n),
+                   rng.uniform(-0.15, 0.15, n)], -1).astype(np.float32)
+    vd = rd / np.linalg.norm(rd, axis=-1, keepdims=True)
+    pool = {k: torch.as_tensor(np.ascontiguousarray(v, np.float32),
+                               device=device)
+            for k, v in (("rgb", rng.uniform(0, 1, (n, 3))),
+                         ("rays_o", ro), ("rays_d", rd), ("viewdirs", vd))}
+    rk = {"near": 0.5, "far": 8.0, "bg": 1.0, "stepsize": 0.5}
+    step = train_lib.make_train_step(model, opt, ct, rk, True, mode == "fine",
+                                     axis=None)
+    return model, opt, step, pool, rng.permutation(n)[:512], ct, rk
+
+
+def gather_card_vs_cpu(torch, dev):
+    """Phase 9 (c): one gather train step per colour mode on the card and
+    on the CPU from one state (TV on: dense for 'fine', sparse else), the
+    losses and the parameters compared; then graphed gather steps against
+    eager ones. Returns {mode: (loss difference, parameter difference)}
+    and the graph check's numbers."""
+    import numpy as np
+    out = {}
+    for mode in ("coarse", "fine direct", "fine", "posbase_pe",
+                 "full_implicit", "liif unfold", "liif"):
+        res = {}
+        for device in ("cpu", dev):
+            model, opt, step, pool, sel, _, _ = gather_cpu_case(
+                torch, mode, device)
+            loss, _ = step(pool, torch.as_tensor(sel, device=device),
+                           np.zeros(3, np.int32))
+            res[str(device)] = (float(loss), {
+                n: p.detach().cpu() for n, p in model.named_parameters()})
+        (l_c, p_c), (l_g, p_g) = res["cpu"], res[str(dev)]
+        d_loss = abs(l_g - l_c) / max(abs(l_c), 1e-12)
+        d_par = max(float((p_g[n] - p_c[n]).abs().max())
+                    / max(1.0, float(p_c[n].abs().max()))
+                    for n in p_c if p_c[n].numel())
+        out[mode] = {"loss": l_c, "loss_rel_diff": d_loss,
+                     "param_diff_of_scale": d_par}
+        log(f"[phase 9] card vs CPU, gather step {mode}: loss {l_c:.6f}, "
+            f"relative difference {d_loss:.3e}; largest parameter "
+            f"difference {d_par:.3e} of its scale")
+        if not (np.isfinite(l_g) and d_loss <= GATHER_CPU_TOL[0]
+                and d_par <= GATHER_CPU_TOL[1]):
+            raise AssertionError(f"gather step {mode}: card and CPU differ "
+                                 f"(loss {d_loss}, parameters {d_par})")
+    # graphed against eager, on the card (a fine step, 6 batches)
+    model, opt, _, pool, _, ct, rk = gather_cpu_case(torch, "fine", dev)
+    rng = np.random.default_rng(SEED)
+    sels = np.stack([rng.permutation(1024)[:512] for _ in range(6)])
+    graphs = graph_vs_eager(torch, dev, "gather fine step", model,
+                            (opt, ct, rk, True, False), {"axis": None},
+                            pool, sels, np.zeros((6, 3), np.int32))
+    return out, graphs
+
+
+def gather_vs_sweep_step(torch, dev, fine_model, pool, rk, n=8):
+    """The gather step against the sweep step at the same grid and state
+    (the trained gather model's, copied into a sweep model) on the same
+    ``n`` batches of 8192 rays of one sweep axis group, each graphed and
+    eager (:func:`graph_vs_eager`: wall and busy ms); returns both."""
+    import numpy as np
+    from directvoxgo_tpu_torch import convert
+    from directvoxgo_tpu_torch.config import Config
+    from directvoxgo_tpu_torch.models.dvgo import DirectVoxGO
+    from directvoxgo_tpu_torch.ops import sweep as sweep_ops
+    cfg = Config.fromfile(CONFIG)
+    ct = cfg.fine_train
+    kw = dict(fine_model.get_kwargs(), query_mode="sweep")
+    for key in ("act_shift", "voxel_size_ratio", "mask_cache_path"):
+        kw.pop(key)
+    sweep = DirectVoxGO(**kw, device=dev)
+    params, mask = convert.params_to_jax(fine_model)
+    sweep.load_state_dict(convert.params_from_jax(params, mask, device=dev))
+    rd = pool["rays_d"].cpu().numpy()
+    groups = sweep_ops.sweep_axes(sweep, rd)
+    axis = int(np.bincount(groups, minlength=3).argmax())
+    g = np.flatnonzero(groups == axis)
+    rng = np.random.default_rng(SEED)
+    sels = np.stack([rng.choice(g, int(ct.N_rand), replace=False)
+                     for _ in range(n)])
+    clip_sizes, clip_off = sweep.sweep_clip_for_axis(axis)
+    out = {"axis": axis, "clip_sizes": None if clip_sizes is None
+           else list(clip_sizes)}
+    from directvoxgo_tpu_torch.engine import train as train_lib
+    for name, model, make_kw, offs in (
+            ("gather", fine_model, {"axis": None}, np.zeros((n, 3))),
+            ("sweep", sweep, {"axis": axis, "clip_sizes": clip_sizes},
+             np.broadcast_to(np.asarray(clip_off), (n, 3)))):
+        opt = train_lib.create_optimizer_or_freeze_model(model, ct)
+        out[name] = graph_vs_eager(
+            torch, dev, f"lego fine {name} step at "
+            f"{tuple(model.world_size)}", model, (opt, ct, rk, False, False),
+            make_kw, pool, sels, np.asarray(offs, np.int32))
+    log(f"[phase 9] the same state and batches, graphed wall / busy ms: "
+        f"gather {out['gather']['graphed_wall_ms']:.2f} / "
+        f"{out['gather']['graphed_trace']['device_busy_ms']:.2f}, sweep "
+        f"{out['sweep']['graphed_wall_ms']:.2f} / "
+        f"{out['sweep']['graphed_trace']['device_busy_ms']:.2f}")
+    del sweep
+    return out
+
+
+def liif_full_width(torch, dev, fine_model, pool, rk):
+    """Phase 9 (d): a few gather steps of grid-LIIF (``feat_unfold``,
+    ``cell_decode``, ``local_ensemble``) at lego fine width: the trained
+    gather model's grid, bbox and occupancy, k0 and MLP seeded; returns
+    the step times, peak memory and losses."""
+    import numpy as np
+    from directvoxgo_tpu_torch.config import Config
+    from directvoxgo_tpu_torch.engine import train as train_lib
+    from directvoxgo_tpu_torch.models.dvgo import DirectVoxGO
+    kw = dict(fine_model.get_kwargs(), implicit_voxel_feat=True,
+              feat_unfold=True, cell_decode=True, local_ensemble=True)
+    kw.pop("act_shift")
+    kw.pop("voxel_size_ratio")
+    kw.pop("mask_cache_path")
+    kw["num_voxels"] = fine_model.num_voxels
+    model = DirectVoxGO(**kw, device=dev,
+                        generator=torch.Generator().manual_seed(SEED))
+    with torch.no_grad():
+        model.density.copy_(fine_model.density)
+        model.mask.copy_(fine_model.mask)
+        model.k0.copy_(torch.randn(tuple(model.k0.shape), generator=torch
+                                   .Generator().manual_seed(SEED)) * 0.1)
+    cfg = Config.fromfile(CONFIG)
+    ct = cfg.fine_train
+    opt = train_lib.create_optimizer_or_freeze_model(model, ct)
+    step = train_lib.make_train_step(model, opt, ct, rk, False, False,
+                                     axis=None)
+    n_pool = pool["rgb"].shape[0]
+    rng = np.random.default_rng(SEED)
+    ms, losses = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(LIIF_STEPS):
+        sel = torch.as_tensor(rng.integers(0, n_pool, int(ct.N_rand)),
+                              device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = step(pool, sel, np.zeros(3, np.int32))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    peak = torch.cuda.max_memory_allocated()
+    finite = (all(np.isfinite(losses)) and all(
+        bool(torch.isfinite(p).all()) for p in model.parameters()))
+    out = {"world_size": list(model.world_size), "k0_dim": model.k0_dim,
+           "mlp_in": model.rgbnet_dim0, "steps": LIIF_STEPS,
+           "step_ms": ms, "median_step_ms": median(ms[1:]),
+           "peak_bytes": peak, "losses": losses, "finite": finite}
+    log(f"[phase 9] grid-LIIF (feat_unfold) at {model.world_size}: {out}")
+    if not finite:
+        raise AssertionError(f"grid-LIIF steps at full width: {out}")
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def gather_phase(torch, dev, ka, kb, kc, tf, tv):
+    """Phase 9; returns the kernels-line entries of the gather path (K-F's
+    whole-grid forms on the gather MPI steps) and a summary."""
+    import numpy as np
+    from directvoxgo_tpu_torch import rays as ray_lib
+    from directvoxgo_tpu_torch.config import Config
+    from directvoxgo_tpu_torch.data import load_everything
+    from directvoxgo_tpu_torch.engine import checkpoint as ckpt_lib
+    from directvoxgo_tpu_torch.engine import render as render_lib
+    from directvoxgo_tpu_torch.models import dmpigo as mpi_mod
+    from directvoxgo_tpu_torch.models.dmpigo import DirectMPIGO
+    from directvoxgo_tpu_torch.models.dvgo import DirectVoxGO
+    write_gather_configs()
+
+    # (a) Lego, unfused, gather: train, count, render.
+    counts = {}
+    orig_count = DirectVoxGO.voxel_count_views
+
+    def kept_count(self, **k):      # the engine passes keywords
+        out = orig_count(self, **k)
+        counts.setdefault("exact", (self, k, out))
+        return out
+
+    DirectVoxGO.voxel_count_views = kept_count
+    zero_launches(ka, kb, kc, tf, tv)
+    try:
+        rec, _, timer, stats, wall_s, peak = gather_run(
+            torch, GATHER_CONFIG, True,
+            [(DirectVoxGO, "_voxel_count_views_exact")])
+    finally:
+        DirectVoxGO.voxel_count_views = orig_count
+    launches = launch_counts(ka, kb, kc, tf, tv)
+    coarse = [s for s in rec.steps if s[0] == "coarse"]
+    fine = [s for s in rec.steps if s[0] == "fine"]
+    top = max(s[1] for s in fine)
+    ran = how_steps_ran(rec.steps)
+    log(f"[phase 9] run.main trained {len(coarse)} coarse + {len(fine)} fine "
+        f"gather steps (pg_scale {G_PG_SCALE}) and rendered the test views "
+        f"in {wall_s:.1f} s; launches {launches}; steps by how they ran "
+        f"{ran}; peak device memory {peak / 2**30:.2f} GiB")
+    if not (len(coarse) == G_COARSE and len(fine) == G_FINE
+            and top >= 160 ** 3 * 0.9 and all(v == 0 for v in
+                                              launches.values())):
+        raise AssertionError(f"gather run: {len(coarse)} + {len(fine)} "
+                             f"steps, top grid {top}, launches {launches}")
+    if not ran["replayed_share"] > MIN_REPLAYED_SHARE or {
+            str(s[7]) for s in rec.steps} != {"None"}:
+        raise AssertionError(f"gather steps: {ran}")
+    if not all(np.isfinite(s[3]) and np.isfinite(s[4]) for s in rec.steps):
+        raise AssertionError("a gather step's loss or PSNR is not finite")
+    psnr_first = float(np.mean([s[3] for s in coarse[:50]]))
+    psnr_last = float(np.mean([s[3] for s in fine[-50:]]))
+    n_top, step_ms, step_trace = gather_step_numbers(torch, rec, "fine", top)
+    coarse_ms = median([s[2] for s in coarse[len(coarse) // 10:]])
+    psnr_by_500 = [float(np.mean([s[3] for s in coarse[i:i + 500]]))
+                   for i in range(0, len(coarse), 500)]
+    log(f"[phase 9] train PSNR: first 50 coarse steps {psnr_first:.2f} dB, "
+        f"last 50 fine steps {psnr_last:.2f} dB; median gather step at "
+        f"{top} voxels ({n_top} steps) {step_ms:.2f} ms (its peak device "
+        f"memory {step_trace['peak_bytes'] / 2**30:.2f} GiB, "
+        f"{step_trace['bytes_before'] / 2**30:.2f} held before), coarse "
+        f"{coarse_ms:.2f} ms; coarse PSNR by 500 steps {psnr_by_500}; trace "
+        f"of the last fine step: {step_trace}")
+    if not psnr_last > psnr_first:
+        raise AssertionError(f"gather train PSNR did not rise: {psnr_first} "
+                             f"-> {psnr_last}")
+    cfg = Config.fromfile(GATHER_CONFIG)
+    logdir = os.path.join(cfg.basedir, cfg.expname)
+    fine_model = ckpt_lib.load_model(DirectVoxGO, os.path.join(
+        logdir, "fine_last.tar"), device=dev)
+    if not (fine_model.query_mode == "gather" and all(
+            bool(torch.isfinite(p).all()) for p in fine_model.parameters())):
+        raise AssertionError("the gather checkpoint is not a finite gather "
+                             "model")
+    data = load_everything(None, cfg)
+    white = float(np.mean([float(-10.0 * np.log10(np.mean(
+        (1.0 - np.asarray(data["images"][i], np.float32)) ** 2)))
+        for i in data["i_test"]]))
+    psnr_test = float(np.mean(stats["psnr"]))
+    log(f"[phase 9] --render_test: paths {stats['path']}, test PSNR "
+        f"{psnr_test:.2f} dB, a white frame scores {white:.2f} dB")
+    if not (set(stats["path"]) == {"rays"} and psnr_test > white):
+        raise AssertionError(f"gather render: paths {stats['path']}, PSNR "
+                             f"{psnr_test} vs white {white}")
+
+    # The exact count against the sweep form on the same rays and grid.
+    c_model, c_kw, exact = counts["exact"]
+    exact_s = timer.seconds["_voxel_count_views_exact"][0]
+    sweep_s, agree, iou, f_exact, f_sweep = count_agreement(
+        torch, c_model, c_kw, exact)
+    n_views = len(data["i_train"])
+    log(f"[phase 9] view count over {n_views} views at "
+        f"{c_model.world_size}: exact form {exact_s:.3f} s "
+        f"({exact_s / n_views * 1e3:.2f} ms a view), sweep form "
+        f"{sweep_s:.3f} s ({sweep_s / n_views * 1e3:.2f} ms a view); freeze "
+        f"masks (count <= 2) agree at {agree:.5f} of voxels, IoU {iou:.5f} "
+        f"(frozen shares {f_exact:.4f} exact, {f_sweep:.4f} sweep)")
+    if not agree >= COUNT_AGREEMENT_MIN:
+        raise AssertionError(f"count forms agree at {agree}")
+
+    # One 800^2 view per ray through the gather forward.
+    v = int(data["i_test"][0])
+    K2 = np.asarray(data["Ks"][v], np.float64).copy()
+    K2[:2, :3] *= 2.0
+    rk = {"near": data["near"], "far": data["far"], "bg": 1.0,
+          "stepsize": cfg.fine_model_and_render.stepsize, "inverse_y": False,
+          "render_depth": True}
+    view_ms = host_time(lambda: render_lib.render_viewpoints(
+        fine_model, data["poses"][[v]], np.array([[800, 800]]),
+        K2[None], False, rk, verbose=False), 3)
+    log(f"[phase 9] one 800^2 view per ray through the gather forward: "
+        f"{view_ms:.1f} ms (the frame kernel's view in PERF.md: "
+        f"{FRAME_800_MS} ms)")
+
+    # (d) grid-LIIF at lego fine width, on rays of two training views.
+    rays = [ray_lib.get_rays_of_a_view(400, 400, data["Ks"][i],
+                                       data["poses"][i], False, False,
+                                       False, False)
+            for i in data["i_train"][:2]]
+    pool = {"rgb": torch.as_tensor(np.concatenate(
+        [np.asarray(data["images"][i], np.float32).reshape(-1, 3)
+         for i in data["i_train"][:2]]), device=dev)}
+    for j, name in enumerate(("rays_o", "rays_d", "viewdirs")):
+        pool[name] = torch.as_tensor(np.concatenate(
+            [r[j].reshape(-1, 3) for r in rays]).astype(np.float32),
+            device=dev)
+    vs_sweep = gather_vs_sweep_step(torch, dev, fine_model, pool, rk)
+    liif = liif_full_width(torch, dev, fine_model, pool, rk)
+    del fine_model, pool
+
+    # (b) Fern, DirectMPIGO, gather, TV on every step.
+    zero_launches(ka, kb, kc, tf, tv)
+    frec, tvr, ftimer, fstats, f_wall, f_peak = gather_run(
+        torch, GATHER_FERN_CONFIG, True, [], mpi_mod, tv)
+    f_launches = launch_counts(ka, kb, kc, tf, tv)
+    f_steps = list(frec.steps)
+    f_top = max(s[1] for s in f_steps)
+    f_ran = how_steps_ran(f_steps)
+    log(f"[phase 9] run.main trained {len(f_steps)} gather MPI steps "
+        f"(pg_scale {GF_PG_SCALE}) and rendered the test views in "
+        f"{f_wall:.1f} s; launches {f_launches}; K-F calls by form "
+        f"{dict(tvr.counts)}; steps by how they ran {f_ran}; peak device "
+        f"memory {f_peak / 2**30:.2f} GiB")
+    if not (len(f_steps) == GF_ITERS
+            and f_launches["tv_add_grad"] == 2 * GF_ITERS
+            and sum(tvr.counts.values()) == 2 * GF_ITERS
+            and all(n == 0 for k, n in f_launches.items()
+                    if k != "tv_add_grad")
+            and f_ran["replayed_share"] > MIN_REPLAYED_SHARE):
+        raise AssertionError(f"gather MPI run: {len(f_steps)} steps, "
+                             f"launches {f_launches}, {f_ran}")
+    f_psnr_first = float(np.mean([s[3] for s in f_steps[:50]]))
+    f_psnr_last = float(np.mean([s[3] for s in f_steps[-50:]]))
+    f_top_steps = [s for s in f_steps if s[1] == f_top]
+    f_step_ms = median([s[2] for s in f_top_steps[len(f_top_steps) // 10:]])
+    f_trace = {tv_form: profile_step(torch, *frec.last_tv[tv_form][:3])
+               for tv_form in ("dense", "sparse") if tv_form in frec.last_tv}
+    fcfg = Config.fromfile(GATHER_FERN_CONFIG)
+    fdata = load_everything(None, fcfg)
+    black = float(np.mean([float(-10.0 * np.log10(np.mean(
+        np.asarray(fdata["images"][i], np.float32) ** 2)))
+        for i in fdata["i_test"]]))
+    f_psnr_test = float(np.mean(fstats["psnr"]))
+    mpi = ckpt_lib.load_model(DirectMPIGO, os.path.join(
+        fcfg.basedir, fcfg.expname, "fine_last.tar"), device=dev)
+    f_finite = all(bool(torch.isfinite(p).all()) for p in mpi.parameters())
+    log(f"[phase 9] gather MPI: train PSNR first 50 steps "
+        f"{f_psnr_first:.2f} dB, last 50 {f_psnr_last:.2f} dB; median step "
+        f"at {f_top} voxels {f_step_ms:.2f} ms; traces by TV form "
+        f"{f_trace}; --render_test paths {fstats['path']}, test PSNR "
+        f"{f_psnr_test:.2f} dB, an all-black frame {black:.2f} dB; world "
+        f"size {mpi.world_size}, finite {f_finite}")
+    if not (f_psnr_last > f_psnr_first and f_finite
+            and set(fstats["path"]) == {"rays"} and f_psnr_test > black):
+        raise AssertionError(f"gather MPI: PSNR {f_psnr_first} -> "
+                             f"{f_psnr_last}, test {f_psnr_test} vs black "
+                             f"{black}, finite {f_finite}, paths "
+                             f"{fstats['path']}")
+    del mpi
+
+    entries = []
+    for form, (name, args, kw) in sorted(tvr.kept.items()):
+        err, nums = tv_numbers(torch, tv, name, args, kw, phase="9")
+        log(f"[phase 9] K-F {form} on the gather step: {nums}")
+        entries.append(dict(
+            {"name": f"tv_add_grad [gather {form}]", "route": "cuda",
+             "source": "directvoxgo_tpu_torch/csrc/tv_add_grad.cu",
+             "replaces": "directvoxgo_tpu/ops/tv.py:64 (_tv_rows_pallas)",
+             "launches": tvr.counts[form], "max_abs_err": err}, **nums))
+
+    # (c) The card against the CPU, and graphed against eager.
+    card_cpu, graphs = gather_card_vs_cpu(torch, dev)
+
+    summary = {
+        "lego": {"config": GATHER_CONFIG, "steps": [G_COARSE, G_FINE],
+                 "pg_scale": G_PG_SCALE, "launches": launches,
+                 "steps_by_how_they_ran": ran, "train_wall_s": wall_s,
+                 "peak_bytes": peak, "top_voxels": top,
+                 "steps_at_top": n_top, "step_ms_at_top": step_ms,
+                 "coarse_step_ms": coarse_ms,
+                 "coarse_psnr_by_500_steps": psnr_by_500,
+                 "step_trace_at_top": step_trace,
+                 "train_psnr_first50": psnr_first,
+                 "train_psnr_last50": psnr_last, "test_psnr": psnr_test,
+                 "white_psnr": white, "render_paths": stats["path"],
+                 "count_exact_s": exact_s, "count_sweep_s": sweep_s,
+                 "count_views": n_views,
+                 "count_world_size": list(c_model.world_size),
+                 "freeze_agreement": agree, "freeze_iou": iou,
+                 "frozen_share_exact": f_exact,
+                 "frozen_share_sweep": f_sweep,
+                 "view_800_per_ray_ms": view_ms},
+        "gather_vs_sweep_step": vs_sweep,
+        "liif_full_width": liif,
+        "fern": {"config": GATHER_FERN_CONFIG, "steps": GF_ITERS,
+                 "pg_scale": GF_PG_SCALE,
+                 "tv_dense_before": GF_TV_DENSE_BEFORE,
+                 "launches": f_launches, "tv_calls_by_form": dict(tvr.counts),
+                 "steps_by_how_they_ran": f_ran, "train_wall_s": f_wall,
+                 "peak_bytes": f_peak, "top_voxels": f_top,
+                 "step_ms_at_top": f_step_ms, "step_traces": f_trace,
+                 "train_psnr_first50": f_psnr_first,
+                 "train_psnr_last50": f_psnr_last,
+                 "test_psnr": f_psnr_test, "black_psnr": black},
+        "card_vs_cpu": card_cpu, "graphed_vs_eager": graphs}
+    return entries, summary
+
+
 # ----------------------------------------------------------------- main
 
 def run(dev):
@@ -3721,12 +4313,17 @@ def run(dev):
             entry["small_shape_max_rel_err"] = errs["tv_add_grad"]
     # Phase 8: the frame-kernel harness (v1, v3, v4) and the op probe.
     harness_entries, training["harness"] = harness_phase(torch, dev, kb)
+    # Phase 9: the gather path (DirectVoxGO and DirectMPIGO).
+    gather_entries, training["gather"] = gather_phase(torch, dev, ka, kb, kc,
+                                                      tf, tv)
+    for entry in gather_entries:
+        entry["small_shape_max_rel_err"] = errs["tv_add_grad"]
     training["window_checks"] = errs["window"]
     training["small_graph_checks"] = errs["graphs"]
     fwd = [e for e in train_entries if e["name"].startswith("sweep_fwd")]
     return kernels[:1] + fwd + kernels[1:] \
         + [e for e in train_entries if e not in fwd] + fused_entries \
-        + mpi_entries + harness_entries, training
+        + mpi_entries + harness_entries + gather_entries, training
 
 
 def frame_bound(f, stats):

@@ -38,6 +38,13 @@ gradients, which the fused step does not give).
 With all axes ready, a chunk consumes the stage's generator exactly as the
 JAX engine's steady state does: one ``rng.choice(3, p=group_p)``, then
 the group's draws.
+
+A gather model (``query_mode='gather'``) has no sweep axis: as in the JAX
+engine (``use_sweep`` false) every batch is drawn from the whole pool, by
+``batch_indices_generator(n_pool, N_rand, rng)`` for the ``flatten`` and
+``in_maskcache`` samplers (when the pool holds a batch), else by
+``rng.integers(0, n_pool, N_rand)``; chunks keep the dispatch width, and
+there are no axis groups, windows or fused tiles.
 """
 
 from __future__ import annotations
@@ -121,6 +128,20 @@ class Draws:
         self.near, self.far, self.rng = near, far, rng
         self.clip_plan, self.device, self.stage = clip_plan, device, stage
         self.n_rand = n_rand = int(cfg_train.N_rand)
+        self.n_dispatch, self.windowed = 1, False
+        self.buckets = {}        # axis -> (built for, bucket dict or None)
+        self.gather = getattr(model, "query_mode", "sweep") != "sweep"
+        if self.gather:
+            n_pool = self.rays_d.shape[0]
+            if cfg_train.ray_sampler in ("flatten", "in_maskcache") \
+                    and n_pool >= n_rand:
+                gen = ray_lib.batch_indices_generator(n_pool, n_rand,
+                                                      rng=rng)
+                self.gather_gen = lambda: np.asarray(next(gen))
+            else:
+                self.gather_gen = lambda: rng.integers(0, n_pool, n_rand)
+            self.bucket_ok = self.bucket2d_ok = self.fused_tiles = False
+            return
 
         groups = sweep_ops.sweep_axes(model, self.rays_d)
         self.group_idx = [np.flatnonzero(groups == ax) for ax in range(3)]
@@ -153,8 +174,6 @@ class Draws:
                             and n_rand % fused_ops.NT == 0
                             and fused_ops.fused_enabled(device)
                             and model.supports_fused_step())
-        self.n_dispatch, self.windowed = 1, False
-        self.buckets = {}        # axis -> (built for, bucket dict or None)
 
     # ------------------------------------------------------------ builds
 
@@ -302,12 +321,16 @@ class Draws:
     # ------------------------------------------------------------- draws
 
     def next_chunk(self, n_sub, apply_tv):
-        """The batches of a chunk of ``n_sub`` steps: the axis drawn once,
+        """The batches of a chunk of ``n_sub`` steps (a gather model's: from
+        the whole pool, axis None): the axis drawn once,
         then ``n_sub`` batches of that group. Under the JAX loop's
         ``no_window`` (``n_sub > 1``, a dispatch width above 1, or a TV step
         of the fused trainer) each is uniform within the group; else (one
         step where windows engage) the window classes and fused tiles
         draw."""
+        if self.gather:
+            return (np.stack([self.gather_gen() for _ in range(n_sub)]),
+                    None, None, None)
         ax = int(self.rng.choice(3, p=self.group_p))
         no_window = (n_sub > 1 or self.n_dispatch > 1
                      or (apply_tv and self.fused_tiles))

@@ -8,7 +8,10 @@ camera. NDC (forward-facing) views render along the model's forced sweep
 axis (``DirectMPIGO.forward_sweep``, kernel K-A): as pixel tiles, each a
 composed (bp, eu, ev) window of the clip box (:func:`render_frame_ndc_tiles`),
 else per ray in Morton-segment windows (:func:`_render_rays_windowed_2d`),
-else in chunks over the clip box.
+else in chunks over the clip box. A gather model (``query_mode='gather'``)
+renders every view per ray, through its gather ``forward``, in chunks of
+the whole ray list in order (the JAX package takes the frame sweep and the
+NDC tiles only for sweep models).
 """
 
 from __future__ import annotations
@@ -54,22 +57,24 @@ def write_png(path, img):
 
 
 def make_render_fn(model, render_kwargs):
-    """Render one ray chunk sharing a dominant ``axis`` ->
-    (rgb [N, 3], depth [N]) tensors."""
-    if getattr(model, "query_mode", "sweep") != "sweep":
-        raise NotImplementedError(
-            "only sweep-mode models render in this port (ROADMAP A: gather "
-            "forward)")
+    """Render one ray chunk -> (rgb [N, 3], depth [N]) tensors: along a
+    sweep ``axis`` the chunk's rays share, or through the gather forward
+    for ``axis`` None. ``render_chunk.use_sweep`` says whether the model
+    renders through the sweep."""
     kwargs = {k: v for k, v in render_kwargs.items()
               if k in ("near", "far", "bg", "stepsize")}
 
     @torch.no_grad()
     def render_chunk(ro, rd, vd, axis, clip_sizes, clip_off):
-        ret = model.forward_sweep(ro, rd, vd, axis, render_depth=True,
-                                  clip_sizes=clip_sizes,
-                                  clip_offsets=clip_off, **kwargs)
+        if axis is None:
+            ret = model(ro, rd, vd, render_depth=True, **kwargs)
+        else:
+            ret = model.forward_sweep(ro, rd, vd, axis, render_depth=True,
+                                      clip_sizes=clip_sizes,
+                                      clip_offsets=clip_off, **kwargs)
         return ret["rgb_marched"], ret["depth"]
 
+    render_chunk.use_sweep = getattr(model, "query_mode", "sweep") == "sweep"
     return render_chunk
 
 
@@ -77,24 +82,29 @@ def render_rays_chunked(render_fn, model, rays_o, rays_d, viewdirs, chunk):
     """Render a flat numpy ray list in fixed-size padded chunks, grouped by
     dominant axis (each chunk must share one; a model's
     ``forced_sweep_axis`` takes every ray, through the 2D windows of
-    :func:`_render_rays_windowed_2d` where they engage); results return in
-    input order as numpy arrays."""
-    forced = getattr(model, "forced_sweep_axis", None)
-    if forced is not None:
-        out = _render_rays_windowed_2d(render_fn, model, rays_o, rays_d,
-                                       viewdirs, chunk, int(forced))
-        if out is not None:
-            return out
+    :func:`_render_rays_windowed_2d` where they engage), or for a gather
+    model as one part of every ray (axis None); results return in input
+    order as numpy arrays."""
     n = rays_o.shape[0]
+    if not getattr(render_fn, "use_sweep", True):
+        parts = [(None, np.arange(n))]
+    else:
+        forced = getattr(model, "forced_sweep_axis", None)
+        if forced is not None:
+            out = _render_rays_windowed_2d(render_fn, model, rays_o, rays_d,
+                                           viewdirs, chunk, int(forced))
+            if out is not None:
+                return out
+        groups = sweep_ops.sweep_axes(model, rays_d)
+        parts = [(axis, np.flatnonzero(groups == axis)) for axis in range(3)]
     dev = model.device
     rgb_out = np.empty((n, 3), np.float32)
     dep_out = np.empty((n,), np.float32)
-    groups = sweep_ops.sweep_axes(model, rays_d)
-    for axis in range(3):
-        idx = np.flatnonzero(groups == axis)
+    for axis, idx in parts:
         if not len(idx):
             continue
-        clip_sizes, clip_off = model.sweep_clip_for_axis(axis)
+        clip_sizes, clip_off = (model.sweep_clip_for_axis(axis)
+                                if axis is not None else (None, None))
         n_g = len(idx)
         n_pad = _round_up(max(n_g, 1), chunk)
         pad = n_pad - n_g
@@ -375,7 +385,7 @@ def render_viewpoints(model, render_poses, HW, Ks, ndc, render_kwargs,
     when given; write PNGs to ``savedir``. Returns (rgbs, depths, stats);
     ``stats["path"]`` names each view's path: "frame" (the camera sweep),
     "tiles" (an NDC view as windowed pixel tiles) or "rays" (per ray: the
-    fallback of both).
+    fallback of both, and every view of a gather model).
     """
     assert len(render_poses) == len(HW) and len(HW) == len(Ks)
     if render_factor != 0:
@@ -388,7 +398,9 @@ def render_viewpoints(model, render_poses, HW, Ks, ndc, render_kwargs,
     for i, c2w in enumerate(render_poses):
         H, W = (int(x) for x in HW[i])
         K = Ks[i]
-        if ndc:
+        if not render_fn.use_sweep:
+            out = None
+        elif ndc:
             out = render_frame_ndc_tiles(
                 render_fn, model, H, W, np.asarray(K), np.asarray(c2w),
                 {**render_kwargs, "flip_x": flip_x, "flip_y": flip_y})

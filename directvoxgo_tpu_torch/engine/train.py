@@ -41,10 +41,17 @@ whose rays all sweep along z (``forced_sweep_axis``); its LLFF schedule
 adds the TV gradient on every step (kernel K-F: dense over the whole grid,
 sparse over the whole grid, or sparse over the drawn box).
 
-Not ported yet from the JAX engine: the gather forward and the exact view
-count (ROADMAP queue item 3), ``--data_parallel`` (item 6), and the
-profiling and export flags. The fused step keys run eagerly: their box
-offsets are host data into K-D and K-E.
+A model with ``query_mode='gather'`` (the config's ``*_model_and_render``
+key; grid-LIIF colour forces it) trains through the gather forward
+(:meth:`..models.dvgo.DirectVoxGO.forward`), as the JAX engine does: every
+batch is drawn from the whole pool (:class:`.Draws`' gather draws), the
+step key is ``(None, None)`` (no sweep axis, no clip box), the TV gradient
+and MaskedAdam cover whole grids, and the per-voxel lr takes the exact view
+count. Its key replays as a CUDA graph like every unfused key.
+
+Not ported yet from the JAX engine: ``--data_parallel`` (ROADMAP queue item
+6), and the profiling and export flags. The fused step keys run eagerly:
+their box offsets are host data into K-D and K-E.
 """
 
 from __future__ import annotations
@@ -188,10 +195,15 @@ def make_train_step(model, optimizer, cfg_train, render_kwargs,
     (:func:`..ops.sweep.build_ray_tiles_blocktile`), and it needs region
     mode: the kernels take the box slices of the grids. Its offsets are
     host data (the fused keys run eagerly).
+
+    ``axis=None`` (with ``clip_sizes`` None) selects the gather step: the
+    batch through :meth:`..models.dvgo.DirectVoxGO.forward`, the per-point
+    colour loss from its ``raw_rgb``, whole-grid TV and a whole-grid
+    update; ``clip_off`` is ignored.
     """
-    if axis is None:
-        raise NotImplementedError(
-            "only the sweep train step is ported (ROADMAP A: gather forward)")
+    gather = axis is None
+    assert not gather or clip_sizes is None, \
+        "the gather step takes no clip box"
     fused, fused_win, blocked = False, None, None
     if clip_sizes is not None and clip_sizes[0] == "blk":
         blocked = tuple(int(x) for x in clip_sizes[1:])     # (B, eu, ev)
@@ -262,7 +274,9 @@ def make_train_step(model, optimizer, cfg_train, render_kwargs,
             grids = (boxed["density"], boxed["k0"], mask_box)
 
         with torch.enable_grad():
-            if fused:
+            if gather:
+                ret = model(rays_o, rays_d, viewdirs, **kwargs)
+            elif fused:
                 ret = model.forward_sweep_fused(
                     rays_o, rays_d, viewdirs, axis, target, grids=grids,
                     clip_offsets=clip_off, window=fused_win, **kwargs)
@@ -288,6 +302,11 @@ def make_train_step(model, optimizer, cfg_train, render_kwargs,
             if w_rgbper > 0:
                 if "rgbper_sum" in ret:   # fused step: reduced per ray
                     rgbper_loss = torch.sum(ret["rgbper_sum"]) / n_rand
+                elif gather:              # raw_rgb [N, K, 3]
+                    rgbper = torch.sum(
+                        (ret["raw_rgb"] - target[:, None, :]) ** 2, -1)
+                    rgbper_loss = torch.sum(
+                        rgbper * ret["weights"].detach()) / n_rand
                 else:
                     rgbper = torch.sum(
                         (ret["raw_rgb_cl"] - target.t()[:, :, None]) ** 2, 0)
@@ -320,7 +339,8 @@ def make_train_step(model, optimizer, cfg_train, render_kwargs,
                     grads["density"] = [model.density_total_variation_grad(
                         model.density, grads["density"][0],
                         w_tv_density / n_rand, tv_dense)]
-                if w_tv_k0 > 0 and "k0" in grads:
+                # (an empty k0, the fully implicit colour's, has no term)
+                if w_tv_k0 > 0 and "k0" in grads and model.k0.numel():
                     grads["k0"] = [model.k0_total_variation_grad(
                         model.k0, grads["k0"][0], w_tv_k0 / n_rand,
                         tv_dense)]
@@ -478,7 +498,11 @@ def scene_rep_reconstruction(args, cfg, cfg_model, cfg_train, xyz_min,
         print(f"scene_rep_reconstruction ({stage}): voxel_count_views in "
               f"{time.time() - t0:.1f} s")
 
+    gather = model.query_mode != "sweep"
+
     def refresh_clip():
+        if gather:       # no sweep, no clip box
+            return
         bb = grid_ops.mask_bbox_vox_device(model.mask).cpu().numpy()
         bbox = (bb[0].astype(np.float64), bb[1].astype(np.float64))
         for ax in range(3):
@@ -514,9 +538,9 @@ def scene_rep_reconstruction(args, cfg, cfg_model, cfg_train, xyz_min,
 
     def fresh_steps():
         # the whole grid's voxels and the sweep's channels: K-C's largest
-        # scratch of the stage
-        steps.reset(scratch=(int(np.prod(model.world_size)),
-                             2 + model.k0_dim))
+        # scratch of the stage (the gather step runs no K-C)
+        steps.reset(scratch=None if gather else (
+            int(np.prod(model.world_size)), 2 + model.k0_dim))
         return {}
 
     train_steps = fresh_steps()   # (axis, clip sizes) -> step of the tv state
@@ -558,7 +582,8 @@ def scene_rep_reconstruction(args, cfg, cfg_model, cfg_train, xyz_min,
                           pg_set, tv_state_of, args.i_print, args.i_weights)
         sels, axis, clip_sizes, offs = draws.next_chunk(n_sub, tv_state[0])
         if clip_sizes is None:
-            clip_sizes, clip_off = clip_plan[axis]
+            clip_sizes, clip_off = ((None, np.zeros(3, np.int32)) if gather
+                                    else clip_plan[axis])
             offs = np.broadcast_to(np.asarray(clip_off, np.int32),
                                    (n_sub, 3))
         key = (axis, clip_sizes)

@@ -13,8 +13,13 @@ mpi_depth``; the density starts so that each plane stops 1/mpi_depth of
 the light and the last plane is opaque, with ``act_shift`` 0; the TV
 weights are anisotropic (``wxy``, ``wz``); the colour MLP takes all of k0
 and returns the colour itself. The occupancy clip plan, the slab cache and
-the state helpers are DirectVoxGO's. The gather ``forward`` (which needs
-``compact_by_key``) is not ported yet (ROADMAP queue item 3).
+the state helpers are DirectVoxGO's.
+
+With ``query_mode='gather'`` it renders and trains through :meth:`forward`
+instead: the regular NDC sampler's points, the mask's nearest voxel,
+trilinear gathers of density and k0, compositing with early termination
+and the ``k_color`` samples of largest weight before the colour MLP (f32,
+plain PyTorch), as the JAX package's ``DirectMPIGO.forward``.
 """
 
 from __future__ import annotations
@@ -65,10 +70,9 @@ class DirectMPIGO(nn.Module):
                  query_mode="sweep", sweep_color_topk=0, seed=0,
                  device=None, generator=None, **kwargs):
         super().__init__()
-        if query_mode != "sweep":
-            raise NotImplementedError(
-                f"query_mode {query_mode!r}: only the sweep forward is "
-                "ported yet (ROADMAP queue item 3: gather forward)")
+        if query_mode not in ("sweep", "gather"):
+            raise ValueError(f"query_mode {query_mode!r}: expected 'sweep' "
+                             "or 'gather'")
         dev = resolve_device(device)
         self.xyz_min = np.asarray(xyz_min, np.float32)
         self.xyz_max = np.asarray(xyz_max, np.float32)
@@ -209,19 +213,7 @@ class DirectMPIGO(nn.Module):
     def n_samples(self, stepsize):
         return int((self.mpi_depth - 1) / stepsize) + 1
 
-    @staticmethod
-    def _sample_ndc_parts(rays_o, rays_d, n_samples, bbox_min, bbox_max):
-        """The regular NDC sampler in component form: ``n_samples`` points
-        at ray fractions j/(n_samples-1), valid inside the box."""
-        frac = torch.arange(n_samples, dtype=torch.float32,
-                            device=rays_o.device) / (n_samples - 1)
-        pts, valid = [], None
-        for i, (lo, hi) in enumerate(zip(bbox_min, bbox_max)):
-            p = rays_o[:, i][:, None] + rays_d[:, i][:, None] * frac[None, :]
-            ok = (p >= float(lo)) & (p <= float(hi))
-            valid = ok if valid is None else (valid & ok)
-            pts.append(p)
-        return tuple(pts), valid
+    _sample_ndc_parts = staticmethod(rm.sample_points_ndc_parts)
 
     @torch.no_grad()
     def hit_coarse_geo(self, rays_o, rays_d, near, far, stepsize,
@@ -242,6 +234,55 @@ class DirectMPIGO(nn.Module):
                                                   bbox_min, bbox_max)
             outs.append(torch.any(occ & valid, -1))
         return torch.cat(outs).cpu().numpy()
+
+    # ----------------------------------------------------- gather forward
+
+    def forward(self, rays_o, rays_d, viewdirs, global_step=None,
+                grids=None, *, near, far, bg, stepsize, render_depth=False,
+                **_):
+        """Gather-forward rendering of NDC rays (``grids`` = (density, k0,
+        rgbnet, mask) replaces the module's own): the regular NDC
+        sampler's points (``fma``, as the JAX package's compiler computes
+        them), occupied by the mask's nearest voxel, density by trilinear
+        gathers, alpha at interval ``stepsize * voxel_size_ratio``,
+        compositing and the colour compaction of
+        :meth:`.dvgo.DirectVoxGO._gather_weights`, then the colour: the
+        sigmoid of the k0 samples, or of the f32 MLP over (k0, view
+        embedding). Returns the keys of
+        :meth:`.dvgo.DirectVoxGO._render_rays`; ``depth`` in sample-index
+        units."""
+        density_grid, k0_grid, rgbnet, mask = grids if grids is not None \
+            else (self.density, self.k0, self.rgbnet, self.mask)
+        bbox_min = tuple(float(v) for v in self.xyz_min)
+        bbox_max = tuple(float(v) for v in self.xyz_max)
+        interval = stepsize * self.voxel_size_ratio
+        n_s = self.n_samples(stepsize)
+        (px, py, pz), valid = rm.sample_points_ndc_parts(
+            rays_o, rays_d, n_s, bbox_min, bbox_max, fma_=True)
+        occ = grid_ops.occupancy_lookup_parts(
+            mask, px, py, pz, bbox_min, bbox_max) & valid
+        step_f = torch.arange(n_s, dtype=torch.float32,
+                              device=rays_o.device)[None, :].expand(px.shape)
+
+        density = grid_ops.trilinear_sample_world(
+            density_grid, px, py, pz, bbox_min, bbox_max)
+        alpha = rm.raw2alpha(density, self.act_shift, interval)
+        w = self._gather_weights(alpha, occ, px, py, pz, step_f)
+        px, py, pz = w["points"]
+
+        vox_emb = grid_ops.trilinear_sample_world(
+            k0_grid, px, py, pz, bbox_min, bbox_max)
+        if not self.has_rgbnet:
+            rgb = torch.sigmoid(vox_emb)
+        else:
+            vd_emb = mlp_lib.positional_encoding(viewdirs, self.viewbase_pe)
+            vd_emb = vd_emb[:, None, :].expand(*px.shape, vd_emb.shape[-1])
+            rgb = torch.sigmoid(mlp_lib.mlp_apply(
+                rgbnet, torch.cat([vox_emb, vd_emb], -1)))
+        return self._gather_result(w, rgb, bg, render_depth)
+
+    _gather_weights = DirectVoxGO._gather_weights
+    _gather_result = staticmethod(DirectVoxGO._gather_result)
 
     # ----------------------------------------------------- sweep forward
 

@@ -1,18 +1,32 @@
 """DirectVoxGO: dense density and colour-feature voxel grids with a shallow
-view-dependent MLP, rendered and trained through the station sweep.
+view-dependent MLP.
 
 Grids are channels-last ``[X, Y, Z(, C)]`` parameters of the module, the
-occupancy mask a boolean buffer of the density grid's shape. The sweep
-forward is differentiable in the grids and the MLP (kernel K-A forward, K-C
-backward); under ``torch.no_grad()`` it reads cached station slabs instead.
+occupancy mask a boolean buffer of the density grid's shape. Two forwards,
+chosen by ``query_mode`` as in the JAX package:
+
+- ``'sweep'`` (:meth:`DirectVoxGO.forward_sweep`): the station sweep,
+  differentiable in the grids and the MLP (kernel K-A forward, K-C
+  backward); under ``torch.no_grad()`` it reads cached station slabs.
+- ``'gather'`` (:meth:`DirectVoxGO.forward`, the reference-faithful point
+  sampling): dense samples at fixed arc-length steps, the occupied ones
+  compacted to ``k_density``, trilinear gathers of the density, early-
+  terminated compositing, the ``k_color`` samples of largest weight
+  compacted before the colour query, all in f32 plain PyTorch. It also
+  serves the colour variants, which run only there: the positional-
+  embedding colour (``posbase_pe``), the fully implicit colour
+  (``rgbnet_full_implicit``) and grid-LIIF (``implicit_voxel_feat``,
+  which forces gather).
+
 The state surgery of training lives here too: near-camera maskout,
 progressive rescaling, occupancy renewal, clip boxes, the coarse-geometry
-ray filter and the per-voxel view count. The gather forward, the exact
-(gather) view count and the implicit colour variants are not ported yet
-(ROADMAP queue A).
+ray filter and the per-voxel view count (the sweep form, or the exact form
+of the gather models).
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -59,15 +73,9 @@ class DirectVoxGO(nn.Module):
                  seed=0, device=None, generator=None,
                  **kwargs):
         super().__init__()
-        if rgbnet_dim > 0 and (rgbnet_full_implicit or posbase_pe > 0
-                               or implicit_voxel_feat):
-            raise NotImplementedError(
-                "implicit colour, positional-embedding colour and grid-LIIF "
-                "variants are not ported yet (ROADMAP A: model variants)")
-        if query_mode != "sweep":
-            raise NotImplementedError(
-                f"query_mode {query_mode!r}: only the sweep forward is "
-                "ported yet (ROADMAP A: gather forward)")
+        if query_mode not in ("sweep", "gather"):
+            raise ValueError(f"query_mode {query_mode!r}: expected 'sweep' "
+                             "or 'gather'")
         dev = resolve_device(device)
         self.xyz_min = np.asarray(xyz_min, np.float32)
         self.xyz_max = np.asarray(xyz_max, np.float32)
@@ -102,6 +110,12 @@ class DirectVoxGO(nn.Module):
             "cell_decode": cell_decode,
         }
         self.implicit_voxel_feat = implicit_voxel_feat
+        self.feat_unfold = feat_unfold
+        self.local_ensemble = local_ensemble
+        self.cell_decode = cell_decode
+        if implicit_voxel_feat:
+            # grid-LIIF colour: only the gather forward computes it
+            self.query_mode = "gather"
         self.rgbnet_full_implicit = rgbnet_full_implicit
         self.rgbnet_direct = rgbnet_direct
         self.rgbnet_depth = rgbnet_depth
@@ -117,9 +131,21 @@ class DirectVoxGO(nn.Module):
             self.rgbnet = None
             self.has_rgbnet = False
         else:
-            self.k0_dim = rgbnet_dim
+            self.k0_dim = 0 if rgbnet_full_implicit else rgbnet_dim
             dim0 = 3 + 3 * viewbase_pe * 2
-            dim0 += self.k0_dim if rgbnet_direct else self.k0_dim - 3
+            if rgbnet_full_implicit:
+                pass
+            elif posbase_pe > 0:
+                dim0 += 3 + 3 * posbase_pe * 2
+            elif rgbnet_direct:
+                dim0 += self.k0_dim
+            else:
+                dim0 += self.k0_dim - 3
+            if implicit_voxel_feat:
+                # per-corner decoder input: the (27-unfolded) feature, the
+                # relative coordinate, the cell, the view embedding
+                dim0 = (self.k0_dim * (27 if feat_unfold else 1) + 3
+                        + (3 if cell_decode else 0) + 3 + 3 * viewbase_pe * 2)
             self.rgbnet_dim0 = dim0
             self.rgbnet = mlp_lib.MLP(dim0, rgbnet_width, rgbnet_depth, 3,
                                       generator=generator, device=dev)
@@ -403,6 +429,218 @@ class DirectVoxGO(nn.Module):
             float(far), float(stepsize))
             for s in range(0, rays_d.shape[0], chunk)])
 
+    # ----------------------------------------------------- gather forward
+
+    def grid_sampler(self, xyz, grid):
+        """Trilinear query of ``grid`` at world coordinates ``xyz [...,
+        3]``."""
+        idx = grid_ops.world_to_grid(xyz, *self.bounds_on(xyz.device),
+                                     grid.shape[:3])
+        return grid_ops.trilinear_sample(grid, idx)
+
+    def forward(self, rays_o, rays_d, viewdirs, global_step=None,
+                grids=None, **render_kwargs):
+        """Gather-forward volume rendering of a ray batch (any directions):
+        ``grids`` = (density, k0, rgbnet, mask) replaces the module's own.
+        Returns :meth:`_render_rays`'s dict."""
+        if grids is None:
+            grids = (self.density, self.k0, self.rgbnet, self.mask)
+        return self._render_rays(*grids, rays_o, rays_d, viewdirs,
+                                 **render_kwargs)
+
+    def _render_rays(self, density_grid, k0_grid, rgbnet, mask, rays_o,
+                     rays_d, viewdirs, *, near, far, bg, stepsize,
+                     render_depth=False, **_):
+        """The gather forward over explicit grids (the multiscene variants
+        pass per-scene ones):
+
+        1. ``n_cap`` samples per ray at ``stepsize`` voxels apart from the
+           ray's bbox entry, valid inside the bbox and occupied by the
+           mask's nearest voxel;
+        2. the occupied samples compacted in step order to ``k_density``;
+        3. density by trilinear gathers, alpha, compositing weights with
+           early termination (and the ``fast_color_thres`` gates);
+        4. the ``k_color`` samples of largest weight compacted before the
+           colour query, the weight the cap drops returned to
+           ``alphainv_last`` (detached), so that the weights and the
+           background still sum to 1;
+        5. colour: the k0 grid's sigmoid (coarse), the MLP over (k0
+           features, view embedding) with the k0 colour added (fine) or
+           not (``rgbnet_direct``), over (position embedding, view
+           embedding) (``posbase_pe``), over the view embedding alone
+           (``rgbnet_full_implicit``), or grid-LIIF
+           (:meth:`_implicit_color`).
+
+        Returns ``rgb_marched [N, 3]``, ``alphainv_last [N]``, and per
+        kept sample ``weights``, ``raw_alpha``, ``raw_rgb [N, K, 3]``,
+        ``wmask``; ``depth [N]`` (no gradient, in steps) with
+        ``render_depth``."""
+        bbox_min = tuple(float(v) for v in self.xyz_min)
+        bbox_max = tuple(float(v) for v in self.xyz_max)
+        stepdist = stepsize * self.voxel_size
+        interval = stepsize * self.voxel_size_ratio
+        n_cap = rm.max_samples_for_bbox(self.xyz_min, self.xyz_max, stepdist)
+
+        (px, py, pz), valid, step_sl = rm.sample_points_dense_parts(
+            rays_o, rays_d, bbox_min, bbox_max, near, far, stepdist, n_cap,
+            fma_=True)
+        occ = grid_ops.occupancy_lookup_parts(
+            mask, px, py, pz, bbox_min, bbox_max) & valid
+        step_f = step_sl.to(torch.float32)[None, :].expand(px.shape)
+
+        k_d = self.k_density or n_cap
+        if k_d < n_cap:
+            key = torch.where(occ, step_f, step_f + float(2 * n_cap))
+            _, px, py, pz, occ, step_f = rm.compact_by_key(
+                key, k_d, px, py, pz, occ, step_f)
+
+        density = grid_ops.trilinear_sample_world(
+            density_grid, px, py, pz, bbox_min, bbox_max)
+        alpha = rm.raw2alpha(density, self.act_shift, interval)
+        w = self._gather_weights(alpha, occ, px, py, pz, step_f)
+        px, py, pz = w["points"]
+
+        if self.has_rgbnet:
+            vd_emb = mlp_lib.positional_encoding(viewdirs, self.viewbase_pe)
+            vd_emb = vd_emb[:, None, :].expand(*px.shape, vd_emb.shape[-1])
+        if self.has_rgbnet and self.implicit_voxel_feat:
+            rgb = self._implicit_color(k0_grid, rgbnet, px, py, pz, vd_emb,
+                                       stepsize, bbox_min, bbox_max)
+        else:
+            if not self.rgbnet_full_implicit:
+                k0 = grid_ops.trilinear_sample_world(
+                    k0_grid, px, py, pz, bbox_min, bbox_max)
+            if not self.has_rgbnet:
+                rgb = torch.sigmoid(k0)
+            else:
+                if self.rgbnet_full_implicit:
+                    feat = vd_emb
+                elif self.posbase_pe > 0:
+                    pos_emb = mlp_lib.positional_encoding(
+                        torch.stack([px, py, pz], -1), self.posbase_pe)
+                    feat = torch.cat([pos_emb, vd_emb], -1)
+                elif self.rgbnet_direct:
+                    feat = torch.cat([k0, vd_emb], -1)
+                else:
+                    feat = torch.cat([k0[..., 3:], vd_emb], -1)
+                logit = mlp_lib.mlp_apply(rgbnet, feat)
+                if (self.rgbnet_direct or self.rgbnet_full_implicit
+                        or self.posbase_pe > 0):
+                    rgb = torch.sigmoid(logit)
+                else:
+                    rgb = torch.sigmoid(logit + k0[..., :3])
+
+        return self._gather_result(w, rgb, bg, render_depth)
+
+    def _gather_weights(self, alpha, occ, px, py, pz, step_f):
+        """The gather forwards' compositing: the ``fast_color_thres`` gate
+        on alpha, the weights with early termination, the weight gate (or
+        the live samples), then, with a colour MLP, the ``k_color``
+        samples of largest weight kept in a stable order, the weight
+        dropped returned to ``alphainv_last`` (detached). Returns a dict:
+        ``w_eff``, ``alphainv_last``, ``wmask``, ``alpha``, ``step_f`` and
+        ``points`` (px, py, pz) of the kept samples."""
+        if self.fast_color_thres > 0:
+            occ = occ & (alpha > self.fast_color_thres)
+        weights, alphainv_last, live = rm.alpha2weight_dense(alpha, occ)
+        wmask = (weights > self.fast_color_thres
+                 if self.fast_color_thres > 0 else live)
+        w_eff = torch.where(wmask, weights, torch.zeros_like(weights))
+        k_c = self.k_color if (self.has_rgbnet and self.k_color) else 0
+        if k_c and k_c < w_eff.shape[-1]:
+            w_total = torch.sum(w_eff, -1)
+            _, w_eff, px, py, pz, step_f, alpha, wmask = rm.compact_by_key(
+                -w_eff, k_c, w_eff, px, py, pz, step_f, alpha, wmask)
+            alphainv_last = alphainv_last + (
+                w_total - torch.sum(w_eff, -1)).detach()
+        return {"w_eff": w_eff, "alphainv_last": alphainv_last,
+                "wmask": wmask, "alpha": alpha, "step_f": step_f,
+                "points": (px, py, pz)}
+
+    @staticmethod
+    def _gather_result(w, rgb, bg, render_depth):
+        """The gather forwards' output dict from :meth:`_gather_weights`'
+        ``w`` and the kept samples' colours ``rgb [N, K, 3]``."""
+        w_eff, wmask, alpha = w["w_eff"], w["wmask"], w["alpha"]
+        ret = {
+            "alphainv_last": w["alphainv_last"],
+            "weights": w_eff,
+            "rgb_marched": (torch.sum(w_eff[..., None] * rgb, 1)
+                            + w["alphainv_last"][..., None] * bg),
+            "raw_alpha": torch.where(wmask, alpha, torch.zeros_like(alpha)),
+            "raw_rgb": rgb,
+            "wmask": wmask,
+        }
+        if render_depth:
+            ret["depth"] = torch.sum(w_eff * w["step_f"], 1).detach()
+        return ret
+
+    @staticmethod
+    def _unfold_grid_3x3x3(grid):
+        """The 3x3x3 neighbourhood of every voxel, edge-replicated, as
+        channels in position-outer order: ``out[..., (di*9 + dj*3 + dk) * C
+        + c]``."""
+        nx, ny, nz, _ = grid.shape
+        padded = torch.nn.functional.pad(
+            grid.permute(3, 0, 1, 2)[None], (1, 1, 1, 1, 1, 1),
+            mode="replicate")[0].permute(1, 2, 3, 0)
+        return torch.cat([padded[i:i + nx, j:j + ny, k:k + nz]
+                          for i in range(3) for j in range(3)
+                          for k in range(3)], -1)
+
+    def _implicit_color(self, k0_grid, rgbnet, px, py, pz, vd_emb,
+                        stepsize, bbox_min, bbox_max):
+        """Grid-LIIF colour: per sample, the voxel features at the 8
+        half-voxel-shifted nearest corners (``local_ensemble``; else the
+        floor corner alone), each decoded by the MLP from (feature,
+        relative coordinate, cell when ``cell_decode``, view embedding),
+        sigmoided and blended by the volume of the opposite corner's box.
+
+        The reference's quirks, kept as the JAX package keeps them: no
+        diagonal swap of the volumes, the cell ``2 * stepsize / dim``
+        without rescaling, and the relative coordinate at twice voxel
+        units. All corners' features come from one gather (one gradient
+        buffer of the grid's size)."""
+        nx, ny, nz = k0_grid.shape[:3]
+        grid = self._unfold_grid_3x3x3(k0_grid) if self.feat_unfold \
+            else k0_grid
+        grid_flat = grid.reshape(nx * ny * nz, grid.shape[-1])
+        ix, iy, iz = grid_ops.world_to_grid_parts(
+            px, py, pz, bbox_min, bbox_max, (nx, ny, nz))
+        shifts = ([(sx, sy, sz) for sx in (-1, 1) for sy in (-1, 1)
+                   for sz in (-1, 1)] if self.local_ensemble
+                  else [(0, 0, 0)])
+        cell = ([2.0 * stepsize / nx, 2.0 * stepsize / ny,
+                 2.0 * stepsize / nz] if self.cell_decode else None)
+
+        corners, lins = [], []
+        for shift in shifts:
+            c = [torch.clamp(torch.floor(i) + (1.0 if sh > 0 else 0.0), 0,
+                             n - 1)
+                 for i, sh, n in zip((ix, iy, iz), shift, (nx, ny, nz))]
+            corners.append(c)
+            lins.append((c[0].long() * ny + c[1].long()) * nz + c[2].long())
+        q_all = grid_flat.index_select(0, torch.stack(lins).reshape(-1))
+        q_all = q_all.reshape(len(shifts), *ix.shape, grid_flat.shape[-1])
+
+        preds, volumes = [], []
+        for q_feat, (cx, cy, cz) in zip(q_all, corners):
+            rx, ry, rz = (2.0 * (i - q) for i, q in
+                          ((ix, cx), (iy, cy), (iz, cz)))
+            inp = [q_feat, rx[..., None], ry[..., None], rz[..., None]]
+            if cell is not None:
+                inp += [torch.full_like(rx[..., None], v) for v in cell]
+            logit = mlp_lib.mlp_apply(rgbnet, torch.cat(inp + [vd_emb], -1))
+            preds.append(torch.sigmoid(logit))
+            volumes.append(torch.abs(rx * ry * rz) + 1e-9)
+        tot = volumes[0]
+        for v in volumes[1:]:
+            tot = tot + v
+        rgb = preds[0] * (volumes[0] / tot)[..., None]
+        for p, v in zip(preds[1:], volumes[1:]):
+            rgb = rgb + p * (v / tot)[..., None]
+        return rgb
+
     # ----------------------------------------------------- sweep forward
 
     def _sweep_slabs(self, axis, k, clip_sizes, clip_offsets):
@@ -667,33 +905,33 @@ class DirectVoxGO(nn.Module):
 
     def voxel_count_views(self, rays_o_tr, rays_d_tr, imsz, near, far,
                           stepsize, downrate=1, irregular_shape=False):
-        """Count, per voxel, how many training views touch it: per view the
-        station-sweep transpose of an all-ones cotangent at one f32 channel
-        (kernel K-A forward of a zero grid, K-C backward), thresholded at
-        ``> 1``. Each view sweeps along its camera's dominant axis by ray
-        majority. Returns the [X, Y, Z] f32 count."""
-        if self.query_mode != "sweep":
-            raise NotImplementedError(
-                "the exact (gather) view count is not ported yet (ROADMAP A: "
-                "gather forward)")
+        """Count, per voxel, how many training views touch it (per view
+        the grid's gradient of the summed samples of its rays, thresholded
+        at ``> 1``); returns the [X, Y, Z] f32 count. Two forms, chosen as
+        the JAX package chooses them: by ``query_mode``, or by the
+        environment's ``DVGO_COUNT_FORM`` ('sweep' or 'exact'; any other
+        value raises ``ValueError``):
+
+        - the sweep form: the station-sweep transpose of an all-ones
+          cotangent at one f32 channel (kernel K-A forward of a zero grid,
+          K-C backward), each view swept along its camera's dominant axis
+          by ray majority;
+        - the exact form (:meth:`_voxel_count_views_exact`): the trilinear
+          weights of ``|world_size + 1| / stepsize + 1`` samples per ray at
+          fixed arc-length steps, scattered with ``index_add_``."""
+        form = os.environ.get("DVGO_COUNT_FORM", "")
+        if form not in ("", "sweep", "exact"):
+            raise ValueError(
+                f"DVGO_COUNT_FORM={form!r}: expected 'sweep' or 'exact'")
+        use_sweep = (form == "sweep" if form
+                     else self.query_mode == "sweep")
+        views = self._count_views(rays_o_tr, rays_d_tr, imsz, downrate)
+        if not use_sweep:
+            return self._voxel_count_views_exact(views, near, far, stepsize)
         dev = self.device
         count = torch.zeros(self.world_size, dtype=torch.float32, device=dev)
         k = sweep_ops.substeps_for_stepsize(stepsize)
-        is_list = isinstance(rays_o_tr, list)
-        views_o = rays_o_tr if is_list else np.split(
-            np.asarray(rays_o_tr), np.cumsum(imsz)[:-1])
-        views_d = rays_d_tr if is_list else np.split(
-            np.asarray(rays_d_tr), np.cumsum(imsz)[:-1])
-        for ro, rd in zip(views_o, views_d):
-            ro, rd = np.asarray(ro), np.asarray(rd)
-            while ro.ndim > 3:   # split() leaves a leading length-1 dim
-                ro, rd = ro[0], rd[0]
-            if ro.ndim == 3:     # [H, W, 3] image layout
-                ro, rd = ro[::downrate, ::downrate], rd[::downrate, ::downrate]
-            ro = np.ascontiguousarray(ro.reshape(-1, 3), np.float32)
-            rd = np.ascontiguousarray(rd.reshape(-1, 3), np.float32)
-            if ro.shape[0] == 0:
-                continue
+        for ro, rd in views:
             axes = sweep_ops.dominant_axis(rd, self.xyz_min, self.xyz_max,
                                            self.world_size)
             axis = int(np.bincount(axes, minlength=3).argmax())
@@ -710,4 +948,60 @@ class DirectVoxGO(nn.Module):
                 g_view, = torch.autograd.grad(vals[0].sum(), grid_perm)
             g_view = g_view[..., 0].permute(*np.argsort(perm).tolist())
             count += (g_view > 1).float()
+        return count
+
+    @staticmethod
+    def _count_views(rays_o_tr, rays_d_tr, imsz, downrate):
+        """Yield the training rays of each view with rays, as contiguous
+        f32 ``[n, 3]`` numpy pairs (image layouts subsampled by
+        ``downrate``)."""
+        is_list = isinstance(rays_o_tr, list)
+        views_o = rays_o_tr if is_list else np.split(
+            np.asarray(rays_o_tr), np.cumsum(imsz)[:-1])
+        views_d = rays_d_tr if is_list else np.split(
+            np.asarray(rays_d_tr), np.cumsum(imsz)[:-1])
+        for ro, rd in zip(views_o, views_d):
+            ro, rd = np.asarray(ro), np.asarray(rd)
+            while ro.ndim > 3:   # split() leaves a leading length-1 dim
+                ro, rd = ro[0], rd[0]
+            if ro.ndim == 3:     # [H, W, 3] image layout
+                ro, rd = ro[::downrate, ::downrate], rd[::downrate, ::downrate]
+            ro = np.ascontiguousarray(ro.reshape(-1, 3), np.float32)
+            rd = np.ascontiguousarray(rd.reshape(-1, 3), np.float32)
+            if ro.shape[0]:
+                yield ro, rd
+
+    @torch.no_grad()
+    def _voxel_count_views_exact(self, views, near, far, stepsize,
+                                 chunk=65536):
+        """The exact view count: per view and chunk of rays, samples at
+        ``t_min + stepsize * voxel_size * j / |d|`` (``t_min`` the bbox
+        entry clamped to [near, far]; no bbox mask: samples outside clamp
+        to the border voxels), each adding its 8 trilinear corner weights
+        to the view's sum (:func:`..ops.grid.trilinear_splat_`)."""
+        dev = self.device
+        dims = tuple(int(v) for v in self.world_size)
+        count = torch.zeros(dims, dtype=torch.float32, device=dev)
+        n_samples = int(np.linalg.norm(np.array(self.world_size) + 1)
+                        / stepsize) + 1
+        step = (stepsize * self.voxel_size) * torch.arange(
+            n_samples, dtype=torch.float32, device=dev)
+        lo, hi = self.bounds_on(dev)
+        g_view = torch.empty(int(np.prod(dims)), dtype=torch.float32,
+                             device=dev)
+        for ro_v, rd_v in views:
+            g_view.zero_()
+            for i in range(0, ro_v.shape[0], chunk):
+                ro = torch.as_tensor(ro_v[i:i + chunk], device=dev)
+                rd = torch.as_tensor(rd_v[i:i + chunk], device=dev)
+                vec = torch.where(rd == 0, torch.full_like(rd, 1e-6), rd)
+                t_min = torch.clamp(torch.amax(torch.minimum(
+                    (hi - ro) / vec, (lo - ro) / vec), -1), near, far)
+                interp = t_min[:, None] + step[None, :] / torch.linalg.norm(
+                    rd, dim=-1, keepdim=True)
+                pts = ro[:, None, :] + rd[:, None, :] * interp[..., None]
+                idx = grid_ops.world_to_grid(pts, lo, hi, dims)
+                grid_ops.trilinear_splat_(
+                    g_view, idx[..., 0], idx[..., 1], idx[..., 2], dims, 1.0)
+            count += (g_view.reshape(dims) > 1).float()
         return count

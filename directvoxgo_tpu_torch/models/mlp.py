@@ -40,6 +40,19 @@ def _rnd(x, dtype):
     return x if dtype is None else x.to(dtype).float()
 
 
+def mlp_apply(mlp, x):
+    """The MLP over the last dim of ``x [..., dim_in]`` in f32 (the gather
+    forward's colour query): ReLU between layers, logits ``[...,
+    dim_out]``. On the card the products stay f32 as long as TF32 matmuls
+    are off (PyTorch's default, which ``run.main`` keeps)."""
+    layers = mlp.layers
+    for i, layer in enumerate(layers):
+        x = torch.nn.functional.linear(x, layer.weight, layer.bias)
+        if i < len(layers) - 1:
+            x = torch.relu(x)
+    return x
+
+
 def mlp_apply_split_cl(mlp, x_cl, x_shared, compute_dtype=None):
     """MLP over ``concat([x_samples, x_shared])`` with channels-leading
     sample features ``x_cl [D1, N, S]`` and per-ray ``x_shared [N, D2]``;

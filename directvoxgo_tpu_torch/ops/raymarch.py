@@ -1,6 +1,14 @@
-"""Ray-marching primitives: AABB clipping, dense point sampling, raw2alpha
-and front-to-back compositing with early termination (with its closed-form
-backward)."""
+"""Ray-marching primitives: AABB clipping, dense and NDC point sampling,
+raw2alpha, front-to-back compositing with early termination (with its
+closed-form backward) and the fixed-capacity compaction of the gather
+forward.
+
+The samplers take ``fma=True`` on the gather paths: the JAX package's
+compiler contracts ``a * b + c`` there into fused multiply-adds (on the CPU
+as on the accelerators), and a one-ulp change in a sample point can flip
+its bbox test, its occupancy voxel or its trilinear corner. A fused
+multiply-add is computed exactly as an f64 product and sum rounded once to
+f32 (:func:`fma`)."""
 
 from __future__ import annotations
 
@@ -38,31 +46,88 @@ def ray_aabb_tminmax_parts(o, d, xyz_min, xyz_max, near, far):
     return torch.clamp(t_lo, near, far), torch.clamp(t_hi, near, far)
 
 
+def fma(a, b, c):
+    """``a * b + c`` rounded once to f32, as a fused multiply-add: the f32
+    product is exact in f64, so only the final rounding remains."""
+    return (a.double() * b.double() + c.double()).float()
+
+
 def sample_points_dense_parts(rays_o, rays_d, xyz_min, xyz_max, near, far,
-                              stepdist, n_samples):
+                              stepdist, n_samples, fma_=False):
     """Up to ``n_samples`` equidistant points per ray inside the AABB:
     ``o + d*t_min + unit(d) * stepdist * step``. Returns ((px, py, pz) each
     [N, n_samples], valid [N, n_samples] (in segment and in bbox), step_id
-    [n_samples])."""
+    [n_samples]). ``fma_``: the start, the ray's norm and the points as
+    the JAX package's compiler contracts them (``fma(dz, dz, fma(dx, dx,
+    dy * dy))``, ``fma(d, t_min, o)``, ``fma(unit, dist, start)``)."""
     o = tuple(rays_o[:, i] for i in range(3))
     d = tuple(rays_d[:, i] for i in range(3))
     t_min, t_max = ray_aabb_tminmax_parts(o, d, xyz_min, xyz_max, near, far)
     n_steps = torch.clamp(torch.ceil((t_max - t_min) / stepdist), min=1.0)
-    rnorm = torch.sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
+    if fma_:
+        rnorm = torch.sqrt(fma(d[2], d[2], fma(d[0], d[0], d[1] * d[1])))
+    else:
+        rnorm = torch.sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
     step_id = torch.arange(n_samples, dtype=torch.int32,
                            device=rays_o.device)
     dist = stepdist * step_id.to(rays_o.dtype)
     pts = []
     in_bbox = None
     for ov, dv, lo, hi in zip(o, d, xyz_min, xyz_max):
-        start = ov + dv * t_min
         unit = dv / rnorm
-        p = start[:, None] + unit[:, None] * dist[None, :]
+        if fma_:
+            p = fma(unit[:, None], dist[None, :], fma(dv, t_min, ov)[:, None])
+        else:
+            p = (ov + dv * t_min)[:, None] + unit[:, None] * dist[None, :]
         ok = (p >= float(lo)) & (p <= float(hi))
         in_bbox = ok if in_bbox is None else (in_bbox & ok)
         pts.append(p)
     in_segment = step_id[None, :] < n_steps[:, None]
     return tuple(pts), in_segment & in_bbox, step_id
+
+
+def sample_points_dense(rays_o, rays_d, xyz_min, xyz_max, near, far,
+                        stepdist, n_samples):
+    """:func:`sample_points_dense_parts` (with ``fma_``) in the packed
+    layout: (pts [N, n_samples, 3], valid, step_id); python-float
+    bounds."""
+    mn = [float(v) for v in np.asarray(xyz_min, np.float64)]
+    mx = [float(v) for v in np.asarray(xyz_max, np.float64)]
+    pts, valid, step_id = sample_points_dense_parts(
+        rays_o, rays_d, mn, mx, near, far, stepdist, n_samples, fma_=True)
+    return torch.stack(pts, -1), valid, step_id
+
+
+def sample_points_ndc_parts(rays_o, rays_d, n_samples, xyz_min, xyz_max,
+                            fma_=False):
+    """The regular NDC sampler in component form: ``n_samples`` points at
+    ray fractions j / (n_samples - 1) (``fma_``: ``fma(d, frac, o)``), valid
+    inside the box. Returns ((px, py, pz), valid)."""
+    frac = torch.arange(n_samples, dtype=torch.float32,
+                        device=rays_o.device) / (n_samples - 1)
+    pts, valid = [], None
+    for i, (lo, hi) in enumerate(zip(xyz_min, xyz_max)):
+        if fma_:
+            p = fma(rays_d[:, i][:, None], frac[None, :],
+                    rays_o[:, i][:, None])
+        else:
+            p = rays_o[:, i][:, None] + rays_d[:, i][:, None] * frac[None, :]
+        ok = (p >= float(lo)) & (p <= float(hi))
+        valid = ok if valid is None else (valid & ok)
+        pts.append(p)
+    return tuple(pts), valid
+
+
+def sample_points_ndc(rays_o, rays_d, xyz_min, xyz_max, n_samples):
+    """:func:`sample_points_ndc_parts` (with ``fma_``) in the packed layout:
+    (pts [N, n_samples, 3], valid, step_id)."""
+    mn = [float(v) for v in np.asarray(xyz_min, np.float64)]
+    mx = [float(v) for v in np.asarray(xyz_max, np.float64)]
+    pts, valid = sample_points_ndc_parts(rays_o, rays_d, n_samples, mn, mx,
+                                         fma_=True)
+    step_id = torch.arange(n_samples, dtype=torch.int32,
+                           device=rays_o.device)
+    return torch.stack(pts, -1), valid, step_id
 
 
 def max_samples_for_bbox(xyz_min, xyz_max, stepdist):
@@ -94,11 +159,12 @@ class _Alpha2WeightBidir(torch.autograd.Function):
         one_minus = torch.where(valid, 1.0 - alpha_m + T_EPS,
                                 torch.ones_like(alpha))
         ones = torch.ones_like(one_minus[..., :1])
-        t_excl_f = torch.cumprod(
+        t_excl = torch.cumprod(
             torch.cat([ones, one_minus[..., :-1]], -1), -1)
-        t_excl_b = torch.cumprod(
-            torch.cat([one_minus[..., 1:], ones], -1).flip(-1), -1).flip(-1)
-        t_excl = torch.where(forward[:, None], t_excl_f, t_excl_b)
+        if forward is not None:
+            t_excl_b = torch.cumprod(torch.cat(
+                [one_minus[..., 1:], ones], -1).flip(-1), -1).flip(-1)
+            t_excl = torch.where(forward[:, None], t_excl, t_excl_b)
         live = t_excl >= T_TERMINATE
         weights = torch.where(valid & live, t_excl * alpha_m,
                               torch.zeros_like(alpha))
@@ -106,14 +172,16 @@ class _Alpha2WeightBidir(torch.autograd.Function):
                                     torch.ones_like(one_minus)).prod(-1)
         keep = live & valid
         ctx.save_for_backward(weights, alphainv_last, t_excl, one_minus,
-                              live, valid, forward)
+                              live, valid)
+        ctx.forward = forward
         ctx.mark_non_differentiable(keep)
         return weights, alphainv_last, keep
 
     @staticmethod
     def backward(ctx, d_w, d_inv, _d_keep):
-        (weights, alphainv_last, t_excl, one_minus, live, valid,
-         forward) = ctx.saved_tensors
+        (weights, alphainv_last, t_excl, one_minus, live,
+         valid) = ctx.saved_tensors
+        forward = ctx.forward
         zero = torch.zeros_like(weights)
         if d_w is None:
             d_w = zero
@@ -124,7 +192,8 @@ class _Alpha2WeightBidir(torch.autograd.Function):
         csum = torch.cumsum(wd, -1)
         s_fwd = csum[..., -1:] - csum          # sum over i > k
         s_bwd = csum - wd                      # sum over i < k
-        s = torch.where(forward[:, None], s_fwd, s_bwd)
+        s = s_fwd if forward is None else torch.where(forward[:, None],
+                                                      s_fwd, s_bwd)
         a_term = torch.where(live, (d_inv * alphainv_last)[:, None], zero)
         # re-clamped reciprocal: one_minus can round to 0 at a saturated
         # alpha
@@ -144,3 +213,27 @@ def alpha2weight_dense_bidir(alpha, valid, forward):
     (:class:`_Alpha2WeightBidir`).
     """
     return _Alpha2WeightBidir.apply(alpha, valid, forward)
+
+
+def alpha2weight_dense(alpha, valid):
+    """Compositing weights of rows that all march left to right (the gather
+    forward's step order): the JAX package's shifted exclusive cumprod,
+    ``T_i = prod_{j<i} (1 - alpha_j + 1e-10)`` over valid samples, live
+    while ``T_i >= T_TERMINATE``. Returns (weights [N, S], alphainv_last
+    [N], live & valid [N, S]); its backward is the closed form of
+    :class:`_Alpha2WeightBidir`, finite at a saturated alpha."""
+    return _Alpha2WeightBidir.apply(alpha, valid, None)
+
+
+def compact_by_key(key, k, *arrays):
+    """Gather, per row, the ``k`` entries with the smallest ``key`` [N, S]
+    in a stable order (ties keep their sample order, as the JAX package's
+    stable ``lax.sort`` and ``argsort``): returns (sorted key [N, k],
+    each of ``arrays`` ([N, S, ...]) gathered alike)."""
+    order = torch.sort(key, dim=-1, stable=True).indices[:, :k]
+    outs = []
+    for arr in (key, *arrays):
+        idx = order.reshape(order.shape + (1,) * (arr.dim() - 2)).expand(
+            *order.shape, *arr.shape[2:])
+        outs.append(torch.gather(arr, 1, idx))
+    return tuple(outs)

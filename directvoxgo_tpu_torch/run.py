@@ -109,6 +109,8 @@ def main(argv=None):
     cfg = Config.fromfile(args.config)
     _check_supported(args)
     device = resolve_device(args.device)
+    # The gather forward's colour MLP computes in f32, as the JAX package's.
+    torch.backends.cuda.matmul.allow_tf32 = False
     np.random.seed(args.seed)
     random.seed(args.seed)
     torch.manual_seed(args.seed)

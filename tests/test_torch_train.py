@@ -52,15 +52,15 @@ def _np_tree(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-def _model_pair(seed, rgbnet_dim, f32, topk=48):
+def _model_pair(seed, rgbnet_dim, f32, topk=48, **kw):
     """A JAX model with a blob of density (a 64-deep grid, so the clipped
     sweep along x is long enough for top-K compaction) and the port's model
-    with the same parameters and mask."""
+    with the same parameters and mask (``kw``: more constructor keys)."""
     rng = np.random.default_rng(seed)
-    jm = JaxDVGO(alpha_init=1e-2, fast_color_thres=1e-4,
-                 rgbnet_dim=rgbnet_dim, rgbnet_direct=True, rgbnet_depth=3,
-                 rgbnet_width=32, k_density=None, k_color=0,
-                 sweep_color_topk=topk, **GRID_KW)
+    jm = JaxDVGO(**dict(dict(
+        alpha_init=1e-2, fast_color_thres=1e-4, rgbnet_dim=rgbnet_dim,
+        rgbnet_direct=True, rgbnet_depth=3, rgbnet_width=32, k_density=None,
+        k_color=0, sweep_color_topk=topk), **kw), **GRID_KW)
     pts = np.asarray(jm.grid_points())
     dens = (12.0 * np.exp(-(pts[..., 0] / 1.1) ** 2
                           - (pts[..., 1] / 0.35) ** 2
@@ -184,35 +184,50 @@ def test_forward_sweep_loss_gradients_match_jax(mode, pre_clipped):
 
 
 def _cfg_train(cfg, stage, n_rand):
-    ct = cfg.coarse_train if stage == "coarse" else cfg.fine_train
+    ct = cfg.fine_train if "fine" in stage else cfg.coarse_train
     ct.N_rand = n_rand
     return ct
 
 
-@pytest.mark.parametrize("stage", ["coarse", "fine"])
+@pytest.mark.parametrize("stage", ["coarse", "fine", "gather coarse",
+                                   "gather fine", "gather coarse tv",
+                                   "gather fine tv"])
 def test_three_train_steps_match_jax(stage):
     """Three consecutive ``make_train_step`` steps of both packages from
     the same parameters, mask and optimizer state with the same ray
     indices, in f32 sweep/MLP mode. Coarse style: direct colour grid, plain
     Adam with a per-voxel lr, full-size gradients under the clip box. Fine
     style: MLP colours, ``skip_zero_grad`` grids, so region mode (box-sized
-    gradients, box-sliced Adam).
+    gradients, box-sliced Adam). Gather: ``query_mode='gather'`` models
+    through the gather step (``axis=None``: the gather forward with its
+    ``k_density`` and ``k_color`` compactions, whole-grid updates), with
+    the TV gradient off, or on over the whole grid (dense for the coarse
+    style, sparse for the fine).
 
     Loss and PSNR agree to 1e-4 relative. Adam turns a gradient into a
     step of about ``lr * g / (|g| + 1e-8)``, which magnifies the f32
     rounding of near-zero gradients, so parameters agree to 2% of the
     largest step taken (and most entries far closer), second moments to
     1e-3 of their largest entry."""
-    fine = stage == "fine"
-    jm, tm = _model_pair(3, 12 if fine else 0, True)
-    axis, n_rand, n_pool = 0, 256, 1024
+    fine = "fine" in stage
+    gather = stage.startswith("gather")
+    tv = stage.endswith("tv")
+    jm, tm = _model_pair(3, 12 if fine else 0, True, **(dict(
+        query_mode="gather", k_density=96, k_color=24) if gather else {}))
+    n_rand, n_pool = 256, 1024
     ro, rd, vd, rgb = _rays(4, n_pool)
     jcfg, tcfg = JaxConfig.fromfile(DEFAULT_CFG), TorchConfig.fromfile(
         DEFAULT_CFG)
     j_ct, t_ct = _cfg_train(jcfg, stage, n_rand), _cfg_train(tcfg, stage,
                                                             n_rand)
-    clip_sizes, clip_off = jm.sweep_clip_for_axis(axis)
-    assert clip_sizes == tm.sweep_clip_for_axis(axis)[0]
+    for ct in (j_ct, t_ct):
+        ct.weight_tv_density = ct.weight_tv_k0 = 1e-2 if tv else 0.0
+    if gather:
+        axis, clip_sizes, clip_off = None, None, np.zeros(3, np.int32)
+    else:
+        axis = 0
+        clip_sizes, clip_off = jm.sweep_clip_for_axis(axis)
+        assert clip_sizes == tm.sweep_clip_for_axis(axis)[0]
 
     j_opt = jax_train.create_optimizer_or_freeze_model(jm, j_ct)
     j_state = j_opt.init(jm.params)
@@ -232,9 +247,10 @@ def test_three_train_steps_match_jax(stage):
                 0, scale, x.shape)).astype(np.float32)), j_state[key])
     convert.opt_state_from_jax(_np_tree(j_state), t_opt)
 
-    j_step = jax_train.make_train_step(jm, j_opt, j_ct, RK, False, False,
+    tv_state = (tv, tv and not fine)
+    j_step = jax_train.make_train_step(jm, j_opt, j_ct, RK, *tv_state,
                                        axis=axis, clip_sizes=clip_sizes)
-    t_step = torch_train.make_train_step(tm, t_opt, t_ct, RK, False, False,
+    t_step = torch_train.make_train_step(tm, t_opt, t_ct, RK, *tv_state,
                                          axis=axis, clip_sizes=clip_sizes)
     j_pool = {"rgb": jnp.asarray(rgb), "rays_o": jnp.asarray(ro),
               "rays_d": jnp.asarray(rd), "viewdirs": jnp.asarray(vd)}
