@@ -140,11 +140,39 @@ Phases, each of which fails the run:
      ``rgbnet_full_implicit``, grid-LIIF with and without ``feat_unfold``)
      on the card and on the CPU from one state (loss 1e-5 relative,
      parameters 1e-5 of their scale), and graphed gather steps against
-     eager ones.
+     eager ones;
+ 10. the conditioned and multi-scene drivers, in process, on configs under
+     logs/chip_smoke/ that take each task's config (configs/tri_default.py,
+     sr_default.py, multiscene_default.py, tri_multiscene_default.py: their
+     widths) with fixture_lego_sparse.py's data and cut only iteration
+     counts and pg_scale: (a) ``run_tri``: 2000 DirectVoxGO coarse steps
+     through the sweep (K-A and K-C once per step and per counted view),
+     300 TriDVGO fine steps through four rescales to 160^3 with ``down``
+     drawn in [2, 16), ``--render_test``; the median fine step at the top
+     grid with its trace, EDSR's encode of 3 views at down 1, 2, 4 and 15,
+     the area resize, peak memory, ms per test view; (b) ``run_sr`` on LR
+     views made by the area resize at down 4 (coarse on them through K-A
+     and K-C, SRDVGO fine, eval); (c) ``run_multiscene``'s implicit model
+     (NeRF MLP 8 x 256, mip-NeRF density) for 60 fine steps on (a)'s
+     coarse occupancy, one test view (its PSNRs reported, not held to a
+     rise or to the white frame: at the config's lr it does not train);
+     (d) ``run_tri_multiscene_v2`` on two
+     scenes (the fixture, and its views with the RGB channels permuted):
+     the joint DirectVoxGOMultiScene coarse stage (gather, no kernel),
+     TriDVGOMultiScene with consistency and cosine losses, eval per scene,
+     then 20 steps of the v1 driver (lazy pools, prefetch thread) resumed
+     from it; each fine stage launches no K-A to K-E and keeps finite
+     parameters, and but for (c)'s its train PSNR rises and its test
+     views beat a white frame; (e) one train step of each conditioned
+     model and mode on the card (TF32 off) and on the CPU from one state
+     (loss 1e-5 relative, parameters 1e-5 of their scale), and the
+     difference at full width with the TF32 convolutions the drivers
+     train with.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line (one
 entry per kernel and form, each with the launches of the path it belongs
-to; those of K-A, K-C, K-F, K-B, K-D and K-E also with their first
+to; ``[conditioned coarse]`` entries for K-A and K-C on phase 10's coarse
+stages; those of K-A, K-C, K-F, K-B, K-D and K-E also with their first
 version's device time on the same inputs, ``prev_ms``, and the instance's
 registers and spills) and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result line
@@ -154,6 +182,7 @@ file.
 
 import collections
 import json
+import math
 import os
 import subprocess
 import sys
@@ -4318,12 +4347,591 @@ def run(dev):
                                                       tf, tv)
     for entry in gather_entries:
         entry["small_shape_max_rel_err"] = errs["tv_add_grad"]
+    # Phase 10: the conditioned and multi-scene drivers.
+    cond_entries, training["conditioned"] = conditioned_phase(
+        torch, dev, ka, kb, kc, tf, sweep_ops)
     training["window_checks"] = errs["window"]
     training["small_graph_checks"] = errs["graphs"]
     fwd = [e for e in train_entries if e["name"].startswith("sweep_fwd")]
     return kernels[:1] + fwd + kernels[1:] \
         + [e for e in train_entries if e not in fwd] + fused_entries \
-        + mpi_entries + harness_entries + gather_entries, training
+        + mpi_entries + harness_entries + gather_entries + cond_entries, \
+        training
+
+
+# ---------------------------------------------- phase 10: conditioned
+
+# Configs of the conditioned drivers: each takes the JAX package's config
+# of its task (its widths) with the data of fixture_lego_sparse.py (400^2,
+# 40/2/4 views, lego teacher); only iteration counts and pg_scale are cut
+# (pg_scale [1000, 2000, 3000, 4000] -> [50, 100, 150, 200]: the last 100
+# fine steps at 160^3). The coarse stages take 2000 steps: this fixture's
+# coarse geometry forms after about 1400 (phase 5), and the fine stages
+# draw their rays from its occupancy.
+COND_COARSE, COND_FINE, COND_PG = 2000, 300, [50, 100, 150, 200]
+# The implicit model: a few dozen fine steps of the NeRF MLP (8 x 256,
+# 8192 rays x 256 samples: ~30 GiB at the peak) on (a)'s coarse occupancy.
+# At the config's lr its train PSNR over the occupancy's rays falls from
+# the first steps on, its test view lands on either side of the white
+# frame from run to run, and within a few hundred steps it settles into
+# the transparent render (its alpha falls under fast_color_thres, whose
+# gate then stops the density gradient; PERF.md section 6): its
+# PSNRs are reported, not held to a rise or to the white frame.
+MS_FINE = 60
+# The joint multi-scene driver on two scenes, then the v1 driver's steps
+# resumed from it with its lazy pools and prefetch thread.
+V2_COARSE, V2_FINE, V1_STEPS = 300, 300, 20
+V2_WEIGHTS = {"weight_consistency": 0.1, "weight_cosine": 0.01}
+# Card against CPU, one step of each small model from one state: the loss
+# relative, the parameters against their scale (TF32 off on the card).
+COND_CPU_TOL = (1e-5, 1e-5)
+LEGO_DATA = ("{'datadir': None, 'dataset_type': 'synthetic_fixture', "
+             "'white_bkgd': True, 'fixture_kwargs': {'H': 400, 'W': 400, "
+             "'n_train': 40, 'n_val': 2, 'n_test': 4, 'teacher_res': 128, "
+             "'variant': 'lego'}}")
+
+
+def write_cond_configs():
+    os.makedirs(CKPT_DIR, exist_ok=True)
+    specs = {
+        "tri": ("tri_default.py", COND_COARSE, COND_FINE, COND_PG, {}, {}),
+        "sr": ("sr_default.py", COND_COARSE, COND_FINE, COND_PG, {}, {}),
+        "ms": ("multiscene_default.py", COND_COARSE, MS_FINE, None, {}, {}),
+        "v2": ("tri_multiscene_default.py", V2_COARSE, V2_FINE, COND_PG,
+               V2_WEIGHTS, {"compute_consistency": True,
+                            "compute_cosine": True}),
+    }
+    paths = {}
+    for name, (base, n_c, n_f, pg, train_kw, model_kw) in specs.items():
+        fine = dict(train_kw, N_iters=n_f)
+        if pg is not None:
+            fine["pg_scale"] = pg
+        paths[name] = os.path.join(CKPT_DIR, f"cond_{name}.py")
+        with open(paths[name], "w") as f:
+            f.write(f"_base_ = '../../configs/{base}'\n"
+                    f"expname = 'cond_{name}'\n"
+                    "basedir = './logs/chip_smoke'\n"
+                    f"data = {LEGO_DATA}\n"
+                    f"coarse_train = {{'N_iters': {n_c}}}\n"
+                    f"fine_train = {fine!r}\n"
+                    f"fine_model_and_render = {model_kw!r}\n")
+    return paths
+
+
+class CondSteps:
+    """Wraps ``engine.train_conditioned.make_cond_train_step``: each
+    conditioned step is synchronised and timed on the host clock, with the
+    grid's voxels and its PSNR; the last step at each grid size is kept
+    with its inputs, to run again."""
+
+    def __init__(self, torch, cond_lib):
+        self.torch, self.lib = torch, cond_lib
+        self.orig = cond_lib.make_cond_train_step
+        self.steps, self.last = [], {}
+        cond_lib.make_cond_train_step = self
+
+    def __call__(self, model, *a, **k):
+        step = self.orig(model, *a, **k)
+        torch = self.torch
+
+        def timed(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, mse = step(*args)
+            torch.cuda.synchronize()
+            voxels = int(np_prod(model.world_size))
+            self.steps.append((voxels, (time.perf_counter() - t0) * 1e3,
+                               -10.0 * float(torch.log10(mse)), float(loss)))
+            self.last[voxels] = (step, args)
+            return loss, mse
+        return timed
+
+    def restore(self):
+        self.lib.make_cond_train_step = self.orig
+
+    def summary(self, torch, what, rising=True):
+        """(mean PSNR of the first and of the last 30 steps (a third of
+        shorter runs), median step ms at the top grid, the trace of 3 more
+        steps there). Fails on a loss or PSNR that is not finite, and with
+        ``rising`` on a PSNR that did not rise."""
+        top = max(s[0] for s in self.steps)
+        at_top = [s[1] for s in self.steps if s[0] == top]
+        w = max(1, min(30, len(self.steps) // 3))
+        first = sum(s[2] for s in self.steps[:w]) / w
+        last = sum(s[2] for s in self.steps[-w:]) / w
+        step, args = self.last[top]
+        torch.cuda.reset_peak_memory_stats()
+        trace = profile_step(torch, step, args, {})
+        trace["peak_bytes"] = torch.cuda.max_memory_allocated()
+        out = {"steps": len(self.steps), "top_voxels": top,
+               "steps_at_top": len(at_top), "psnr_first": first,
+               "psnr_last": last, "psnr_window": w, "median_step_ms_at_top":
+               median(at_top[len(at_top) // 10:]), "trace_at_top": trace}
+        log(f"[phase 10] {what}: {out}")
+        if not (all(math.isfinite(s[2]) and math.isfinite(s[3])
+                    for s in self.steps) and (last > first or not rising)):
+            raise AssertionError(f"{what}: train PSNR {first} -> {last} "
+                                 "(not rising, or not finite)")
+        return out
+
+
+def _finite_model(torch, model, what):
+    if not all(bool(torch.isfinite(p).all()) for p in model.parameters()):
+        raise AssertionError(f"{what}: parameters not finite")
+
+
+def _white_psnr(torch, imgs):
+    return float(sum(psnr(torch.as_tensor(np_f32(im)),
+                          torch.ones(np_f32(im).shape)) for im in imgs)
+                 / len(imgs))
+
+
+def np_f32(x):
+    import numpy as np
+    return np.asarray(x, np.float32)
+
+
+def _eval(torch, run, what, white, n_views, beat=True):
+    """Time an evaluation (``run() -> {split or scene: stats}``) and check
+    that each of its splits is finite and (``beat``) beats the white
+    frame."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    stats = run()
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    out = {k: float(sum(v["psnr"]) / len(v["psnr"])) for k, v in
+           stats.items()}
+    log(f"[phase 10] {what}: test PSNR {out} (white frame {white}), "
+        f"{secs * 1e3 / n_views:.1f} ms a view, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not all(math.isfinite(v) and (v > white or not beat)
+               for v in out.values()):
+        raise AssertionError(f"{what}: test PSNR {out} <= white {white}")
+    return {"test_psnr": out, "white_psnr": white,
+            "ms_per_view": secs * 1e3 / n_views}
+
+
+def cond_coarse(torch, ka, kc, run_coarse, n_steps, n_views, what):
+    """A coarse stage through the sweep path: K-A and K-C once per step and
+    per counted view; returns (checkpoint, seconds, launches)."""
+    ka.launches = kc.launches = 0
+    t0 = time.time()
+    ckpt = run_coarse()
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    launches = {"sweep_fwd": ka.launches, "sweep_bwd": kc.launches}
+    log(f"[phase 10] {what} coarse: {n_steps} steps in {secs:.1f} s, "
+        f"launches {launches} ({n_views} views counted)")
+    if launches != {"sweep_fwd": n_steps + n_views,
+                    "sweep_bwd": n_steps + n_views}:
+        raise AssertionError(f"{what} coarse launches {launches}, expected "
+                             f"{n_steps + n_views} each")
+    return ckpt, secs, launches
+
+
+def cond_fine(torch, ka, kb, kc, tf, cond_lib, run_fine, what):
+    """A conditioned fine stage: no K-A to K-E launch; returns (model,
+    CondSteps, seconds, peak bytes)."""
+    ka.launches = kb.launches = kc.launches = 0
+    tf.launches_fwd = tf.launches_bwd = 0
+    rec = CondSteps(torch, cond_lib)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    try:
+        model = run_fine()
+        torch.cuda.synchronize()
+    finally:
+        rec.restore()
+    secs = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launched = [ka.launches, kb.launches, kc.launches, tf.launches_fwd,
+                tf.launches_bwd]
+    if any(launched):
+        raise AssertionError(f"{what} fine stage launched K-A..K-E "
+                             f"{launched}")
+    _finite_model(torch, model, what)
+    return model, rec, secs, peak
+
+
+def cond_cpu_case(torch, kind, mode, device, full=False, seed=3):
+    """One train step of a conditioned model on ``device`` from a seeded
+    state (small widths; ``full``: the TriDVGO of tri_default.py at its
+    widths on a 64^3 grid): (loss, {name: parameter on the CPU})."""
+    import numpy as np
+    from directvoxgo_tpu_torch.config import Config
+    from directvoxgo_tpu_torch.engine import train as train_lib
+    from directvoxgo_tpu_torch.engine import train_conditioned as cond_lib
+    from directvoxgo_tpu_torch.models import dvgo_multiscene as dms
+    from directvoxgo_tpu_torch.models import multiscene_dvgo as msd
+    from directvoxgo_tpu_torch.models import sr_dvgo, tri_dvgo
+    from directvoxgo_tpu_torch.models import tri_dvgo_multiscene as tms
+    cfg = Config.fromfile(os.path.join(REPO, "configs",
+                                       "tri_multiscene_default.py"))
+    small = dict(rgbnet_dim=4, rgbnet_width=16, n_feats=8, n_resblocks=2,
+                 map_width=16, k_density=48, k_color=24,
+                 interp_width=16, interp_depth=3)
+    kw = dict(xyz_min=[-1.2] * 3, xyz_max=[1.2] * 3, num_voxels=24 ** 3,
+              num_voxels_base=24 ** 3, alpha_init=1e-2,
+              fast_color_thres=1e-4, device=device,
+              generator=torch.Generator().manual_seed(seed))
+    if full:
+        kw.update(num_voxels=64 ** 3, num_voxels_base=64 ** 3,
+                  k_density=256, k_color=64, rgbnet_dim=12, interp_width=64,
+                  interp_depth=2)
+    else:
+        kw.update(small)
+    kw.update(mode)
+    model = {
+        "tri": lambda: tri_dvgo.TriDVGO(**kw),
+        "sr": lambda: sr_dvgo.SRDVGO(**dict(kw, rgbnet_dim=6)),
+        "implicit": lambda: msd.MultiSceneImplicitDVGO(
+            **dict(kw, rgbnet_depth=4, rgbnet_width=32)),
+        "dvgo_ms": lambda: dms.DirectVoxGOMultiScene(**kw, n_scene=2),
+        "tri_ms": lambda: tms.TriDVGOMultiScene(**kw, n_scene=2),
+    }[kind]()
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        if model.density is not None:
+            model.density.copy_(torch.as_tensor(rng.normal(
+                1.0, 2.0, tuple(model.density.shape)).astype(np.float32)))
+        if kind == "dvgo_ms":
+            model.k0.copy_(torch.as_tensor(rng.normal(
+                0, 0.5, tuple(model.k0.shape)).astype(np.float32)))
+    n = 1024 if full else 256
+    o = rng.uniform(-0.2, 0.2, (n, 3)) + np.array([0.0, 0.0, 3.0])
+    d = rng.normal(0, 0.3, (n, 3)) + np.array([0.0, 0.0, -1.0])
+    pool = {"rgb": rng.uniform(0, 1, (n, 3)), "rays_o": o, "rays_d": d,
+            "viewdirs": d / np.linalg.norm(d, axis=-1, keepdims=True)}
+    pool = {k: torch.as_tensor(v.astype(np.float32), device=device)
+            for k, v in pool.items()}
+    sel = torch.arange(n, device=device)
+    rk = {"near": 0.5, "far": 6.0, "bg": 1.0, "stepsize": 0.5}
+    cfg_train = cfg.fine_train
+    cfg_train.N_rand = n
+    optimizer = train_lib.create_optimizer_or_freeze_model(model, cfg_train)
+    hw = (50, 50) if full else (16, 16)
+    chans = 3 if kind == "sr" else 9
+    rgb = torch.as_tensor(rng.uniform(-1, 1, (1 if kind == "sr" else 3,
+                                              chans, *hw)).astype(np.float32),
+                          device=device)
+    from directvoxgo_tpu_torch.models.tri_dvgo import anchor_poses
+    pose = torch.as_tensor((anchor_poses() + rng.normal(
+        0, 0.05, (3, 4, 4))).astype(np.float32), device=device)
+    if kind == "dvgo_ms":
+        params = [p for g in optimizer.groups.values() for p in g["params"]]
+        ret = model(pool["rays_o"], pool["rays_d"], pool["viewdirs"],
+                    scene_id=1, **rk)
+        loss, _ = cond_lib.conditioned_loss_terms(ret, pool["rgb"],
+                                                  cfg_train, n)
+        grads = iter(torch.autograd.grad(loss, params))
+        loss = loss.detach()
+        optimizer.step({name: [next(grads) for _ in g["params"]]
+                        for name, g in optimizer.groups.items()})
+    else:
+        step = cond_lib.make_cond_train_step(
+            model, optimizer, cfg_train, rk,
+            aux_weights=V2_WEIGHTS if kind == "tri_ms" else None,
+            multiscene=kind == "tri_ms")
+        loss, _ = step(pool, sel, rgb, None if kind == "sr" else pose, 1)
+    return float(loss), {k: v.detach().cpu() for k, v in
+                         model.state_dict().items()}
+
+
+COND_CPU_CASES = [
+    ("tri", "concat", {}), ("tri", "sum", {"tri_aggregation": "sum"}),
+    ("tri", "liif", {"liif": True}),
+    ("tri", "liif feat_unfold", {"liif": True, "feat_unfold": True}),
+    ("sr", "direct", {"rgbnet_direct": True}), ("implicit", "mipnerf", {}),
+    ("dvgo_ms", "coarse", {"rgbnet_dim": 0}),
+    ("tri_ms", "mlp_map", {"compute_consistency": True,
+                           "compute_cosine": True}),
+    ("tri_ms", "closed_map", {"mlp_map": False, "closed_map": True}),
+    ("tri_ms", "conv_map", {"mlp_map": False, "conv_map": True}),
+    ("tri_ms", "use_nl", {"mlp_map": False, "use_nl": True}),
+    ("tri_ms", "anchor_liif", {"liif": True, "use_anchor_liif": True}),
+]
+
+
+def _step_diff(torch, a, b):
+    """(loss relative difference, largest parameter difference against the
+    scale of each parameter)."""
+    (la, pa), (lb, pb) = a, b
+    err = 0.0
+    for k in pb:
+        if pb[k].dtype.is_floating_point and pb[k].numel():
+            scale = max(float(pb[k].abs().max()), 1e-6)
+            err = max(err, float((pa[k] - pb[k]).abs().max()) / scale)
+    return abs(la - lb) / max(abs(lb), 1e-12), err
+
+
+def cond_card_vs_cpu(torch, dev):
+    """Part (e): each model and mode, one step on the card (TF32 off) and
+    on the CPU; then the TriDVGO of tri_default.py at full width with the
+    settings the drivers train with (TF32 convolutions)."""
+    out = {}
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for kind, name, mode in COND_CPU_CASES:
+            d_loss, d_par = _step_diff(
+                torch, cond_cpu_case(torch, kind, mode, dev),
+                cond_cpu_case(torch, kind, mode, "cpu"))
+            out[f"{kind} {name}"] = {"loss_rel": d_loss, "param_rel": d_par}
+            if not (d_loss <= COND_CPU_TOL[0] and d_par <= COND_CPU_TOL[1]):
+                raise AssertionError(f"{kind} {name}: card against CPU loss "
+                                     f"{d_loss}, parameters {d_par}")
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    torch.backends.cudnn.allow_tf32 = True
+    d_loss, d_par = _step_diff(torch, cond_cpu_case(torch, "tri", {}, dev,
+                                                    full=True),
+                               cond_cpu_case(torch, "tri", {}, "cpu",
+                                             full=True))
+    out["tri full width, TF32 convolutions"] = {"loss_rel": d_loss,
+                                                "param_rel": d_par}
+    log(f"[phase 10] (e) card against CPU, one step each: {out}")
+    return out
+
+
+class FixtureScenes:
+    """Scenes for the multi-scene drivers from one fixture: each scene the
+    fixture's views with its RGB channels permuted (``perms``), the split
+    ``idx`` of the data (train or test)."""
+
+    def __init__(self, data, idx, perms):
+        self.data, self.idx, self.perms = data, idx, perms
+        self.scenes = ["".join("rgb"[c] for c in p) for p in perms]
+        self.n_scene = len(perms)
+
+    def scene_data(self, s):
+        import numpy as np
+        d, idx = self.data, self.idx
+        return {"images": np.asarray(d["images"], np.float32)[idx][
+                    ..., list(self.perms[s])],
+                "poses": d["poses"][idx][:, :3, :4], "Ks": d["Ks"][idx],
+                "HW": d["HW"][idx], "near": d["near"], "far": d["far"]}
+
+
+def conditioned_phase(torch, dev, ka, kb, kc, tf, sweep_ops):
+    """Phase 10; returns the kernels-line entries of the conditioned path
+    (K-A and K-C of the coarse stages of (a) and (b)) and a summary."""
+    import numpy as np
+    from directvoxgo_tpu_torch import run_multiscene, run_sr, run_tri
+    from directvoxgo_tpu_torch import run_tri_multiscene as v1
+    from directvoxgo_tpu_torch import run_tri_multiscene_v2 as v2
+    from directvoxgo_tpu_torch.config import Config
+    from directvoxgo_tpu_torch.data import load_everything
+    from directvoxgo_tpu_torch.engine import train_conditioned as cond_lib
+    from directvoxgo_tpu_torch.models.multiscene_dvgo import (
+        MultiSceneImplicitDVGO)
+    from directvoxgo_tpu_torch.ops.resize import area_resize
+    paths = write_cond_configs()
+    summary = {}
+    t_phase = time.time()
+
+    def args_of(path, *more):
+        return run_tri.config_parser().parse_args(
+            ["--config", path, "--i_print", "100", "--render_test",
+             "--device", str(dev), *more])
+
+    # The coarse stages of (a) and (b) through K-A and K-C: every form
+    # kept (its last call) and counted, replays included.
+    cap_ka = Capture(sweep_ops, "sweep_fwd", form=ka_form(ka))
+    cap_kc = Capture(sweep_ops, "sweep_bwd", form=kc_form(torch, kc))
+    per_replay = PerReplay(cap_ka, cap_kc)
+    try:
+        # (a) run_tri.
+        args = args_of(paths["tri"], "--no_reload")
+        cfg = Config.fromfile(paths["tri"])
+        run_tri.setup(args)
+        data = load_everything(args, cfg)
+        n_views = len(data["i_train"])
+        white = _white_psnr(torch, [data["images"][i]
+                                    for i in data["i_test"]])
+        ckpt, coarse_s, coarse_l = cond_coarse(
+            torch, ka, kc, lambda: run_tri.coarse_stage(args, cfg, data, dev),
+            COND_COARSE, n_views, "(a) run_tri")
+        model, rec, fine_s, peak = cond_fine(
+            torch, ka, kb, kc, tf, cond_lib,
+            lambda: run_tri.fine_stage(args, cfg, data, ckpt, dev),
+            "(a) run_tri")
+        a = {"coarse_s": coarse_s, "coarse_launches": coarse_l,
+             "fine_s": fine_s, "fine_peak_bytes": peak,
+             **rec.summary(torch, "(a) TriDVGO fine")}
+        if not os.path.isfile(os.path.join(cfg.basedir, cfg.expname,
+                                           "fine_last.tar")):
+            raise AssertionError("(a) fine_last.tar was not written")
+        sc = run_tri.train_scene(data, data["i_train"])
+        images = run_tri.images_on(sc, dev)
+        enc = {}
+        with torch.no_grad():
+            for down in (1, 2, 4, 15):
+                rgb, pose = cond_lib.build_conditioning_batch(
+                    images, sc["poses"], sc["HW"], sc["Ks"], [0, 1, 2],
+                    cfg.data, down=down)
+                enc[down] = cuda_time(lambda: model.encode_feat(rgb, pose),
+                                      5)
+            h3, w3 = images.shape[1] // 3, images.shape[2] // 3
+            resize_ms = cuda_time(lambda: area_resize(images[:3], h3, w3),
+                                  10)
+            batch_ms = cuda_time(lambda: cond_lib.build_conditioning_batch(
+                images, sc["poses"], sc["HW"], sc["Ks"], [0, 1, 2],
+                cfg.data, down=3), 10)
+        a.update(encode_ms_by_down=enc, area_resize_ms_3_views_down_3=resize_ms,
+                 conditioning_batch_ms_down_3=batch_ms)
+        log(f"[phase 10] (a) EDSR encode of 3 views ms by down {enc}; area "
+            f"resize of 3 views to {h3}x{w3} {resize_ms:.3f} ms; "
+            f"conditioning batch {batch_ms:.3f} ms")
+        del model, images
+        a.update(_eval(torch, lambda: run_tri.eval_stage(args, cfg, data,
+                                                         dev),
+                       "(a) run_tri --render_test", white, 4))
+        summary["a_run_tri"] = a
+
+        # (b) run_sr, its LR data made by the area resize at down 4.
+        args = args_of(paths["sr"], "--no_reload")
+        cfg = Config.fromfile(paths["sr"])
+        data = load_everything(args, cfg)
+        h_lr = int(data["HW"][0][0]) // 4
+        with torch.no_grad():
+            data["images_lr"] = area_resize(torch.as_tensor(np.asarray(
+                data["images"], np.float32), device=dev), h_lr, h_lr
+            ).cpu().numpy()
+        data["HW_lr"] = data["HW"] // 4
+        data["Ks_lr"] = np.array(data["Ks"], np.float64)
+        data["Ks_lr"][:, :2, :3] /= 4
+        ckpt, coarse_s, coarse_l = cond_coarse(
+            torch, ka, kc, lambda: run_sr.coarse_on_lr(args, cfg, data, dev),
+            COND_COARSE, n_views, "(b) run_sr")
+        model, rec, fine_s, peak = cond_fine(
+            torch, ka, kb, kc, tf, cond_lib,
+            lambda: run_sr.fine_stage(args, cfg, data, ckpt, dev),
+            "(b) run_sr")
+        b = {"coarse_s": coarse_s, "coarse_launches": coarse_l,
+             "fine_s": fine_s, "fine_peak_bytes": peak,
+             **rec.summary(torch, "(b) SRDVGO fine")}
+        with torch.no_grad():
+            lr = run_sr.lr_image(data, 0, dev)
+            b["encode_ms_lr_view"] = cuda_time(lambda: model.encode_feat(lr),
+                                               5)
+        del model
+        b.update(_eval(torch, lambda: run_sr.eval_stage(args, cfg, data,
+                                                        dev),
+                       "(b) run_sr --render_test", white, 4))
+        summary["b_run_sr"] = b
+    finally:
+        per_replay.restore()
+        cap_kc.restore()
+        cap_ka.restore()
+    launches = {"sweep_fwd": summary["a_run_tri"]["coarse_launches"][
+        "sweep_fwd"] + summary["b_run_sr"]["coarse_launches"]["sweep_fwd"],
+        "sweep_bwd": summary["a_run_tri"]["coarse_launches"]["sweep_bwd"]
+        + summary["b_run_sr"]["coarse_launches"]["sweep_bwd"]}
+    errs = check_kernel_forms(ka, kc, cap_ka, cap_kc, "phase 10 coarse")
+    entries = []
+    for name, cap, numbers in (
+            ("sweep_fwd", cap_ka, lambda a: fwd_numbers(
+                torch, ka, *(a[0].detach(), *a[1:], None, 0)[:5])),
+            ("sweep_bwd", cap_kc, lambda a: bwd_numbers(torch, kc, *a[:7]))):
+        form = cap.counts.most_common(1)[0][0]
+        entries.append(dict({
+            "name": f"{name} [conditioned coarse]", "route": "cuda",
+            "source": f"directvoxgo_tpu_torch/csrc/{name}.cu",
+            "replaces": ("directvoxgo_tpu/ops/pallas_sweep_train.py:85"
+                         if name == "sweep_fwd" else
+                         "directvoxgo_tpu/ops/pallas_sweep_train.py:247"),
+            "launches": launches[name],
+            "launches_by_form": dict(cap.counts),
+            "max_abs_err": max(v for k, v in errs.items()
+                               if k.startswith(name))},
+            **numbers(cap.forms[form][0])))
+
+    # (c) run_multiscene: the implicit model, its fine stage on (a)'s
+    # coarse checkpoint (the same coarse stage as run_tri's).
+    args = args_of(paths["ms"], "--no_reload")
+    cfg = Config.fromfile(paths["ms"])
+    data = load_everything(args, cfg)
+    ckpt = os.path.join(CKPT_DIR, "cond_tri", "coarse_last.tar")
+    model, rec, fine_s, peak = cond_fine(
+        torch, ka, kb, kc, tf, cond_lib,
+        lambda: run_multiscene.fine_stage(args, cfg, data, ckpt, dev),
+        "(c) run_multiscene")
+    c = {"fine_s": fine_s, "fine_peak_bytes": peak,
+         "N_rand": int(cfg.fine_train.N_rand),
+         **rec.summary(torch, "(c) MultiSceneImplicitDVGO fine",
+                       rising=False)}
+    del model
+    one = dict(data, i_test=data["i_test"][:1])
+    c.update(_eval(torch, lambda: run_tri.eval_stage(
+        args, cfg, one, dev, model_class=MultiSceneImplicitDVGO),
+        "(c) run_multiscene, one test view", _white_psnr(
+            torch, [data["images"][data["i_test"][0]]]), 1, beat=False))
+    summary["c_run_multiscene"] = c
+
+    # (d) run_tri_multiscene_v2 on two scenes: the lego fixture and its
+    # views with the RGB channels permuted; then the v1 driver's steps.
+    args = args_of(paths["v2"], "--no_reload")
+    cfg = Config.fromfile(paths["v2"])
+    perms = [(0, 1, 2), (1, 2, 0)]
+    train_ds = FixtureScenes(data, data["i_train"], perms)
+    test_ds = FixtureScenes(data, data["i_test"], perms)
+    xyz_min, xyz_max = v2.union_bbox(cfg, train_ds)
+    os.makedirs(os.path.join(cfg.basedir, cfg.expname), exist_ok=True)
+    ka.launches = kc.launches = 0
+    t0 = time.time()
+    coarse_path, _ = v2.coarse_stage(args, cfg, train_ds, xyz_min, xyz_max,
+                                     dev)
+    torch.cuda.synchronize()
+    d = {"coarse_s": time.time() - t0}
+    from directvoxgo_tpu_torch.engine import checkpoint as ckpt_lib
+    c_dens = ckpt_lib.load_checkpoint_file(coarse_path)[
+        "model_state_dict"]["density"]
+    d["coarse_scene_density_diff"] = float(np.abs(c_dens[0] - c_dens[1])
+                                           .max())
+    if ka.launches or kc.launches:
+        raise AssertionError(f"(d) the joint coarse stage launched K-A "
+                             f"{ka.launches}, K-C {kc.launches}")
+    model, rec, fine_s, peak = cond_fine(
+        torch, ka, kb, kc, tf, cond_lib,
+        lambda: v2.fine_stage(args, cfg, train_ds, xyz_min, xyz_max, dev),
+        "(d) run_tri_multiscene_v2")
+    d.update(fine_s=fine_s, fine_peak_bytes=peak,
+             **rec.summary(torch, "(d) TriDVGOMultiScene fine"))
+    d["fine_scene_density_diff"] = float(
+        (model.density[0] - model.density[1]).detach().abs().max())
+    if not d["fine_scene_density_diff"] > 1e-3:
+        raise AssertionError(f"(d) the scenes' density grids do not differ: "
+                             f"{d['fine_scene_density_diff']}")
+    del model
+    white_ms = {s: _white_psnr(torch, test_ds.scene_data(i)["images"])
+                for i, s in enumerate(test_ds.scenes)}
+    d.update(_eval(torch, lambda: v2.eval_stage(args, cfg, train_ds, dev,
+                                                test_dataset=test_ds),
+                   "(d) run_tri_multiscene_v2 --render_test per scene",
+                   max(white_ms.values()), 4 * len(perms)))
+    # v1: resumes v2's checkpoint and takes V1_STEPS steps over lazy pools.
+    cfg.fine_train.N_iters = V2_FINE + V1_STEPS
+    args = args_of(paths["v2"])
+    model, rec, v1_s, _ = cond_fine(
+        torch, ka, kb, kc, tf, cond_lib,
+        lambda: v1.fine_stage(args, cfg, train_ds, xyz_min, xyz_max, dev),
+        "(d) run_tri_multiscene v1")
+    if len(rec.steps) != V1_STEPS:
+        raise AssertionError(f"(d) v1 took {len(rec.steps)} steps")
+    d["v1"] = {"steps": len(rec.steps), "seconds": v1_s,
+               "median_step_ms": median([s[1] for s in rec.steps])}
+    log(f"[phase 10] (d) v1 driver: {d['v1']}")
+    del model
+    summary["d_run_tri_multiscene"] = d
+    torch.cuda.empty_cache()
+
+    # (e) card against CPU.
+    summary["e_card_vs_cpu"] = cond_card_vs_cpu(torch, dev)
+    summary["seconds"] = time.time() - t_phase
+    log(f"[phase 10] done in {summary['seconds']:.1f} s")
+    return entries, summary
 
 
 def frame_bound(f, stats):

@@ -1,6 +1,7 @@
-"""Dataset hub: dispatch by ``dataset_type`` (blender, llff and the two
-procedural fixtures so far) and normalize near/far and the background
-policy (llff: from the bounds, or NDC's 0/1)."""
+"""Dataset hub: dispatch by ``dataset_type`` (blender, with its LR/HR
+``task='sr'`` pairs, llff and the two procedural fixtures so far) and
+normalize near/far and the background policy (llff: from the bounds, or
+NDC's 0/1)."""
 
 from __future__ import annotations
 
@@ -25,15 +26,26 @@ def _composite_bg(images, white_bkgd):
 
 
 def load_data(args):
-    if args.dataset_type == "blender" and args.get("task") != "sr":
-        from .load_blender import load_blender_data
-        images, poses, render_poses, hwf, i_split = load_blender_data(
-            args.datadir, args.half_res, args.testskip, args.down)
-        print("Loaded blender", images.shape, render_poses.shape, hwf,
-              args.datadir)
+    images_lr = hwf_lr = None
+    if args.dataset_type == "blender":
+        if args.get("task") == "sr":
+            from .datasets import load_blender_data_lrsr
+            images_lr, images, poses, render_poses, hwf, hwf_lr, i_split = \
+                load_blender_data_lrsr(basedir=args.datadir, down=args.down,
+                                       testskip=args.testskip)
+            print("Loaded sr blender", images.shape, images_lr.shape,
+                  render_poses.shape, hwf, hwf_lr, args.datadir)
+        else:
+            from .load_blender import load_blender_data
+            images, poses, render_poses, hwf, i_split = load_blender_data(
+                args.datadir, args.half_res, args.testskip, args.down)
+            print("Loaded blender", images.shape, render_poses.shape, hwf,
+                  args.datadir)
         i_train, i_val, i_test = i_split
         near, far = 2.0, 6.0
         images = _composite_bg(images, args.white_bkgd)
+        if images_lr is not None:
+            images_lr = _composite_bg(images_lr, args.white_bkgd)
     elif args.dataset_type == "llff":
         from .load_llff import load_llff_data
         images, depths, poses, bds, render_poses, i_test = load_llff_data(
@@ -67,9 +79,6 @@ def load_data(args):
         from .synthetic import make_ndc_fixture_dataset
         return make_ndc_fixture_dataset(
             **dict(getattr(args, "fixture_kwargs", None) or {}))
-    elif args.dataset_type == "blender":
-        raise NotImplementedError(
-            "blender task='sr' is not ported yet (ROADMAP A12)")
     elif args.dataset_type in _NOT_PORTED:
         raise NotImplementedError(
             f"dataset_type {args.dataset_type!r} is not ported yet "
@@ -86,12 +95,21 @@ def load_data(args):
                   [0, focal, 0.5 * H],
                   [0, 0, 1]])
     Ks = K[None].repeat(len(poses), axis=0)
-    return dict(
+    out = dict(
         hwf=hwf, HW=HW, Ks=Ks, near=near, far=far,
         i_train=i_train, i_val=i_val, i_test=i_test,
         poses=poses, render_poses=render_poses[..., :4],
         images=images, depths=None,
         irregular_shape=images.dtype is np.dtype("object"))
+    if images_lr is not None:
+        H_lr, W_lr, focal_lr = hwf_lr
+        K_lr = np.array([[focal_lr, 0, 0.5 * W_lr],
+                         [0, focal_lr, 0.5 * H_lr], [0, 0, 1]])
+        out.update(
+            images_lr=images_lr, hwf_lr=hwf_lr,
+            HW_lr=np.array([im.shape[:2] for im in images_lr]),
+            Ks_lr=K_lr[None].repeat(len(poses), axis=0))
+    return out
 
 
 def load_everything(args, cfg):
@@ -101,6 +119,8 @@ def load_everything(args, cfg):
         "hwf", "HW", "Ks", "near", "far",
         "i_train", "i_val", "i_test", "irregular_shape",
         "poses", "render_poses", "images"}
+    if cfg.data.get("task") == "sr":
+        kept_keys |= {"images_lr", "hwf_lr", "HW_lr", "Ks_lr"}
     for k in list(data_dict.keys()):
         if k not in kept_keys:
             data_dict.pop(k)

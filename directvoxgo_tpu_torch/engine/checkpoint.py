@@ -132,5 +132,6 @@ def load_model(model_class, path, device=None):
     state = dict(st["model_state_dict"])
     mask = state.pop("mask")
     model.load_state_dict(convert.params_from_jax(state, mask,
-                                                  device=model.device))
+                                                  device=model.device,
+                                                  model=model))
     return model

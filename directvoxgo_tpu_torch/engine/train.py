@@ -126,10 +126,14 @@ def model_class_for(cfg):
 
 
 def _param_groups(model):
-    """name -> list of parameters, in the JAX pytree's names."""
-    groups = {"density": [model.density], "k0": [model.k0]}
+    """name -> the grid parameter or the module of each group, in the JAX
+    pytree's names (the conditioned models list theirs in
+    ``jax_groups()``)."""
+    if hasattr(model, "jax_groups"):
+        return model.jax_groups()
+    groups = {"density": model.density, "k0": model.k0}
     if model.rgbnet is not None:
-        groups["rgbnet"] = list(model.rgbnet.parameters())
+        groups["rgbnet"] = model.rgbnet
     return groups
 
 
@@ -147,8 +151,12 @@ def create_optimizer_or_freeze_model(model, cfg_train):
         lr = float(cfg_train[key])
         if lr > 0:
             print(f"create_optimizer_or_freeze_model: param {name} lr {lr}")
+            obj = params[name]
+            module = obj if isinstance(obj, torch.nn.Module) else None
             groups[name] = {
-                "params": params[name], "lr": lr,
+                "params": [obj] if module is None else list(
+                    module.parameters()),
+                "module": module, "lr": lr,
                 "skip_zero_grad": name in cfg_train.get(
                     "skip_zero_grad_fields", []),
             }

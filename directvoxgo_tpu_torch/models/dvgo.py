@@ -369,7 +369,8 @@ class DirectVoxGO(nn.Module):
 
     # ------------------------------------------------- coarse-geometry hits
 
-    def _hit_from_rays(self, rays_o, rays_d, near, far, stepsize):
+    def _hit_from_rays(self, rays_o, rays_d, near, far, stepsize,
+                       mask=None):
         stepdist = stepsize * self.voxel_size
         n_samples = rm.max_samples_for_bbox(self.xyz_min, self.xyz_max,
                                             stepdist)
@@ -378,14 +379,16 @@ class DirectVoxGO(nn.Module):
         (px, py, pz), valid, _ = rm.sample_points_dense_parts(
             rays_o, rays_d, bbox_min, bbox_max, near, far, stepdist,
             n_samples)
-        occ = grid_ops.occupancy_lookup_parts(self.mask, px, py, pz,
-                                              bbox_min, bbox_max)
+        occ = grid_ops.occupancy_lookup_parts(
+            self.mask if mask is None else mask, px, py, pz, bbox_min,
+            bbox_max)
         return torch.any(occ & valid, -1)
 
     @torch.no_grad()
     def hit_coarse_geo(self, rays_o, rays_d, near, far, stepsize,
-                       chunk=65536, **_):
-        """[N] numpy bool: rays with a sample in the cached occupancy."""
+                       chunk=65536, mask=None, **_):
+        """[N] numpy bool: rays with a sample in the cached occupancy (or in
+        ``mask``)."""
         rays_o = np.asarray(rays_o, np.float32).reshape(-1, 3)
         rays_d = np.asarray(rays_d, np.float32).reshape(-1, 3)
         outs = []
@@ -393,7 +396,7 @@ class DirectVoxGO(nn.Module):
             outs.append(self._hit_from_rays(
                 torch.as_tensor(rays_o[i:i + chunk], device=self.device),
                 torch.as_tensor(rays_d[i:i + chunk], device=self.device),
-                float(near), float(far), float(stepsize)))
+                float(near), float(far), float(stepsize), mask))
         return torch.cat(outs).cpu().numpy()
 
     @torch.no_grad()

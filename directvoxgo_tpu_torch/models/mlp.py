@@ -16,23 +16,32 @@ from torch import nn
 BF16 = torch.bfloat16
 
 
+def init_linear(fan_in, fan_out, zero_bias=False, generator=None,
+                device=None):
+    """``nn.Linear`` with the JAX package's ``init_linear``: weight and bias
+    uniform in ``+-1/sqrt(fan_in)`` (the bias zero with ``zero_bias``),
+    drawn on the host from ``generator``."""
+    layer = nn.Linear(fan_in, fan_out, device=device)
+    bound = 1.0 / math.sqrt(fan_in)
+    with torch.no_grad():
+        for p in (layer.weight, layer.bias):
+            p.copy_(torch.empty(p.shape).uniform_(-bound, bound,
+                                                  generator=generator))
+        if zero_bias:
+            layer.bias.zero_()
+    return layer
+
+
 class MLP(nn.Module):
     def __init__(self, dim_in, width, depth, dim_out, generator=None,
                  device=None):
         super().__init__()
         dims = [dim_in] + [width] * (depth - 1) + [dim_out]
-        self.layers = nn.ModuleList(
-            nn.Linear(dims[i], dims[i + 1], device=device)
-            for i in range(len(dims) - 1))
         # Drawn on the host (``generator`` is a CPU generator), then copied.
-        with torch.no_grad():
-            for i, layer in enumerate(self.layers):
-                bound = 1.0 / math.sqrt(layer.in_features)
-                for p in (layer.weight, layer.bias):
-                    p.copy_(torch.empty(p.shape).uniform_(
-                        -bound, bound, generator=generator))
-                if i == len(self.layers) - 1:
-                    layer.bias.zero_()
+        self.layers = nn.ModuleList(
+            init_linear(dims[i], dims[i + 1], zero_bias=i == len(dims) - 2,
+                        generator=generator, device=device)
+            for i in range(len(dims) - 1))
 
 
 def _rnd(x, dtype):

@@ -1,6 +1,6 @@
 """Voxel-grid helpers: occupancy bbox, nearest occupancy lookup, trilinear
 point sampling (the gather forward's grid query) and its scatter, bilinear
-plane sampling and the 3x3x3 max pool. Grids are channels-last
+and nearest plane sampling and the 3x3x3 max pool. Grids are channels-last
 ``[X, Y, Z(, C)]`` with align-corners coordinates (``xyz_min`` -> index 0,
 ``xyz_max`` -> index ``dim-1``).
 
@@ -264,11 +264,30 @@ def bilinear_sample_parts(plane, iu, iv):
     fu, fv = fu[..., None], fv[..., None]
 
     def g(a, b):
-        return flat[a * nv + b]
+        # index_select: its backward is an index_add_ (advanced indexing's
+        # would be a sorted index_put_, several times slower on the card)
+        return flat.index_select(0, (a * nv + b).reshape(-1)).reshape(
+            *a.shape, nc)
 
     c0 = g(u0, v0) * (1 - fv) + g(u0, v1) * fv
     c1 = g(u1, v0) * (1 - fv) + g(u1, v1) * fv
     out = c0 * (1 - fu) + c1 * fu
+    return out[..., 0] if squeeze else out
+
+
+def nearest_sample_2d_parts(plane, iu, iv):
+    """Nearest-texel lookup in a ``[U, V(, C)]`` plane at continuous
+    coordinates (iu, iv): rounded half to even (as ``jnp.round``), then
+    clamped to the plane."""
+    squeeze = plane.dim() == 2
+    if squeeze:
+        plane = plane[..., None]
+    nu, nv, nc = plane.shape
+    flat = plane.reshape(nu * nv, nc)
+    u = torch.clamp(torch.round(iu).to(torch.int64), 0, nu - 1)
+    v = torch.clamp(torch.round(iv).to(torch.int64), 0, nv - 1)
+    out = flat.index_select(0, (u * nv + v).reshape(-1)).reshape(
+        *u.shape, nc)
     return out[..., 0] if squeeze else out
 
 

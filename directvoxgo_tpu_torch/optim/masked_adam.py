@@ -33,8 +33,11 @@ from ..ops.grid import DeviceBox
 
 
 class MaskedAdam:
-    """``groups`` maps a name ('density', 'k0', 'rgbnet') to ``{'params':
-    [tensors], 'lr': float, 'skip_zero_grad': bool}``."""
+    """``groups`` maps a name ('density', 'k0', 'rgbnet', or a module of
+    the conditioned models: 'encoder', 'map', ...) to ``{'params':
+    [tensors], 'lr': float, 'skip_zero_grad': bool}``, optionally with
+    ``'module'``: the module whose parameters they are (in its order),
+    which shapes the group's moments in the JAX layout (``convert.py``)."""
 
     def __init__(self, groups, beta1=0.9, beta2=0.99, eps=1e-8,
                  lr_decay_factor=1.0):

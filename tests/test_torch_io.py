@@ -239,6 +239,15 @@ def test_checkpoint_loader_refuses_code(tmp_path):
         torch_ckpt.load_checkpoint_file(str(path))
 
 
+# the conditioned and multi-scene slice: models, engine, data, drivers
+CONDITIONED_MODULES = (
+    "ops.resize", "models.backbone", "models.nets", "models.tri_dvgo",
+    "models.sr_dvgo", "models.multiscene_dvgo", "models.dvgo_multiscene",
+    "models.tri_dvgo_multiscene", "engine.train_conditioned",
+    "engine.render_conditioned", "data.datasets", "run_tri", "run_sr",
+    "run_multiscene", "run_tri_multiscene_v2", "run_tri_multiscene")
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
         "import sys, pkgutil, importlib\n"
@@ -251,7 +260,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "       or (m.startswith('jax') and sys.modules[m] is not None)]\n"
         "print('loaded', len([m for m in sys.modules\n"
         "                     if m.startswith('directvoxgo_tpu_torch')]))\n"
-        "assert not bad, bad\n")
+        "assert not bad, bad\n"
+        f"missing = [m for m in {CONDITIONED_MODULES!r}\n"
+        "           if 'directvoxgo_tpu_torch.' + m not in sys.modules]\n"
+        "assert not missing, missing\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120,
                           env=dict(os.environ, PYTHONPATH=REPO,
