@@ -167,12 +167,37 @@ Phases, each of which fails the run:
      model and mode on the card (TF32 off) and on the CPU from one state
      (loss 1e-5 relative, parameters 1e-5 of their scale), and the
      difference at full width with the TF32 convolutions the drivers
-     train with.
+     train with;
+ 11. the remaining loaders, the frame outputs and the driver's flags, with
+     ``imageio``, ``cv2`` and ``PIL`` blocked for (a)-(d): (a) write the
+     lego fixture's views (400^2, 40/2/4) under logs/chip_smoke/scenes/ as
+     an NSVF, BlendedMVS, Tanks&Temples, DeepVoxels (views resampled to its
+     512^2 target: loaded, not trained) and CO3D scene (masks, NDC
+     intrinsics, every other view cropped with its principal point moved);
+     (b) load each through ``load_everything`` and the config of configs/
+     its layout's (paths replaced): the 8-bit views exactly, poses and K to
+     1e-6, each view's rays against the fixture's at the same pixels to
+     1e-5; (c) train configs/nsvf/Bike.py (no coarse stage),
+     tankstemple/Barn.py and co3d/donut_369_40208_78816.py at full width
+     through ``python -m directvoxgo_tpu_torch.run`` (in process; only the
+     datadir, the iteration counts and ``pg_scale`` cut): K-A and K-C once
+     per step and counted view, the draws past 1.1 M voxels, a rising
+     train PSNR, ``--render_test`` above the background frame with K-B
+     once per view the frame plan accepts, and a whole frame against the
+     same view per ray (the CO3D cameras on the Tanks&Temples model); (d)
+     ``run_tri_multiscene_v2`` on two NSVF scenes through the multi-scene
+     NSVF dataset; (e) the 800^2 lego frame as ``device_compact`` (bit for
+     bit) and ``device_yuv420`` (against its conversion in float64) with
+     ms and bytes per frame, the export flags on phase 5's checkpoints,
+     ``--profile_dir`` (its trace names K-A and K-C) and the ground truth
+     of an uncached fixture key rendered on the card (a small key against
+     the CPU at 1e-5).
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line (one
 entry per kernel and form, each with the launches of the path it belongs
 to; ``[conditioned coarse]`` entries for K-A and K-C on phase 10's coarse
-stages; those of K-A, K-C, K-F, K-B, K-D and K-E also with their first
+stages; ``[loaders]`` entries for K-A, K-C and K-B on phase 11's runs;
+those of K-A, K-C, K-F, K-B, K-D and K-E also with their first
 version's device time on the same inputs, ``prev_ms``, and the instance's
 registers and spills) and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result line
@@ -184,6 +209,7 @@ import collections
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -4350,13 +4376,17 @@ def run(dev):
     # Phase 10: the conditioned and multi-scene drivers.
     cond_entries, training["conditioned"] = conditioned_phase(
         torch, dev, ka, kb, kc, tf, sweep_ops)
+    # Phase 11: the remaining loaders, the frame outputs and the flags.
+    loader_entries, training["loaders"] = loaders_phase(
+        torch, dev, ka, kb, kc, tf, sweep_ops,
+        {"model": model, "H": 800, "W": 800, "K": K2, "c2w": c2w, "rk": rk})
     training["window_checks"] = errs["window"]
     training["small_graph_checks"] = errs["graphs"]
     fwd = [e for e in train_entries if e["name"].startswith("sweep_fwd")]
     return kernels[:1] + fwd + kernels[1:] \
         + [e for e in train_entries if e not in fwd] + fused_entries \
-        + mpi_entries + harness_entries + gather_entries + cond_entries, \
-        training
+        + mpi_entries + harness_entries + gather_entries + cond_entries \
+        + loader_entries, training
 
 
 # ---------------------------------------------- phase 10: conditioned
@@ -4931,6 +4961,728 @@ def conditioned_phase(torch, dev, ka, kb, kc, tf, sweep_ops):
     summary["e_card_vs_cpu"] = cond_card_vs_cpu(torch, dev)
     summary["seconds"] = time.time() - t_phase
     log(f"[phase 10] done in {summary['seconds']:.1f} s")
+    return entries, summary
+
+
+# --------------------------------- phase 11: remaining loaders and flags
+
+# The fixture of phases 5 and 10 (400^2, 40/2/4 views, lego teacher) is
+# written as a scene in each layout of the remaining loaders, under
+# logs/chip_smoke/scenes/, and read back through the configs of configs/
+# (their data paths replaced).
+LOADER_FIXTURE = {"H": 400, "W": 400, "n_train": 40, "n_val": 2,
+                  "n_test": 4, "teacher_res": 128, "variant": "lego"}
+SCENES_DIR = os.path.join(CKPT_DIR, "scenes")
+# layout -> (config read and trained, the written scene's directory name)
+LAYOUT_CONFIGS = {"nsvf": "nsvf/Bike.py", "blendedmvs": "blendedmvs/Jade.py",
+                  "tankstemple": "tankstemple/Barn.py",
+                  "deepvoxels": "deepvoxels/cube.py",
+                  "co3d": "co3d/donut_369_40208_78816.py"}
+# The configs trained at full width, only the datadir, the iteration
+# counts and pg_scale cut: layout -> (coarse steps, fine steps, fine
+# pg_scale). NSVF trains no coarse stage (its config's); the others keep
+# 2000 coarse steps, as phase 10 does on this fixture. The fine stages
+# keep phase 5's 100 steps between rescales: at 50 (four rescales in 200
+# steps) the Tanks&Temples fine grid emptied after its last rescales (its
+# test views rendered nearly transparent on an H100; PERF.md section 6).
+LOADER_TRAIN = {"nsvf": (0, 600, [100, 200, 300, 400]),
+                "tankstemple": (2000, 600, [100, 200, 300, 400]),
+                "co3d": (2000, 600, [100, 200, 300, 400])}
+# run_tri_multiscene_v2 on two NSVF scenes: coarse and fine steps.
+LOADER_MS_STEPS = (200, 30)
+# Steps of the run traced with --profile_dir (coarse, fine).
+PROFILE_STEPS = (20, 10)
+# A fixture key that no cache holds (the lego fixture at another seed),
+# rendered on the card; and a small one held against the CPU.
+GT_KEY = dict(LOADER_FIXTURE, seed=1)
+GT_SMALL = {"H": 32, "W": 40, "n_train": 2, "n_val": 1, "n_test": 1,
+            "teacher_res": 32, "variant": "lego", "seed": 5}
+GT_TOL = 1e-5
+OUTPUT_TIMED = 10
+FRAME_VS_RAYS_MIN_PSNR = 30.0
+LAYOUT_RAYS_TOL = 1e-5
+BLOCKED_MODULES = ("imageio", "cv2", "PIL")
+
+
+class BlockedImports:
+    """Makes ``import imageio``, ``cv2`` and ``PIL`` fail (as on a machine
+    without them) until ``restore``."""
+
+    def __init__(self):
+        self.saved = {m: sys.modules.get(m) for m in BLOCKED_MODULES}
+        for m in BLOCKED_MODULES:
+            sys.modules[m] = None
+
+    def restore(self):
+        for m, mod in self.saved.items():
+            if mod is None:
+                sys.modules.pop(m, None)
+            else:
+                sys.modules[m] = mod
+
+
+def layout_flags(cfg):
+    return (bool(cfg.data.inverse_y), bool(cfg.data.flip_x),
+            bool(cfg.data.flip_y))
+
+
+def write_loader_config(name, base, data=None, iters=None):
+    """``logs/chip_smoke/loaders_<name>.py``: ``_base_`` the config
+    ``base`` (relative to that directory), its own expname, and ``data``
+    and ``iters`` ((coarse steps, fine steps, fine pg_scale)) when given;
+    returns its path."""
+    os.makedirs(CKPT_DIR, exist_ok=True)
+    lines = [f"_base_ = {base!r}", f"expname = 'loaders_{name}'",
+             "basedir = './logs/chip_smoke'"]
+    if data is not None:
+        lines.append(f"data = {data!r}")
+    if iters is not None:
+        lines += [f"coarse_train = {{'N_iters': {iters[0]}}}",
+                  f"fine_train = {{'N_iters': {iters[1]}, "
+                  f"'pg_scale': {iters[2]!r}}}"]
+    path = os.path.join(CKPT_DIR, f"loaders_{name}.py")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+def write_loader_configs(scenes):
+    """One config per layout, ``_base_`` the layout's config of configs/,
+    with the written scene's paths and (for the trained ones) the cut
+    iteration counts; returns {layout: path}."""
+    return {layout: write_loader_config(
+        layout, f"../../configs/{base}", scenes[layout]["data"],
+        LOADER_TRAIN.get(layout)) for layout, base in LAYOUT_CONFIGS.items()}
+
+
+def write_loader_scenes(torch, dev, data):
+    """The fixture written as a scene in each layout under SCENES_DIR:
+    8-bit PNGs, the poses in the layout's convention; for CO3D a mask of
+    the object (the pixels not white), the NDC intrinsics, and every other
+    view cropped with its principal point moved (two view sizes); for
+    DeepVoxels the views resampled to its 512^2 target (bilinear on the
+    card), so that one is held by its cameras and loaded only. Returns
+    {layout: {"data": data paths of its config, "order": the fixture
+    index of each view as its loader orders them, "crops", "expect":
+    fixture index -> the 8-bit view it must load, in float64}}."""
+    import shutil
+    import numpy as np
+    from directvoxgo_tpu_torch.tools import scene_layouts as sl
+    shutil.rmtree(SCENES_DIR, ignore_errors=True)
+    images, poses, Ks = data["images"], data["poses"], data["Ks"]
+    tr, va, te = (list(map(int, data[k])) for k in ("i_train", "i_val",
+                                                    "i_test"))
+    h, w = images.shape[1:3]
+    u8 = [sl.to_u8(im) for im in images]
+    out = {}
+    for layout in ("nsvf", "blendedmvs", "tankstemple"):
+        root = os.path.join(SCENES_DIR, layout)
+        splits = [tr, va, te] if layout == "nsvf" else [tr, te]
+        order = sl.write_prefix_split(
+            root, images, poses, Ks[0], splits, layout != "nsvf",
+            render_traj=poses[te] if layout == "blendedmvs" else None)
+        out[layout] = {"data": {"datadir": root}, "order": order,
+                       "crops": None, "expect": lambda i: u8[i] / 255.0}
+    masks = [(im < 0.98).any(-1).astype(np.float32) for im in images]
+    crops = [(h // 24, w // 16, h - h // 8, w - w // 6) if i % 2 else None
+             for i in range(len(images))]
+    root = os.path.join(SCENES_DIR, "co3d")
+    annot, split = sl.write_co3d(root, images, poses, Ks, tr, te,
+                                 masks=masks, crops=crops, category="donut",
+                                 sequence="369_40208_78816")
+    order = tr + te
+
+    def cut(x, i):
+        y0, x0, hh, ww = crops[i] if crops[i] else (0, 0, h, w)
+        return x[y0:y0 + hh, x0:x0 + ww]
+    out["co3d"] = {"data": {"datadir": root, "annot_path": annot,
+                            "split_path": split},
+                   "order": order, "crops": crops,
+                   "expect": lambda i: cut(u8[i], i) / 255.0 * cut(
+                       masks[i], i).astype(np.float64)[..., None]}
+    with torch.no_grad():
+        up = torch.nn.functional.interpolate(
+            torch.as_tensor(np.asarray(images, np.float32),
+                            device=dev).permute(0, 3, 1, 2),
+            size=(sl.DV_TARGET, sl.DV_TARGET), mode="bilinear",
+            align_corners=False).permute(0, 2, 3, 1).cpu().numpy()
+    root = os.path.join(SCENES_DIR, "deepvoxels")
+    sl.write_deepvoxels(root, "cube", up, poses, Ks[0], (h, w), [tr, va, te])
+    out["deepvoxels"] = {"data": {"datadir": root}, "order": tr + va + te,
+                         "crops": None,
+                         "expect": lambda i: sl.to_u8(up[i]) / 255.0}
+    return out
+
+
+def check_loaded_scene(layout, cfg, loaded, scene, data):
+    """A loaded scene against the fixture: its 8-bit views exactly, poses
+    (in the layout's camera axes) and K to 1e-6, and the rays of each view (the loader's cameras with
+    the config's inverse_y / flip_x / flip_y) against the fixture's at the
+    same pixels to LAYOUT_RAYS_TOL; DeepVoxels' rays at its 512^2 pixel
+    centres against the fixture camera's at the same points of the image.
+    Returns the largest ray difference."""
+    import numpy as np
+    from directvoxgo_tpu_torch import rays as ray_lib
+    from directvoxgo_tpu_torch.tools import scene_layouts as sl
+    inv, fx, fy = layout_flags(cfg)
+    order, crops = scene["order"], scene["crops"]
+    # the camera axes of the layout's poses
+    conv = {"deepvoxels": np.eye(4), "co3d": sl.GL_TO_P3D}.get(
+        layout, sl.GL_TO_CV)
+    h, w = data["images"].shape[1:3]
+    if len(loaded["images"]) != len(order):
+        raise AssertionError(f"{layout}: {len(loaded['images'])} views "
+                             f"loaded, {len(order)} written")
+    ray_err = 0.0
+    for v, i in enumerate(order):
+        want = np.asarray(scene["expect"](i), np.float64).astype(np.float32)
+        got = np.asarray(loaded["images"][v])
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"{layout} view {v}: loaded image differs "
+                                 "from the fixture's 8-bit view")
+        pose = np.asarray(loaded["poses"][v], np.float64)[:3, :4]
+        c2w = np.eye(4)
+        c2w[:3, :4] = data["poses"][i]
+        pose_want = (c2w @ conv)[:3, :4]
+        if not np.allclose(pose, pose_want, rtol=0, atol=1e-6):
+            raise AssertionError(f"{layout} view {v}: pose differs by "
+                                 f"{np.abs(pose - pose_want).max()}")
+        K = np.asarray(loaded["Ks"][v], np.float64)[:3, :3]
+        K0 = np.asarray(data["Ks"][i], np.float64)
+        y0, x0, hh, ww = crops[i] if crops and crops[i] else (0, 0, h, w)
+        if layout == "deepvoxels":
+            s = 512.0 / h
+            K_want = np.array([[K0[0, 0] * s, 0, 256.0],
+                               [0, K0[1, 1] * s, 256.0], [0, 0, 1]])
+        elif layout == "co3d":
+            K_want = K0.copy()
+            K_want[0, 2] = ww + x0 - K0[0, 2]
+            K_want[1, 2] = hh + y0 - K0[1, 2]
+        else:
+            K_want = K0
+        if not np.allclose(K, K_want, rtol=1e-6, atol=1e-6):
+            raise AssertionError(f"{layout} view {v}: K {K} against "
+                                 f"{K_want}")
+        H, W = (int(x) for x in loaded["HW"][v])
+        ro, rd, _ = ray_lib.get_rays_of_a_view(
+            H, W, loaded["Ks"][v], pose.astype(np.float32), False, inv, fx,
+            fy)
+        if layout == "deepvoxels":
+            c2w = np.asarray(data["poses"][i], np.float64)
+            u = (np.arange(W) + 0.5) * w / W
+            t = (np.arange(H) + 0.5) * h / H
+            uu, tt = np.meshgrid(u, t)
+            dirs = np.stack([(uu - K0[0, 2]) / K0[0, 0],
+                             -(tt - K0[1, 2]) / K0[1, 1],
+                             -np.ones_like(uu)], -1)
+            rd0 = dirs @ c2w[:3, :3].T
+            ro0 = np.broadcast_to(c2w[:3, 3], rd0.shape)
+        else:
+            ro0, rd0, _ = ray_lib.get_rays_of_a_view(
+                h, w, data["Ks"][i], data["poses"][i], False, False, False,
+                False)
+            ro0, rd0 = (x[y0:y0 + hh, x0:x0 + ww] for x in (ro0, rd0))
+        ray_err = max(ray_err, float(np.abs(ro - ro0).max()),
+                      float(np.abs(rd - rd0).max()))
+    if not ray_err <= LAYOUT_RAYS_TOL:
+        raise AssertionError(f"{layout}: rays differ from the fixture's by "
+                             f"{ray_err}")
+    return ray_err
+
+
+def background_psnr(data, bg):
+    import numpy as np
+    return float(np.mean([
+        -10.0 * np.log10(np.mean((np.asarray(data["images"][i], np.float32)
+                                  - bg) ** 2)) for i in data["i_test"]]))
+
+
+def frame_vs_rays(torch, ckpt, cfg, data, dev):
+    """The first test view of ``data`` that the frame plan accepts for the
+    model ``ckpt``, rendered whole (K-B) and per ray (K-A), with ``cfg``'s
+    background and ray flags: {"view", "hw", "psnr"}, or None when the
+    plan accepts none; ``content_share`` is the share of its pixels that
+    the per-ray render sets apart from the background."""
+    import numpy as np
+    from directvoxgo_tpu_torch import rays as ray_lib
+    from directvoxgo_tpu_torch.engine import checkpoint as ckpt_lib
+    from directvoxgo_tpu_torch.engine import render as render_lib
+    from directvoxgo_tpu_torch.engine import render_sweep
+    from directvoxgo_tpu_torch.models.dvgo import DirectVoxGO
+    model = ckpt_lib.load_model(DirectVoxGO, ckpt, device=dev)
+    inv, fx, fy = layout_flags(cfg)
+    rk = {"near": data["near"], "far": data["far"],
+          "bg": 1.0 if cfg.data.white_bkgd else 0.0,
+          "stepsize": cfg.fine_model_and_render.stepsize, "inverse_y": inv,
+          "flip_x": fx, "flip_y": fy}
+    for i in data["i_test"]:
+        H, W = (int(x) for x in data["HW"][i])
+        K, c2w = data["Ks"][i], data["poses"][i]
+        out = render_sweep.render_frame_sweep(model, H, W, K, c2w, rk)
+        if out is None:
+            continue
+        ro, rd, vd = ray_lib.get_rays_of_a_view(H, W, K, c2w, False, inv,
+                                                fx, fy)
+        rgb_r, _ = render_lib.render_rays_chunked(
+            render_lib.make_render_fn(model, rk), model, ro.reshape(-1, 3),
+            rd.reshape(-1, 3), vd.reshape(-1, 3), 8192)
+        return {"view": int(i), "hw": [H, W], "psnr": psnr(
+            torch.as_tensor(out[0].reshape(-1, 3)), torch.as_tensor(rgb_r)),
+            "content_share": float(np.mean(
+                np.abs(rgb_r - rk["bg"]).max(-1) > 0.05))}
+    return None
+
+
+def loader_train(torch, dev, ka, kb, kc, sweep_ops, layout, cfg_path, cfg,
+                 data, caps):
+    """Train ``layout``'s config through ``run.main`` (in process) and
+    render its test views with ``--render_test``: K-A and K-C once per
+    step (a blocked step once per block) and per counted view, window
+    draws past 1.1 M voxels, a rising train PSNR, finite checkpoints, a
+    test PSNR above the background frame's, K-B once per view the frame
+    plan accepts; then one accepted view whole against per ray
+    (:func:`frame_vs_rays`, held by the caller). Returns a summary."""
+    import numpy as np
+    from directvoxgo_tpu_torch import run as run_lib
+    from directvoxgo_tpu_torch.engine import checkpoint as ckpt_lib
+    from directvoxgo_tpu_torch.engine import draws as draws_lib
+    from directvoxgo_tpu_torch.engine import render_sweep
+    from directvoxgo_tpu_torch.engine import train as train_lib
+    from directvoxgo_tpu_torch.models.dvgo import DirectVoxGO
+    n_c, n_f, _ = LOADER_TRAIN[layout]
+    n_views = len(data["i_train"]) if n_c > 0 and \
+        cfg.coarse_train.pervoxel_lr else 0
+    rec = StepRecorder(train_lib)
+    cap_a = Capture(sweep_ops, "sweep_fwd", form=rec.form)
+    cap_c = Capture(sweep_ops, "sweep_bwd", form=rec.form)
+    per_replay = PerReplay(cap_a, cap_c)
+    ka.launches = kb.launches = kc.launches = 0
+    t0 = time.time()
+    try:
+        run_lib.main(["--config", cfg_path, "--no_reload", "--i_print",
+                      "100", "--device", str(dev)])
+        torch.cuda.synchronize()
+    finally:
+        per_replay.restore()
+        cap_c.restore()
+        cap_a.restore()
+        rec.restore()
+    secs = time.time() - t0
+    launches = {"sweep_fwd": ka.launches, "sweep_bwd": kc.launches,
+                "render_frame": kb.launches}
+    steps = list(rec.steps)
+    coarse = [s for s in steps if s[0] == "coarse"]
+    fine = [s for s in steps if s[0] == "fine"]
+    want = collections.Counter({"counted view": n_views} if n_views else {})
+    for st in steps:
+        want[step_form(st[0], st[6])] += sweep_launches([st])
+    want = dict(want)
+    kinds = collections.Counter(f"{st[0]} {st[6]}" for st in steps)
+    past = [s for s in fine if s[1] > draws_lib.SMALL_GRID_VOXELS]
+    top = max(s[1] for s in fine)
+    log(f"[phase 11] {layout}: run.main trained {len(coarse)} coarse + "
+        f"{len(fine)} fine steps in {secs:.1f} s; launches {launches}; "
+        f"{n_views} views counted; draws {dict(kinds)}; steps past 1.1 M "
+        f"voxels {len(past)}, their draws "
+        f"{dict(collections.Counter(s[6] for s in past))}")
+    if not (len(coarse) == n_c and len(fine) == n_f
+            and dict(cap_a.counts) == want and dict(cap_c.counts) == want
+            and launches["sweep_fwd"] == sum(want.values())
+            and launches["sweep_bwd"] == sum(want.values())
+            and launches["render_frame"] == 0 and past):
+        raise AssertionError(
+            f"{layout}: launches {launches} (K-A by form "
+            f"{dict(cap_a.counts)}, K-C {dict(cap_c.counts)}) against "
+            f"{want}; steps {len(coarse)} + {len(fine)}; draws {dict(kinds)}")
+    # A batch of background rays only can be rendered exactly (PSNR inf):
+    # the PSNR of a window of steps is that of their mean squared error.
+    if not all(np.isfinite(s[4]) and not np.isnan(s[3]) for s in steps):
+        raise AssertionError(f"{layout}: a loss or PSNR is not finite")
+
+    def window_psnr(window):
+        mse = np.mean([10.0 ** (-s[3] / 10.0) for s in window])
+        return float(-10.0 * np.log10(max(mse, 1e-30)))
+    first, last = window_psnr(steps[:30]), window_psnr(fine[-30:])
+    log(f"[phase 11] {layout}: train PSNR (of the mean squared error) of "
+        f"the first 30 steps {first:.2f} dB, of the last 30 fine steps "
+        f"{last:.2f} dB ({sum(np.isinf(s[3]) for s in steps)} batches "
+        f"rendered exactly); median fine step at {top} "
+        f"voxels {median([s[2] for s in fine if s[1] == top]):.2f} ms; "
+        f"steps by how they ran {how_steps_ran(steps)}")
+    if not last > first:
+        raise AssertionError(f"{layout}: train PSNR {first} -> {last}")
+    logdir = os.path.join(cfg.basedir, cfg.expname)
+    for stage in (("coarse", "fine") if n_c else ("fine",)):
+        model = ckpt_lib.load_model(DirectVoxGO, os.path.join(
+            logdir, f"{stage}_last.tar"), device=dev)
+        _finite_model(torch, model, f"{layout} {stage}_last.tar")
+
+    # --render_test of the trained model: K-B for the views the frame plan
+    # accepts, K-A per ray for the others.
+    cap_r = Capture(run_lib, "render_viewpoints", results=True)
+    cap_b = Capture(render_sweep, "render_frame", keep=1)
+    ka.launches = kb.launches = kc.launches = 0
+    try:
+        run_lib.main(["--config", cfg_path, "--render_only", "--render_test",
+                      "--device", str(dev)])
+        torch.cuda.synchronize()
+    finally:
+        cap_b.restore()
+        cap_r.restore()
+    stats = cap_r.results[0][2]
+    paths = collections.Counter(stats["path"])
+    bg = 1.0 if cfg.data.white_bkgd else 0.0
+    bg_psnr = background_psnr(data, bg)
+    test_psnr = float(np.mean(stats["psnr"]))
+    render = {"launches": {"render_frame": kb.launches,
+                           "sweep_fwd": ka.launches,
+                           "sweep_bwd": kc.launches},
+              "views_by_path": dict(paths), "test_psnr": test_psnr,
+              "background_psnr": bg_psnr}
+    log(f"[phase 11] {layout}: --render_test {render}")
+    if not (kb.launches == paths["frame"] and kc.launches == 0
+            and (ka.launches > 0) == (paths["rays"] > 0)
+            and test_psnr > bg_psnr):
+        raise AssertionError(f"{layout}: render {render}")
+    if cap_b.calls:
+        caps["frame"] = cap_b.calls[-1]
+
+    # One accepted view whole (K-B) against the same view per ray (K-A).
+    frame_rays = frame_vs_rays(torch, os.path.join(logdir, "fine_last.tar"),
+                               cfg, data, dev)
+    log(f"[phase 11] {layout}: an accepted view whole against per ray: "
+        f"{frame_rays}")
+    return {"seconds": secs, "coarse_steps": len(coarse),
+            "fine_steps": len(fine), "launches": launches,
+            "counted_views": n_views, "draws": dict(kinds),
+            "steps_past_1_1M": len(past), "top_voxels": top,
+            "median_fine_ms_at_top": median([s[2] for s in fine
+                                             if s[1] == top]),
+            "train_psnr_first30": first, "train_psnr_last30": last,
+            "render": render, "frame_vs_rays": frame_rays}
+
+
+def frame_outputs_check(torch, model, H, W, K, c2w, rk):
+    """The 800^2 lego frame in each output form: ``device_compact`` bit for
+    bit against ``round(clip(f32 frame) * 255)`` and f16 depth,
+    ``device_yuv420`` against its plain conversion in float64 on the host
+    (within one level; the share exact), ms and bytes per frame."""
+    import numpy as np
+    from directvoxgo_tpu_torch.engine import render_sweep
+    rgb, depth = render_sweep.render_frame_sweep(model, H, W, K, c2w, rk,
+                                                 output="device")
+    rgb_np, depth_np = rgb.cpu().numpy(), depth.cpu().numpy()
+    c_rgb, c_depth = render_sweep.render_frame_sweep(
+        model, H, W, K, c2w, rk, output="device_compact")
+    compact_exact = bool(np.array_equal(
+        c_rgb.cpu().numpy(),
+        np.round(np.clip(rgb_np, 0, 1) * 255).astype(np.uint8))) and bool(
+        np.array_equal(c_depth.cpu().numpy(), depth_np.astype(np.float16)))
+    buf, y_depth = render_sweep.render_frame_sweep(
+        model, H, W, K, c2w, rk, output="device_yuv420")
+    x = rgb_np.astype(np.float64)
+    y = 0.299 * x[..., 0] + 0.587 * x[..., 1] + 0.114 * x[..., 2]
+    u = -0.168736 * x[..., 0] - 0.331264 * x[..., 1] + 0.5 * x[..., 2] + 0.5
+    v = 0.5 * x[..., 0] - 0.418688 * x[..., 1] - 0.081312 * x[..., 2] + 0.5
+
+    def box(p):
+        h2, w2 = -(-H // 2), -(-W // 2)
+        pad = np.full((2 * h2, 2 * w2), np.nan)
+        pad[:H, :W] = p
+        return np.nanmean(pad.reshape(h2, 2, w2, 2), (1, 3))
+    ref = np.concatenate([np.round(np.clip(a, 0, 1) * 255).reshape(-1)
+                          for a in (y, box(u), box(v))])
+    got = buf.cpu().numpy().astype(np.float64)
+    yuv_diff = float(np.abs(got - ref).max()) if got.shape == ref.shape \
+        else float("inf")
+    out = {"compact_exact": compact_exact, "yuv420_max_level_diff": yuv_diff,
+           "yuv420_exact_share": float(np.mean(got == ref))
+           if got.shape == ref.shape else 0.0,
+           "yuv420_depth_f16_exact": bool(np.array_equal(
+               y_depth.cpu().numpy(), depth_np.astype(np.float16))),
+           "ms_per_frame": {}, "bytes_per_frame": {}}
+    for o in render_sweep.OUTPUTS:
+        def call():
+            res = render_sweep.render_frame_sweep(model, H, W, K, c2w, rk,
+                                                  output=o)
+            torch.cuda.synchronize()
+            return res
+        res = call()
+        out["bytes_per_frame"][o] = int(sum(
+            r.nbytes if isinstance(r, np.ndarray)
+            else r.numel() * r.element_size() for r in res))
+        out["ms_per_frame"][o] = host_time(call, OUTPUT_TIMED)
+    log(f"[phase 11] (e) 800^2 frame outputs: {out}")
+    if not (compact_exact and yuv_diff <= 1.0
+            and out["yuv420_depth_f16_exact"]):
+        raise AssertionError(f"frame outputs: {out}")
+    return out
+
+
+def export_checks(torch, dev):
+    """The three export flags through ``run.main`` on phase 5's checkpoints
+    (``logs/chip_smoke/train_lego``): the JAX driver's npz keys, shapes
+    that follow the checkpoints, finite values."""
+    import numpy as np
+    from directvoxgo_tpu_torch import run as run_lib
+    out = {}
+    for flag, keys in (("export_bbox_and_cams_only",
+                        ("xyz_min", "xyz_max", "cam_lst")),
+                       ("export_coarse_only", ("alpha", "rgb")),
+                       ("export_fine_only", ("alpha", "rgb"))):
+        path = os.path.join(CKPT_DIR, f"{flag}.npz")
+        t0 = time.time()
+        run_lib.main(["--config", TRAIN_CONFIG, f"--{flag}", path,
+                      "--device", str(dev)])
+        with np.load(path) as z:
+            shapes = {k: list(z[k].shape) for k in z.files}
+            finite = all(bool(np.isfinite(z[k]).all()) for k in z.files)
+        out[flag] = {"shapes": shapes, "seconds": time.time() - t0}
+        ok = set(shapes) == set(keys) and finite and (
+            shapes["cam_lst"][1:] == [5, 3] if "cam_lst" in keys
+            else shapes["alpha"] == shapes["rgb"][:3])
+        if not ok:
+            raise AssertionError(f"--{flag}: {shapes}, finite {finite}")
+    log(f"[phase 11] (e) export flags on phase 5's checkpoints: {out}")
+    return out
+
+
+def profile_check(torch, dev, cfg_path):
+    """``--profile_dir`` over a short run of ``cfg_path`` (its iteration
+    counts cut to PROFILE_STEPS): a trace.json whose kernel events name
+    K-A and K-C."""
+    from directvoxgo_tpu_torch import run as run_lib
+    prof_cfg = write_loader_config("profile", os.path.basename(cfg_path),
+                                   iters=(*PROFILE_STEPS, []))
+    prof_dir = os.path.join(CKPT_DIR, "profile")
+    t0 = time.time()
+    run_lib.main(["--config", prof_cfg, "--no_reload", "--profile_dir",
+                  prof_dir, "--device", str(dev)])
+    secs = time.time() - t0
+    with open(os.path.join(prof_dir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = collections.Counter(
+        m.group(0) for m in (re.search(r"sweep_\w+", e.get("name", ""))
+                             for e in events if e.get("cat") == "kernel")
+        if m)
+    out = {"seconds": secs, "events": len(events),
+           "trace_bytes": os.path.getsize(os.path.join(prof_dir,
+                                                       "trace.json")),
+           "sweep_kernel_events": dict(kernels)}
+    log(f"[phase 11] (e) --profile_dir: {out}")
+    names = " ".join(kernels)
+    if not ("sweep_fwd" in names and "sweep_bwd" in names):
+        raise AssertionError(f"--profile_dir trace names no K-A or K-C: "
+                             f"{out}")
+    return out
+
+
+def gt_checks(torch, dev):
+    """The ground truth of an uncached fixture key rendered on the card
+    (seconds), and a small key on the card against the CPU."""
+    import shutil
+    import numpy as np
+    from directvoxgo_tpu_torch.data import synthetic
+    cache = os.path.join(CKPT_DIR, "gt_cache")
+    shutil.rmtree(cache, ignore_errors=True)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    d = synthetic.make_synthetic_dataset(cache_dir=cache, device=dev,
+                                         **GT_KEY)
+    secs = time.time() - t0
+    small_card = synthetic.make_synthetic_dataset(device=dev, **GT_SMALL)
+    small_cpu = synthetic.make_synthetic_dataset(device="cpu", **GT_SMALL)
+    err = float(np.abs(small_card["images"] - small_cpu["images"]).max())
+    out = {"key": GT_KEY, "views": len(d["images"]), "seconds": secs,
+           "cached_files": sorted(os.listdir(cache)),
+           "small_card_vs_cpu": err}
+    log(f"[phase 11] (e) GT generation: {out}")
+    if not (err <= GT_TOL and len(out["cached_files"]) == 1
+            and np.isfinite(d["images"]).all()
+            and np.abs(d["images"] - 1.0).max() > 0.1):
+        raise AssertionError(f"GT generation: {out}")
+    return out
+
+
+def loaders_phase(torch, dev, ka, kb, kc, tf, sweep_ops, lego):
+    """Phase 11; ``lego`` holds phase 4's model and 800^2 camera (``model``,
+    ``H``, ``W``, ``K``, ``c2w``, ``rk``). Returns the kernels-line entries of K-A, K-B
+    and K-C on the new loaders' runs and a summary."""
+    import numpy as np
+    from directvoxgo_tpu_torch import run_tri_multiscene_v2 as v2
+    from directvoxgo_tpu_torch.config import Config
+    from directvoxgo_tpu_torch.data import load_everything
+    from directvoxgo_tpu_torch.data.synthetic import make_synthetic_dataset
+    from directvoxgo_tpu_torch.engine import train_conditioned as cond_lib
+    from directvoxgo_tpu_torch.tools import scene_layouts as sl
+    t_phase = time.time()
+    summary = {}
+    fixture = make_synthetic_dataset(white_bkgd=True, **LOADER_FIXTURE)
+    blocked = BlockedImports()
+    try:
+        # (a) write the scenes, (b) load them back without imageio / cv2.
+        t0 = time.time()
+        scenes = write_loader_scenes(torch, dev, fixture)
+        paths = write_loader_configs(scenes)
+        summary["write_s"] = time.time() - t0
+        loads = {}
+        for layout in LAYOUT_CONFIGS:
+            cfg = Config.fromfile(paths[layout])
+            t0 = time.time()
+            loaded = load_everything(None, cfg)
+            load_s = time.time() - t0
+            err = check_loaded_scene(layout, cfg, loaded, scenes[layout],
+                                     fixture)
+            loads[layout] = {"seconds": load_s, "views": len(
+                loaded["images"]), "irregular": bool(
+                loaded["irregular_shape"]), "near": float(loaded["near"]),
+                "far": float(loaded["far"]), "rays_max_diff": err}
+            if layout == "co3d" and not loaded["irregular_shape"]:
+                raise AssertionError("co3d: the views do not differ in size")
+        log(f"[phase 11] (a, b) scenes written in {summary['write_s']:.1f} s "
+            f"and loaded with {BLOCKED_MODULES} blocked: {loads}")
+        summary["loads"] = loads
+
+        # (c) train three of the layouts' configs at full width.
+        cap_ka = Capture(sweep_ops, "sweep_fwd", form=ka_form(ka))
+        cap_kc = Capture(sweep_ops, "sweep_bwd", form=kc_form(torch, kc))
+        per_replay = PerReplay(cap_ka, cap_kc)
+        caps, trained = {}, {}
+        try:
+            for layout in LOADER_TRAIN:
+                cfg = Config.fromfile(paths[layout])
+                data = load_everything(None, cfg)
+                trained[layout] = loader_train(
+                    torch, dev, ka, kb, kc, sweep_ops, layout, paths[layout],
+                    cfg, data, caps)
+        finally:
+            per_replay.restore()
+            cap_kc.restore()
+            cap_ka.restore()
+        summary["trained"] = trained
+        # A whole frame against the same view per ray: NSVF and
+        # Tanks&Temples on their own models; the CO3D cameras (flips, an
+        # off-centre principal point, cropped views) on the Tanks&Temples
+        # model, which sees the same fixture world (the CO3D model's black
+        # background lets it keep floaters at its grid's edge, where the
+        # frame's footprint and the per-ray march part ways: reported
+        # only).
+        co3d_cfg = Config.fromfile(paths["co3d"])
+        trained["co3d"]["frame_vs_rays_on_tankstemple_model"] = \
+            frame_vs_rays(torch, os.path.join(CKPT_DIR, "loaders_tankstemple",
+                                              "fine_last.tar"), co3d_cfg,
+                          load_everything(None, co3d_cfg), dev)
+        held = {"nsvf": trained["nsvf"]["frame_vs_rays"],
+                "tankstemple": trained["tankstemple"]["frame_vs_rays"],
+                "co3d": trained["co3d"]["frame_vs_rays_on_tankstemple_model"]}
+        log(f"[phase 11] (c) whole frames against per ray, held: {held}; "
+            f"the CO3D model's own: {trained['co3d']['frame_vs_rays']}")
+        if not all(v is not None and v["psnr"] > FRAME_VS_RAYS_MIN_PSNR
+                   and v["content_share"] > 0.01 for v in held.values()):
+            raise AssertionError(f"(c) frame against per ray: {held}")
+
+        # (d) run_tri_multiscene_v2 on two NSVF scenes (the fixture and its
+        # views with the RGB channels permuted) through the multi-scene
+        # NSVF dataset.
+        ms_root = os.path.join(SCENES_DIR, "nsvf_multi")
+        for name, perm in (("Bike", [0, 1, 2]), ("Palace", [1, 2, 0])):
+            sl.write_prefix_split(
+                os.path.join(ms_root, name), fixture["images"][..., perm],
+                fixture["poses"], fixture["Ks"][0],
+                [list(fixture[k]) for k in ("i_train", "i_val", "i_test")],
+                False)
+        ms_cfg = write_loader_config(
+            "multiscene", "../../configs/nsvf/tri_multiscene_nsvf.py",
+            {"datadir": ms_root}, (*LOADER_MS_STEPS, []))
+        cap_ds = Capture(v2, "load_multiscene", results=True)
+        ka.launches = kb.launches = kc.launches = 0
+        tf.launches_fwd = tf.launches_bwd = 0
+        rec = CondSteps(torch, cond_lib)
+        t0 = time.time()
+        try:
+            v2.main(["--config", ms_cfg, "--no_reload", "--device",
+                     str(dev)])
+            torch.cuda.synchronize()
+        finally:
+            rec.restore()
+            cap_ds.restore()
+        ds = cap_ds.results[0]
+        ms = {"seconds": time.time() - t0, "scenes": list(ds.scenes),
+              "near_far": [float(ds.near), float(ds.far)],
+              "fine_steps": len(rec.steps),
+              "median_fine_ms": median([s[1] for s in rec.steps]),
+              "launches": [ka.launches, kb.launches, kc.launches,
+                           tf.launches_fwd, tf.launches_bwd]}
+        log(f"[phase 11] (d) run_tri_multiscene_v2 on two NSVF scenes: {ms}")
+        if not (type(ds).__name__ == "MultisceneNSVFDataset"
+                and ds.n_scene == 2 and len(rec.steps) == LOADER_MS_STEPS[1]
+                and all(np.isfinite(s[2]) and np.isfinite(s[3])
+                        for s in rec.steps) and not any(ms["launches"])):
+            raise AssertionError(f"(d) multi-scene NSVF: {ms}")
+        summary["multiscene_nsvf"] = ms
+    finally:
+        blocked.restore()
+
+    # (e) the frame outputs, the export flags, --profile_dir, GT generation.
+    summary["frame_outputs"] = frame_outputs_check(
+        torch, lego["model"], lego["H"], lego["W"], lego["K"], lego["c2w"],
+        lego["rk"])
+    summary["exports"] = export_checks(torch, dev)
+    summary["profile"] = profile_check(torch, dev, paths["tankstemple"])
+    summary["gt_generation"] = gt_checks(torch, dev)
+
+    # The kernels line: K-A and K-C over the three training runs and their
+    # renders, checked and timed on the last call of their most common
+    # form; K-B over the renders, on the last frame rendered.
+    launches = {n: sum(t["launches"][n] + t["render"]["launches"][n]
+                       for t in trained.values())
+                for n in ("sweep_fwd", "sweep_bwd", "render_frame")}
+    errs = check_kernel_forms(ka, kc, cap_ka, cap_kc, "phase 11")
+    entries = []
+    for name, cap, numbers in (
+            ("sweep_fwd", cap_ka, lambda a: fwd_numbers(
+                torch, ka, *(a[0].detach(), *a[1:], None, 0)[:5])),
+            ("sweep_bwd", cap_kc, lambda a: bwd_numbers(torch, kc, *a[:7]))):
+        form = cap.counts.most_common(1)[0][0]
+        entries.append(dict({
+            "name": f"{name} [loaders]", "route": "cuda",
+            "source": f"directvoxgo_tpu_torch/csrc/{name}.cu",
+            "replaces": ("directvoxgo_tpu/ops/pallas_sweep_train.py:85"
+                         if name == "sweep_fwd" else
+                         "directvoxgo_tpu/ops/pallas_sweep_train.py:247"),
+            "launches": launches[name],
+            "launches_by_form": dict(cap.counts),
+            "max_abs_err": max(v for k, v in errs.items()
+                               if k.startswith(name))},
+            **numbers(cap.forms[form][0])))
+    if "frame" in caps:
+        (args, kw) = caps["frame"]
+        f = dict(zip(("d_geo", "d_k0", "vd_emb", "dnorm", "dclip", "ur",
+                      "vr", "layers", "scalars", "activity"), args), **kw)
+        stats = {}
+        kb.render_frame_plain(**f, stats=stats)
+        err_b = hold_frame(torch, kb, f, "phase 11 test view")
+        nums_b = frame_numbers(torch, kb, f, 10)
+        plain_b = cuda_time(lambda: kb.render_frame_plain(**f), 3, warmup=1)
+        bound_b, by_b, _, _, _ = frame_bound(f, stats)
+        hi, wi = f["dnorm"].shape
+        entries.append(dict({
+            "name": "render_frame [loaders]", "route": "cuda",
+            "source": "directvoxgo_tpu_torch/csrc/render_frame.cu",
+            "replaces": "directvoxgo_tpu/ops/pallas_render4.py:74",
+            "launches": launches["render_frame"], "max_abs_err": err_b},
+            **nums_b, **{"plain_ms": plain_b, "bound_ms": bound_b,
+                         "bound_by": by_b, "library_ms": None,
+                         "shape": f"test view, intermediate {hi}x{wi}, "
+                                  f"S={f['d_geo'].shape[0]}, "
+                                  f"{stats['visible_samples']} visible "
+                                  "samples"}))
+    if not launches["render_frame"]:
+        raise AssertionError("phase 11: K-B rendered no test view")
+    summary["launches"] = launches
+    summary["seconds"] = time.time() - t_phase
+    log(f"[phase 11] done in {summary['seconds']:.1f} s; launches "
+        f"{launches}")
     return entries, summary
 
 

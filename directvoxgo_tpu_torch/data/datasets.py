@@ -1,11 +1,11 @@
 """Dataset classes of the conditioned and multi-scene drivers: the LR/HR
 pair loader with its ``down_{d}.pkl`` cache, the single-scene Blender
-dataset and the multi-scene Blender dataset (preloaded, or read per scene
-with ``lazy``). Plain Python over numpy arrays; the drivers index them.
+dataset, the multi-scene Blender dataset (preloaded, or read per scene
+with ``lazy``) and the multi-scene NSVF dataset. Plain Python over numpy
+arrays; the drivers index them.
 
-Images are downscaled with :func:`..ops.resize.area_resize` (OpenCV's
-``INTER_AREA``). The multi-scene NSVF dataset needs the NSVF loader, which
-is not ported yet.
+Images are downscaled with :func:`.image_io.area_resize_np` (OpenCV's
+``INTER_AREA``).
 """
 
 from __future__ import annotations
@@ -15,9 +15,8 @@ import os
 import pickle
 
 import numpy as np
-import torch
 
-from ..ops.resize import area_resize
+from .image_io import area_resize_np, read_png
 from .load_blender import render_path_spherical
 
 
@@ -29,15 +28,8 @@ def _composite(image, white_bkgd):
     return image
 
 
-def _downscale(images, h, w):
-    """``[..., H, W, C]`` float32 numpy -> ``[..., h, w, C]`` (area)."""
-    return area_resize(torch.as_tensor(np.ascontiguousarray(images)), h,
-                       w).numpy()
-
-
 def _read_png(path):
-    import imageio.v2 as imageio
-    return (np.array(imageio.imread(path)) / 255.0).astype(np.float32)
+    return (read_png(path) / 255.0).astype(np.float32)
 
 
 def load_blender_data_lrsr(basedir, down=4, testskip=1):
@@ -75,7 +67,7 @@ def load_blender_data_lrsr(basedir, down=4, testskip=1):
     render_poses = render_path_spherical()
     h, w = H // down, W // down
     focal_lr = focal_sr / float(down)
-    imgs_lr = _downscale(imgs_sr, h, w) if down > 1 else imgs_sr
+    imgs_lr = area_resize_np(imgs_sr, h, w) if down > 1 else imgs_sr
     ret = dict(imgs_lr=imgs_lr, imgs_sr=imgs_sr, poses=poses,
                render_poses=render_poses, sr_cam=[H, W, focal_sr],
                lr_cam=[h, w, focal_lr], i_split=i_split)
@@ -106,7 +98,7 @@ class BlenderDataset:
             image = _read_png(os.path.join(basedir,
                                            frame["file_path"] + ".png"))
             if down > 1:
-                image = _downscale(image, image.shape[0] // down,
+                image = area_resize_np(image, image.shape[0] // down,
                                    image.shape[1] // down)
             imgs.append(_composite(image, white_bkgd))
             poses.append(np.array(frame["transform_matrix"], np.float32))
@@ -168,7 +160,7 @@ class MultisceneBlenderDataset:
         image = _read_png(os.path.join(self.basedir, scene,
                                        frame["file_path"] + ".png"))
         if self.down > 1:
-            image = _downscale(image, image.shape[0] // self.down,
+            image = area_resize_np(image, image.shape[0] // self.down,
                                image.shape[1] // self.down)
         return _composite(image, self.white_bkgd)
 
@@ -210,12 +202,60 @@ class MultisceneBlenderDataset:
 
 
 class MultisceneNSVFDataset:
-    """Multi-scene NSVF scenes; needs ``load_nsvf``."""
+    """NSVF scenes (subdirectories with ``rgb/``) of one split, with one
+    inward near/far over all of them; ``test_scenes`` are held out of the
+    train split (and are the test split)."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the multi-scene NSVF dataset needs the NSVF loader, which is "
-            "not ported yet (ROADMAP A4)")
+    def __init__(self, basedir, split="train", down=1, test_scenes=(),
+                 white_bkgd=True):
+        from .load_data import inward_nearfar_heuristic
+        from .load_nsvf import load_nsvf_data
+        scenes = sorted(
+            d for d in os.listdir(basedir)
+            if os.path.isdir(os.path.join(basedir, d, "rgb")))
+        if test_scenes:
+            if split == "train":
+                scenes = [s for s in scenes if s not in test_scenes]
+            else:
+                scenes = [s for s in scenes if s in test_scenes]
+        self.scenes = scenes
+        self.split = {"train": 0, "val": 1, "test": 2}[split]
+        self._data = []
+        cam_os = []
+        for s in scenes:
+            imgs, poses, _, hwf, i_split = load_nsvf_data(
+                os.path.join(basedir, s), down)
+            idx = i_split[self.split]
+            H, W, focal = hwf
+            K = np.array([[focal, 0, 0.5 * W], [0, focal, 0.5 * H],
+                          [0, 0, 1]], np.float32)
+            self._data.append({
+                "images": np.stack([_composite(im, white_bkgd)
+                                    for im in imgs[idx]], 0),
+                "poses": poses[idx][:, :3, :4],
+                "Ks": np.repeat(K[None], len(idx), 0),
+                "HW": np.array([[H, W]] * len(idx)),
+            })
+            cam_os.append(poses[idx][:, :3, 3])
+        self.near, self.far = inward_nearfar_heuristic(
+            np.concatenate(cam_os, 0))
+        for d in self._data:
+            d["near"], d["far"] = self.near, self.far
+
+    @property
+    def n_scene(self):
+        return len(self.scenes)
+
+    def scene_data(self, scene_id):
+        """The scene's views: images, poses ``[n, 3, 4]``, Ks, HW, near,
+        far."""
+        return self._data[scene_id]
+
+    def __len__(self):
+        return self.n_scene
+
+    def __getitem__(self, i):
+        return self.scene_data(i)
 
 
 dataset_dict = {

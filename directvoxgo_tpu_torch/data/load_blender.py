@@ -1,5 +1,6 @@
 """Blender (nerf_synthetic) dataset loader: ``transforms_{split}.json`` plus
-RGBA pngs, a 40-view spherical render path, ``half_res``/``down`` resizing."""
+RGBA pngs, a 40-view spherical render path, ``half_res``/``down`` resizing
+(area, :func:`.image_io.area_resize_np`)."""
 
 from __future__ import annotations
 
@@ -7,6 +8,8 @@ import json
 import os
 
 import numpy as np
+
+from .image_io import area_resize_np, read_png
 
 
 def _translate_z(t):
@@ -48,8 +51,6 @@ def render_path_spherical(n_views=40, phi=-30.0, radius=4.0):
 
 
 def load_blender_data(basedir, half_res=False, testskip=1, down=1):
-    import imageio.v2 as imageio
-
     splits = ["train", "val", "test"]
     metas = {}
     for s in splits:
@@ -63,7 +64,7 @@ def load_blender_data(basedir, half_res=False, testskip=1, down=1):
         imgs, poses = [], []
         for frame in meta["frames"][::skip]:
             fname = os.path.join(basedir, frame["file_path"] + ".png")
-            imgs.append(imageio.imread(fname))
+            imgs.append(read_png(fname))
             poses.append(np.array(frame["transform_matrix"]))
         imgs = (np.array(imgs) / 255.0).astype(np.float32)
         poses = np.array(poses).astype(np.float32)
@@ -82,11 +83,8 @@ def load_blender_data(basedir, half_res=False, testskip=1, down=1):
 
     factor = (2 if half_res else 1) * int(down)
     if factor > 1:
-        import cv2
         H, W = H // factor, W // factor
         focal = focal / factor
-        imgs = np.stack([
-            cv2.resize(im, (W, H), interpolation=cv2.INTER_AREA)
-            for im in imgs], 0)
+        imgs = np.stack([area_resize_np(im, H, W) for im in imgs], 0)
 
     return imgs, poses, render_poses, [H, W, focal], i_split

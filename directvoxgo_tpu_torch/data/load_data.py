@@ -1,20 +1,26 @@
-"""Dataset hub: dispatch by ``dataset_type`` (blender, with its LR/HR
-``task='sr'`` pairs, llff and the two procedural fixtures so far) and
-normalize near/far and the background policy (llff: from the bounds, or
-NDC's 0/1)."""
+"""Dataset hub: dispatch by ``dataset_type`` and normalize near/far, the
+intrinsics and the background policy.
+
+Near/far by dataset type:
+  blender:           2 / 6
+  nsvf, blendedmvs:  inward heuristic, ratio 0.05
+  tankstemple, co3d: inward heuristic, ratio 0
+  deepvoxels:        hemisphere radius -/+ 1
+  llff:              from the bounds, or NDC's 0 / 1
+The procedural fixtures bring their own data_dict.
+"""
 
 from __future__ import annotations
 
 import numpy as np
 
-# ROADMAP queue A item that ports each remaining loader.
-_NOT_PORTED = {
-    "nsvf": "A10 (remaining loaders)",
-    "blendedmvs": "A10 (remaining loaders)",
-    "tankstemple": "A10 (remaining loaders)",
-    "deepvoxels": "A10 (remaining loaders)",
-    "co3d": "A10 (remaining loaders)",
-}
+
+def inward_nearfar_heuristic(cam_o, ratio=0.05):
+    """near/far from the largest distance between two cameras."""
+    dist = np.linalg.norm(cam_o[:, None] - cam_o, axis=-1)
+    far = dist.max()
+    near = far * ratio
+    return near, far
 
 
 def _composite_bg(images, white_bkgd):
@@ -25,7 +31,11 @@ def _composite_bg(images, white_bkgd):
     return images
 
 
-def load_data(args):
+def load_data(args, device=None):
+    """The data_dict of the dataset ``args`` (a config's ``data``);
+    ``device`` renders a procedural fixture's ground truth when it is not
+    cached."""
+    K = None
     images_lr = hwf_lr = None
     if args.dataset_type == "blender":
         if args.get("task") == "sr":
@@ -46,6 +56,62 @@ def load_data(args):
         images = _composite_bg(images, args.white_bkgd)
         if images_lr is not None:
             images_lr = _composite_bg(images_lr, args.white_bkgd)
+    elif args.dataset_type == "nsvf":
+        from .load_nsvf import load_nsvf_data
+        images, poses, render_poses, hwf, i_split = load_nsvf_data(
+            args.datadir, args.down)
+        print("Loaded nsvf", images.shape, render_poses.shape, hwf,
+              args.datadir)
+        i_train, i_val, i_test = i_split
+        near, far = inward_nearfar_heuristic(poses[i_train, :3, 3])
+        images = _composite_bg(images, args.white_bkgd)
+    elif args.dataset_type == "blendedmvs":
+        from .load_blendedmvs import load_blendedmvs_data
+        images, poses, render_poses, hwf, K, i_split = load_blendedmvs_data(
+            args.datadir)
+        print("Loaded blendedmvs", images.shape, render_poses.shape, hwf,
+              args.datadir)
+        i_train, i_val, i_test = i_split
+        near, far = inward_nearfar_heuristic(poses[i_train, :3, 3])
+        if images.shape[-1] != 3:
+            raise ValueError(f"blendedmvs views have {images.shape[-1]} "
+                             "channels, not 3")
+    elif args.dataset_type == "tankstemple":
+        from .load_tankstemple import load_tankstemple_data
+        images, poses, render_poses, hwf, K, i_split = load_tankstemple_data(
+            args.datadir)
+        print("Loaded tankstemple", images.shape, render_poses.shape, hwf,
+              args.datadir)
+        i_train, i_val, i_test = i_split
+        near, far = inward_nearfar_heuristic(poses[i_train, :3, 3], ratio=0)
+        images = _composite_bg(images, args.white_bkgd)
+    elif args.dataset_type == "deepvoxels":
+        from .load_deepvoxels import load_dv_data
+        images, poses, render_poses, hwf, i_split = load_dv_data(
+            scene=args.get("scene", ""), basedir=args.datadir,
+            testskip=args.testskip)
+        print("Loaded deepvoxels", images.shape, render_poses.shape, hwf,
+              args.datadir)
+        i_train, i_val, i_test = i_split
+        hemi_r = np.mean(np.linalg.norm(poses[:, :3, -1], axis=-1))
+        near, far = hemi_r - 1.0, hemi_r + 1.0
+        if not args.white_bkgd or images.shape[-1] != 3:
+            raise ValueError("deepvoxels scenes are RGB on a white "
+                             "background (white_bkgd=True)")
+    elif args.dataset_type == "co3d":
+        from .load_co3d import load_co3d_data
+        images, masks, poses, render_poses, hwf, K, i_split = \
+            load_co3d_data(args)
+        print("Loaded co3d", args.datadir, args.annot_path,
+              args.sequence_name)
+        i_train, i_val, i_test = i_split
+        near, far = inward_nearfar_heuristic(poses[i_train, :3, 3], ratio=0)
+        for i in range(len(images)):
+            if args.white_bkgd:
+                images[i] = images[i] * masks[i][..., None] \
+                    + (1.0 - masks[i][..., None])
+            else:
+                images[i] = images[i] * masks[i][..., None]
     elif args.dataset_type == "llff":
         from .load_llff import load_llff_data
         images, depths, poses, bds, render_poses, i_test = load_llff_data(
@@ -74,15 +140,13 @@ def load_data(args):
         from .synthetic import make_synthetic_dataset
         return make_synthetic_dataset(
             white_bkgd=args.white_bkgd,
-            **dict(getattr(args, "fixture_kwargs", None) or {}))
+            **{"device": device,
+               **dict(getattr(args, "fixture_kwargs", None) or {})})
     elif args.dataset_type == "ndc_fixture":
         from .synthetic import make_ndc_fixture_dataset
         return make_ndc_fixture_dataset(
-            **dict(getattr(args, "fixture_kwargs", None) or {}))
-    elif args.dataset_type in _NOT_PORTED:
-        raise NotImplementedError(
-            f"dataset_type {args.dataset_type!r} is not ported yet "
-            f"(ROADMAP {_NOT_PORTED[args.dataset_type]})")
+            **{"device": device,
+               **dict(getattr(args, "fixture_kwargs", None) or {})})
     else:
         raise NotImplementedError(
             f"Unknown dataset type {args.dataset_type} exiting")
@@ -91,10 +155,11 @@ def load_data(args):
     H, W = int(H), int(W)
     hwf = [H, W, focal]
     HW = np.array([im.shape[:2] for im in images])
-    K = np.array([[focal, 0, 0.5 * W],
-                  [0, focal, 0.5 * H],
-                  [0, 0, 1]])
-    Ks = K[None].repeat(len(poses), axis=0)
+    if K is None:
+        K = np.array([[focal, 0, 0.5 * W],
+                      [0, focal, 0.5 * H],
+                      [0, 0, 1]])
+    Ks = K[None].repeat(len(poses), axis=0) if np.ndim(K) == 2 else K
     out = dict(
         hwf=hwf, HW=HW, Ks=Ks, near=near, far=far,
         i_train=i_train, i_val=i_val, i_test=i_test,
@@ -113,8 +178,9 @@ def load_data(args):
 
 
 def load_everything(args, cfg):
-    """Load and prune to the canonical data_dict keys."""
-    data_dict = load_data(cfg.data)
+    """Load and prune to the canonical data_dict keys (``args.device``, when
+    given, renders an uncached fixture's ground truth)."""
+    data_dict = load_data(cfg.data, device=getattr(args, "device", None))
     kept_keys = {
         "hwf", "HW", "Ks", "near", "far",
         "i_train", "i_val", "i_test", "irregular_shape",

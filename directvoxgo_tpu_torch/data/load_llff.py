@@ -3,9 +3,11 @@
 Parses ``poses_bounds.npy``, rescales by ``bd_factor``, recenters the
 poses, optionally spherifies them, and builds a spiral render path. The
 downsampled image directories (``images_{factor}``, ``images_{W}x{H}``)
-are made with cv2's INTER_AREA, under the directory names the upstream
-loader's ImageMagick step uses, so either's cache serves the other.
-``imageio`` and ``cv2`` are imported inside the functions that use them.
+are made by an area resize (OpenCV's ``INTER_AREA`` and its uint8
+rounding, :func:`.image_io.area_resize_u8`), under the directory names the
+upstream loader's ImageMagick step uses, so either's cache serves the
+other. PNGs are read by :func:`.image_io.read_png`; only decoding a JPEG
+(the raw ``images/*.JPG`` of a folder not yet made) needs ``imageio``.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ from __future__ import annotations
 import os
 
 import numpy as np
+
+from .image_io import area_resize_u8, image_size, read_image, write_png
 
 _IMG_EXTS = (".JPG", ".jpg", ".png", ".jpeg", ".PNG")
 
@@ -23,10 +27,8 @@ def _list_images(d):
 
 
 def _minify(basedir, factors=(), resolutions=()):
-    """Create images_{factor} / images_{W}x{H} downsampled copies (cv2)."""
-    import cv2
-    import imageio.v2 as imageio
-
+    """Create images_{factor} / images_{W}x{H} downsampled copies (area
+    resize, 8-bit RGB PNGs)."""
     need = []
     for r in factors:
         if not os.path.exists(os.path.join(basedir, f"images_{r}")):
@@ -46,20 +48,19 @@ def _minify(basedir, factors=(), resolutions=()):
         os.makedirs(out_dir, exist_ok=True)
         print("minifying to", out_dir)
         for f in files:
-            im = imageio.imread(f)
+            im = read_image(f)
+            im = im[..., :3] if im.ndim == 3 else im
             if kind == "factor":
                 h, w = im.shape[0] // r, im.shape[1] // r
             else:
                 h, w = r[0], r[1]
-            out = cv2.resize(im, (w, h), interpolation=cv2.INTER_AREA)
+            out = area_resize_u8(im, h, w)
             name = os.path.splitext(os.path.basename(f))[0] + ".png"
-            imageio.imwrite(os.path.join(out_dir, name), out)
+            write_png(os.path.join(out_dir, name), out)
 
 
 def _load_poses_images(basedir, factor=None, width=None, height=None,
                        load_depths=False):
-    import imageio.v2 as imageio
-
     poses_arr = np.load(os.path.join(basedir, "poses_bounds.npy"))
     if poses_arr.shape[1] == 17:
         poses = poses_arr[:, :-2].reshape([-1, 3, 5]).transpose([1, 2, 0])
@@ -70,7 +71,7 @@ def _load_poses_images(basedir, factor=None, width=None, height=None,
     bds = poses_arr[:, -2:].transpose([1, 0])
 
     img0 = _list_images(os.path.join(basedir, "images"))[0]
-    sh = imageio.imread(img0).shape
+    sh = image_size(img0)
 
     sfx = ""
     if height is not None and width is not None:
@@ -98,7 +99,7 @@ def _load_poses_images(basedir, factor=None, width=None, height=None,
     assert poses.shape[-1] == len(imgfiles), (
         f"Mismatch between imgs {len(imgfiles)} and poses {poses.shape[-1]}")
 
-    sh = imageio.imread(imgfiles[0]).shape
+    sh = image_size(imgfiles[0])
     if poses.shape[1] == 4:
         poses = np.concatenate([poses, np.zeros_like(poses[:, [0]])], 1)
         poses[2, 4, :] = np.load(
@@ -106,7 +107,7 @@ def _load_poses_images(basedir, factor=None, width=None, height=None,
     poses[:2, 4, :] = np.array(sh[:2]).reshape([2, 1])
     poses[2, 4, :] = poses[2, 4, :] * 1.0 / factor
 
-    imgs = np.stack([imageio.imread(f)[..., :3] / 255.0
+    imgs = np.stack([read_image(f)[..., :3] / 255.0
                      for f in imgfiles], -1)
     if not load_depths:
         return poses, bds, imgs, None

@@ -1,10 +1,13 @@
 """Procedural synthetic scene fixtures (no external dataset needed): the
 inward-facing blob scene and its forward-facing (NDC) variant.
 
-Same scenes, poses and cache keys as the JAX package's fixtures: the ground
-truth images are read from the committed ``fixture_cache/*.npz`` files.
-Generating missing ground truth (the teacher volume render) is not ported
-yet (ROADMAP queue A, "GT generation"); a missing cache file raises.
+Same scenes, poses and cache keys as the JAX package's fixtures. The ground
+truth images are read from ``fixture_<key>.npz`` (an f16 ``images`` stack)
+in the ``cache_dir`` given, else in the repository's ``fixture_cache/``.
+A key found in neither is rendered from the analytic teacher volume
+(:func:`render_teacher_view`: trilinear samples, softplus alpha, front to
+back compositing) on the device given, and written to ``cache_dir`` when
+one is given; the repository's cache is never written.
 """
 
 from __future__ import annotations
@@ -12,7 +15,10 @@ from __future__ import annotations
 import os
 
 import numpy as np
+import torch
 
+from .. import rays as ray_lib
+from ..ops.raymarch import fma
 from .load_blender import pose_spherical
 
 REPO_CACHE = os.path.normpath(os.path.join(
@@ -20,15 +26,103 @@ REPO_CACHE = os.path.normpath(os.path.join(
 
 
 def cache_load(name, cache_dir=None):
-    """Load a cached GT stack ``fixture_<key>.npz`` as f32 images."""
-    path = os.path.join(cache_dir or REPO_CACHE, name)
-    if not os.path.isfile(path):
-        raise FileNotFoundError(
-            f"fixture ground truth {path} is missing; generating it is not "
-            "ported yet (ROADMAP: GT generation for uncached fixtures) — "
-            "render it once with the JAX package to fill fixture_cache/")
-    with np.load(path) as z:
-        return z["images"].astype(np.float32)
+    """The cached GT stack ``name`` as f32 images, from ``cache_dir`` or
+    the repository's cache; None when neither has it."""
+    for d in (cache_dir, REPO_CACHE):
+        path = os.path.join(d, name) if d else None
+        if path and os.path.isfile(path):
+            with np.load(path) as z:
+                return z["images"].astype(np.float32)
+    return None
+
+
+def cache_save(name, cache_dir, images):
+    """Write the GT stack as the JAX package does (f16 ``images``,
+    compressed) to ``cache_dir``."""
+    os.makedirs(cache_dir, exist_ok=True)
+    np.savez_compressed(os.path.join(cache_dir, name),
+                        images=images.astype(np.float16))
+
+
+def _teacher_chunk(fields, ro, vd, t, box_min, box_max, interval, bg):
+    """Trilinear samples of the teacher ``fields [R, R, R, 4]`` (density,
+    rgb) along ``ro + vd * t`` and their composite over ``bg``; rays
+    ``[n, 3]``, ``t [S]`` -> ``[n, 3]``. The points and the corner sums are
+    fused multiply-adds, as the JAX package's CPU compiler contracts them."""
+    res = fields.shape[0]
+    pts = fma(vd[:, None, :], t[None, :, None], ro[:, None, :])
+    scale = (res - 1) / (box_max - box_min)
+    idx = (pts - box_min) * scale
+    inb = ((pts >= box_min) & (pts <= box_max)).all(-1)
+    i0 = torch.clamp(torch.floor(idx).to(torch.int64), 0, res - 2)
+    f = torch.clamp(idx - i0, 0.0, 1.0)
+    v = torch.zeros((*pts.shape[:2], 4), dtype=torch.float32,
+                    device=pts.device)
+    for dx in (0, 1):
+        wx = f[..., 0] if dx else 1.0 - f[..., 0]
+        for dy in (0, 1):
+            wy = f[..., 1] if dy else 1.0 - f[..., 1]
+            for dz in (0, 1):
+                wz = f[..., 2] if dz else 1.0 - f[..., 2]
+                corner = fields[i0[..., 0] + dx, i0[..., 1] + dy,
+                                i0[..., 2] + dz]
+                v = fma((wx * wy * wz)[..., None], corner, v)
+    d, c = v[..., 0], v[..., 1:]
+    alpha = 1.0 - torch.exp(-torch.log1p(torch.exp(d)) * interval)
+    alpha = torch.where(inb, alpha, torch.zeros_like(alpha))
+    one_minus = 1.0 - alpha + 1e-10
+    weights = torch.cumprod(one_minus, -1) / one_minus * alpha
+    alphainv_last = torch.prod(one_minus, -1)
+    return (weights[..., None] * c).sum(1) + alphainv_last[..., None] * bg
+
+
+@torch.no_grad()
+def render_teacher_view(density, rgb, H, W, K, c2w, near, far, bg,
+                        n_samples=192, scene_box=None, device="cpu",
+                        chunk=65536):
+    """One ``[H, W, 3]`` f32 ground-truth view of the teacher grids
+    (:func:`teacher_grids`) placed in ``scene_box`` ((min3, max3), default
+    [-1, 1]^3), rendered on ``device`` with ``n_samples`` stations from
+    ``near`` to ``far``."""
+    box_min, box_max = scene_box if scene_box is not None \
+        else (np.full(3, -1.0), np.full(3, 1.0))
+    box_min = np.asarray(box_min, np.float32)
+    box_max = np.asarray(box_max, np.float32)
+    rays_o, _, viewdirs = ray_lib.get_rays_of_a_view(
+        H, W, K, c2w, ndc=False, inverse_y=False, flip_x=False, flip_y=False)
+    res = density.shape[0]
+    voxel = float(box_max[0] - box_min[0]) / res
+    interval = np.float32((far - near) / n_samples / voxel)
+
+    def put(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=device)
+
+    fields = put(np.concatenate([density[..., None], rgb], -1))
+    ro = put(rays_o.reshape(-1, 3).astype(np.float32))
+    vd = put(viewdirs.reshape(-1, 3).astype(np.float32))
+    t = put(np.linspace(near, far, n_samples, dtype=np.float32))
+    lo, hi = put(box_min), put(box_max)
+    out = torch.cat([
+        _teacher_chunk(fields, ro[s:s + chunk], vd[s:s + chunk], t, lo, hi,
+                       float(interval), float(bg))
+        for s in range(0, ro.shape[0], chunk)])
+    return out.cpu().numpy().reshape(H, W, 3)
+
+
+def _ground_truth(name, cache_dir, device, render_one, n_views):
+    """The cached stack ``name``, else its views rendered by
+    ``render_one(i, device)`` (written to ``cache_dir`` when given)."""
+    images = cache_load(name, cache_dir)
+    if images is not None:
+        return images
+    from ..device import resolve_device
+    device = resolve_device(device)
+    print(f"synthetic: {name} is not cached; rendering {n_views} views on "
+          f"{device}")
+    images = np.stack([render_one(i, device) for i in range(n_views)], 0)
+    if cache_dir:
+        cache_save(name, cache_dir, images)
+    return images
 
 
 def teacher_grids(resolution=64, variant="blobs"):
@@ -77,10 +171,12 @@ def teacher_grids(resolution=64, variant="blobs"):
 
 def make_synthetic_dataset(n_train=16, n_val=2, n_test=4, H=64, W=64,
                            teacher_res=64, white_bkgd=True, seed=0,
-                           variant="blobs", cache_dir=None):
+                           variant="blobs", cache_dir=None, device=None):
     """A data_dict with the same keys as :func:`..load_data.load_everything`.
 
-    ``cache_dir`` defaults to the repository's ``fixture_cache/``."""
+    The ground truth comes from ``cache_dir`` or the repository's
+    ``fixture_cache/``, else it is rendered on ``device`` (default: the
+    CUDA device) and written to ``cache_dir`` when given."""
     rng = np.random.default_rng(seed)
     near, far = 2.0, 6.0
     focal = 0.8 * W
@@ -98,7 +194,17 @@ def make_synthetic_dataset(n_train=16, n_val=2, n_test=4, H=64, W=64,
     key = f"{n_train}_{n_val}_{n_test}_{H}_{W}_{teacher_res}_" \
           f"{int(white_bkgd)}_{seed}_v2" \
           + (f"_{variant}" if variant != "blobs" else "")
-    images = cache_load(f"fixture_{key}.npz", cache_dir)
+
+    def render_one(i, dev):
+        if not grids:
+            grids.extend(teacher_grids(teacher_res, variant=variant))
+        return render_teacher_view(*grids, H, W, K, poses[i][:3, :4], near,
+                                   far, 1.0 if white_bkgd else 0.0,
+                                   device=dev)
+
+    grids = []
+    images = _ground_truth(f"fixture_{key}.npz", cache_dir, device,
+                           render_one, n_total)
 
     idx = np.arange(n_total)
     render_poses = np.stack([pose_spherical(t, -30.0, 4.0)
@@ -120,14 +226,16 @@ def make_synthetic_dataset(n_train=16, n_val=2, n_test=4, H=64, W=64,
 
 
 def make_ndc_fixture_dataset(n_train=12, n_val=2, n_test=3, H=64, W=64,
-                             teacher_res=64, seed=0, cache_dir=None):
+                             teacher_res=64, seed=0, cache_dir=None,
+                             device=None):
     """The forward-facing (LLFF-style) fixture of the NDC pipeline: cameras
     near the z = 0 plane with small x/y offsets looking down -z at the
     teacher blobs; ``near``/``far`` are NDC's 0/1 (rays are reparameterized
     by :func:`..rays.ndc_rays` downstream). A data_dict with the keys of
-    :func:`..load_data.load_everything`; ``cache_dir`` defaults to the
-    repository's ``fixture_cache/``. The ground truth is rendered in world
-    space by the JAX package; a missing cache file raises."""
+    :func:`..load_data.load_everything`. The ground truth (world-space
+    renders of the teacher in [-1.2, 1.2]^2 x [-3.4, -1.0]) comes from
+    ``cache_dir`` or the repository's ``fixture_cache/``, else it is
+    rendered on ``device`` and written to ``cache_dir`` when given."""
     rng = np.random.default_rng(seed)
     focal = 0.8 * W
     K = np.array([[focal, 0, 0.5 * W], [0, focal, 0.5 * H], [0, 0, 1]],
@@ -142,7 +250,19 @@ def make_ndc_fixture_dataset(n_train=12, n_val=2, n_test=3, H=64, W=64,
         poses.append(c2w)
     poses = np.stack(poses, 0)
     key = f"ndc_{n_train}_{n_val}_{n_test}_{H}_{W}_{teacher_res}_{seed}_v1"
-    images = cache_load(f"fixture_{key}.npz", cache_dir)
+    scene_box = (np.array([-1.2, -1.2, -3.4], np.float32),
+                 np.array([1.2, 1.2, -1.0], np.float32))
+
+    def render_one(i, dev):
+        if not grids:
+            grids.extend(teacher_grids(teacher_res))
+        return render_teacher_view(*grids, H, W, K, poses[i][:3, :4], 0.5,
+                                   4.5, 0.0, n_samples=256,
+                                   scene_box=scene_box, device=dev)
+
+    grids = []
+    images = _ground_truth(f"fixture_{key}.npz", cache_dir, device,
+                           render_one, n_total)
 
     idx = np.arange(n_total)
     render_poses = []

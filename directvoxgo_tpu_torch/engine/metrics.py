@@ -1,4 +1,5 @@
-"""Evaluation metrics: PSNR and SSIM (mipnerf port, numpy/scipy)."""
+"""Evaluation metrics: PSNR and SSIM (mipnerf port, numpy/scipy), and
+LPIPS where the optional ``lpips`` package is installed."""
 
 from __future__ import annotations
 
@@ -47,3 +48,34 @@ def rgb_ssim(img0, img1, max_val, filter_size=11, filter_sigma=1.5,
     denom = (mu00 + mu11 + c1) * (sigma00 + sigma11 + c2)
     ssim_map = numer / denom
     return ssim_map if return_map else float(np.mean(ssim_map))
+
+
+_LPIPS_NETS = {}
+
+
+def require_lpips():
+    """The ``lpips`` module, or the JAX package's ``RuntimeError`` when it
+    is not installed (LPIPS needs it and its pretrained weights)."""
+    try:
+        import lpips  # type: ignore
+    except ImportError as e:
+        raise RuntimeError(
+            "LPIPS evaluation needs the optional 'lpips' + torch packages; "
+            "install them or drop --eval_lpips_* flags") from e
+    return lpips
+
+
+def rgb_lpips(np_gt, np_im, net_name="alex"):
+    """LPIPS (version 0.1, ``net_name`` "alex" or "vgg") of two ``[H, W, 3]``
+    images in [0, 1], on the CPU."""
+    import torch
+    lpips = require_lpips()
+    if net_name not in _LPIPS_NETS:
+        _LPIPS_NETS[net_name] = lpips.LPIPS(net=net_name,
+                                            version="0.1").eval()
+    gt = torch.from_numpy(np.ascontiguousarray(
+        np_gt.transpose(2, 0, 1))).float()
+    im = torch.from_numpy(np.ascontiguousarray(
+        np_im.transpose(2, 0, 1))).float()
+    with torch.no_grad():
+        return float(_LPIPS_NETS[net_name](gt, im, normalize=True).item())

@@ -17,8 +17,6 @@ NDC tiles only for sweep models).
 from __future__ import annotations
 
 import os
-import struct
-import zlib
 
 import numpy as np
 import torch
@@ -26,6 +24,7 @@ import torch
 from . import metrics as metrics_lib
 from . import render_sweep as render_sweep_lib
 from .. import rays as ray_lib
+from ..data.image_io import write_png
 from ..ops import sweep as sweep_ops
 
 
@@ -36,24 +35,6 @@ def _round_up(x, m):
 # Least station-plane area (voxels) for the windowed NDC renders; below it
 # the windows' bookkeeping does not pay. Tests lower it to force them.
 WINDOWED_RENDER_MIN_PLANE = 128 * 128
-
-
-def write_png(path, img):
-    """Write an [H, W, 3] uint8 image as an 8-bit RGB PNG."""
-    img = np.ascontiguousarray(img, np.uint8)
-    h, w, _ = img.shape
-    raw = b"".join(b"\x00" + img[r].tobytes() for r in range(h))
-
-    def chunk(tag, data):
-        body = tag + data
-        return (struct.pack(">I", len(data)) + body
-                + struct.pack(">I", zlib.crc32(body) & 0xFFFFFFFF))
-
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n"
-                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(raw, 6))
-                + chunk(b"IEND", b""))
 
 
 def make_render_fn(model, render_kwargs):
@@ -379,15 +360,19 @@ def render_frame_ndc_tiles(render_fn, model, H, W, K, c2w, rk, chunk=8192,
 
 def render_viewpoints(model, render_poses, HW, Ks, ndc, render_kwargs,
                       gt_imgs=None, savedir=None, render_factor=0,
-                      eval_ssim=False, chunk=8192, flip_x=False,
+                      eval_ssim=False, eval_lpips_alex=False,
+                      eval_lpips_vgg=False, chunk=8192, flip_x=False,
                       flip_y=False, verbose=True):
-    """Render a list of poses; compute PSNR (and SSIM) against ``gt_imgs``
-    when given; write PNGs to ``savedir``. Returns (rgbs, depths, stats);
-    ``stats["path"]`` names each view's path: "frame" (the camera sweep),
-    "tiles" (an NDC view as windowed pixel tiles) or "rays" (per ray: the
-    fallback of both, and every view of a gather model).
+    """Render a list of poses; compute PSNR (and SSIM, LPIPS) against
+    ``gt_imgs`` when given; write PNGs to ``savedir``. Returns (rgbs,
+    depths, stats), the views stacked by :func:`stack_views`; ``stats["path"]`` names each view's path: "frame" (the
+    camera sweep), "tiles" (an NDC view as windowed pixel tiles) or "rays"
+    (per ray: the fallback of both, and every view of a gather model).
+    LPIPS without the ``lpips`` package raises before any view renders.
     """
     assert len(render_poses) == len(HW) and len(HW) == len(Ks)
+    if eval_lpips_alex or eval_lpips_vgg:
+        metrics_lib.require_lpips()
     if render_factor != 0:
         HW = np.copy(HW) // render_factor
         Ks = np.copy(Ks)
@@ -395,6 +380,7 @@ def render_viewpoints(model, render_poses, HW, Ks, ndc, render_kwargs,
 
     render_fn = make_render_fn(model, render_kwargs)
     rgbs, depths, psnrs, ssims, paths = [], [], [], [], []
+    lp_alex, lp_vgg = [], []
     for i, c2w in enumerate(render_poses):
         H, W = (int(x) for x in HW[i])
         K = Ks[i]
@@ -429,15 +415,34 @@ def render_viewpoints(model, render_poses, HW, Ks, ndc, render_kwargs,
             psnrs.append(metrics_lib.psnr(rgb, gt))
             if eval_ssim:
                 ssims.append(metrics_lib.rgb_ssim(rgb, gt, max_val=1))
+            if eval_lpips_alex:
+                lp_alex.append(metrics_lib.rgb_lpips(gt, rgb, "alex"))
+            if eval_lpips_vgg:
+                lp_vgg.append(metrics_lib.rgb_lpips(gt, rgb, "vgg"))
 
     if len(psnrs) and verbose:
         print("Testing psnr", np.mean(psnrs), "(avg)")
         if eval_ssim:
             print("Testing ssim", np.mean(ssims), "(avg)")
+        if eval_lpips_vgg:
+            print("Testing lpips (vgg)", np.mean(lp_vgg), "(avg)")
+        if eval_lpips_alex:
+            print("Testing lpips (alex)", np.mean(lp_alex), "(avg)")
     if savedir is not None:
         print(f"Writing images to {savedir}")
         for i, rgb in enumerate(rgbs):
             write_png(os.path.join(savedir, f"{i:03d}.png"),
                       metrics_lib.to8b(rgb))
-    stats = {"psnr": psnrs, "ssim": ssims, "path": paths}
-    return np.array(rgbs), np.array(depths), stats
+    stats = {"psnr": psnrs, "ssim": ssims, "lpips_alex": lp_alex,
+             "lpips_vgg": lp_vgg, "path": paths}
+    return stack_views(rgbs), stack_views(depths), stats
+
+
+def stack_views(views):
+    """Views as one array, or as a 1-D object array of them when their
+    sizes differ (CO3D's views)."""
+    if len({v.shape for v in views}) <= 1:
+        return np.array(views)
+    out = np.empty(len(views), dtype=object)
+    out[:] = list(views)
+    return out

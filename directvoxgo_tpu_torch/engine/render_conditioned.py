@@ -62,8 +62,7 @@ def render_viewpoints_conditioned(model, feats_for_view, render_poses, HW,
     (rgbs, depths, stats). ``render_kwargs`` carries ``inverse_y``/
     ``flip_x``/``flip_y`` for the rays."""
     if eval_lpips_alex or eval_lpips_vgg:
-        raise NotImplementedError(
-            "LPIPS is not ported yet (ROADMAP A7: the LPIPS gate)")
+        metrics_lib.require_lpips()
     assert len(render_poses) == len(HW) and len(HW) == len(Ks)
     HW = np.asarray(HW)
     Ks = np.asarray(Ks, np.float32)
@@ -73,7 +72,7 @@ def render_viewpoints_conditioned(model, feats_for_view, render_poses, HW,
         Ks[:, :2, :3] = Ks[:, :2, :3] / render_factor
     render_fn = make_cond_render_fn(model, render_kwargs, scene_id=scene_id)
     dev = model.device
-    rgbs, depths, psnrs, ssims = [], [], [], []
+    rgbs, depths, psnrs, ssims, lp_alex, lp_vgg = [], [], [], [], [], []
     for i, c2w in enumerate(render_poses):
         H, W = int(HW[i][0]), int(HW[i][1])
         feats = feats_for_view(i)
@@ -98,17 +97,25 @@ def render_viewpoints_conditioned(model, feats_for_view, render_poses, HW,
             psnrs.append(metrics_lib.psnr(rgb, gt))
             if eval_ssim:
                 ssims.append(metrics_lib.rgb_ssim(rgb, gt, max_val=1))
+            if eval_lpips_alex:
+                lp_alex.append(metrics_lib.rgb_lpips(gt, rgb, "alex"))
+            if eval_lpips_vgg:
+                lp_vgg.append(metrics_lib.rgb_lpips(gt, rgb, "vgg"))
     if psnrs and verbose:
         print("Testing psnr", np.mean(psnrs), "(avg)")
         if eval_ssim:
             print("Testing ssim", np.mean(ssims), "(avg)")
+        if eval_lpips_vgg:
+            print("Testing lpips (vgg)", np.mean(lp_vgg), "(avg)")
+        if eval_lpips_alex:
+            print("Testing lpips (alex)", np.mean(lp_alex), "(avg)")
     if savedir is not None:
         print(f"Writing images to {savedir}")
         for i, rgb in enumerate(rgbs):
             write_png(os.path.join(savedir, f"{i:03d}.png"),
                       metrics_lib.to8b(rgb))
-    stats = {"psnr": psnrs, "ssim": ssims, "lpips_alex": [],
-             "lpips_vgg": []}
+    stats = {"psnr": psnrs, "ssim": ssims, "lpips_alex": lp_alex,
+             "lpips_vgg": lp_vgg}
     return np.array(rgbs), np.array(depths), stats
 
 

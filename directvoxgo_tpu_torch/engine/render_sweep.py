@@ -12,6 +12,10 @@ the single homography between the reference plane and the image plane.
 Cameras whose rays disagree on the dominant axis, or whose corner rays run
 too flat to it, are rejected by :func:`plan_camera_sweep`; the caller then
 renders the view per ray (``engine/render.render_rays_chunked``).
+
+A frame leaves as f32 numpy arrays, as device tensors, or shrunk on the
+device for a display or encoder (:func:`frame_outputs`): uint8 rgb with
+f16 depth, or a planar I420 buffer.
 """
 
 from __future__ import annotations
@@ -339,13 +343,79 @@ def _render_frame_fused(model, d_geo, d_k0, K, c2w, sc, *, hw, hiwi, guv,
     return rgb, depth
 
 
-def render_frame_sweep(model, H, W, K, c2w, render_kwargs):
+OUTPUTS = ("numpy", "device", "device_compact", "device_yuv420")
+
+
+def to_u8(x):
+    """``round(clip(x, 0, 1) * 255)`` as uint8 (ties to even)."""
+    return torch.round(torch.clamp(x, 0.0, 1.0) * 255.0).to(torch.uint8)
+
+
+def _lin3(c, x):
+    """``c[0] * x[0] + c[1] * x[1] + c[2] * x[2]`` with f32 constants, as
+    the JAX package's CPU compiler contracts it: the middle term first,
+    then the first and last as fused multiply-adds (the f32 products are
+    exact in f64, so each rounds once)."""
+    c = [float(np.float32(v)) for v in c]
+    acc = x[1] * c[1]
+    acc = (x[0].double() * c[0] + acc.double()).float()
+    return (x[2].double() * c[2] + acc.double()).float()
+
+
+def _box2x2(p):
+    """The mean of each 2x2 block of ``p [H, W]``, over the pixels that
+    exist: ``[ceil(H/2), ceil(W/2)]``, summed row by row as the JAX
+    package's ``mean`` sums a whole block."""
+    h, w = p.shape
+    ph, pw = h % 2, w % 2
+    p = torch.nn.functional.pad(p, (0, pw, 0, ph))
+    n = torch.nn.functional.pad(torch.ones(h, w, dtype=p.dtype,
+                                           device=p.device), (0, pw, 0, ph))
+    s = ((p[0::2, 0::2] + p[0::2, 1::2]) + p[1::2, 0::2]) + p[1::2, 1::2]
+    cnt = ((n[0::2, 0::2] + n[0::2, 1::2]) + n[1::2, 0::2]) + n[1::2, 1::2]
+    return s / cnt
+
+
+def yuv420(rgb):
+    """Planar I420 ``[Y | U | V]`` uint8 buffer of ``rgb [H, W, 3]``:
+    full-range BT.601 luma, 2x2 box-filtered chroma of ``ceil(H/2) x
+    ceil(W/2)`` (an odd last row or column averages the pixels it has),
+    ``H*W + 2*ceil(H/2)*ceil(W/2)`` bytes."""
+    x = rgb.unbind(-1)
+    y = _lin3((0.299, 0.587, 0.114), x)
+    u = _lin3((-0.168736, -0.331264, 0.5), x) + 0.5
+    v = _lin3((0.5, -0.418688, -0.081312), x) + 0.5
+    return torch.cat([to_u8(y).reshape(-1), to_u8(_box2x2(u)).reshape(-1),
+                      to_u8(_box2x2(v)).reshape(-1)])
+
+
+def frame_outputs(rgb, depth, output="numpy"):
+    """A frame's (rgb [H, W, 3], depth [H, W]) f32 tensors as ``output``
+    asks: "numpy" (f32 arrays on the host), "device" (the tensors),
+    "device_compact" (uint8 rgb, f16 depth, on the device) or
+    "device_yuv420" (an I420 uint8 buffer, :func:`yuv420`, and f16
+    depth)."""
+    if output == "numpy":
+        return rgb.cpu().numpy(), depth.cpu().numpy()
+    if output == "device":
+        return rgb, depth
+    if output == "device_compact":
+        return to_u8(rgb), depth.to(torch.float16)
+    if output == "device_yuv420":
+        return yuv420(rgb), depth.to(torch.float16)
+    raise ValueError(f"output {output!r} is none of {OUTPUTS}")
+
+
+def render_frame_sweep(model, H, W, K, c2w, render_kwargs, output="numpy"):
     """Render one camera frame with the separable station sweep.
 
-    Returns numpy (rgb [H, W, 3], depth [H, W]), or None when the camera
-    geometry (or a model variant the frame kernel does not cover) rules the
-    sweep out and the caller must render per ray.
+    Returns (rgb [H, W, 3], depth [H, W]) in the form ``output`` names
+    (:func:`frame_outputs`; numpy f32 arrays by default), or None when the
+    camera geometry (or a model variant the frame kernel does not cover)
+    rules the sweep out and the caller must render per ray.
     """
+    if output not in OUTPUTS:
+        raise ValueError(f"output {output!r} is none of {OUTPUTS}")
     near = float(render_kwargs["near"])
     far = float(render_kwargs["far"])
     bg = float(render_kwargs["bg"])
@@ -382,4 +452,4 @@ def render_frame_sweep(model, H, W, K, c2w, render_kwargs):
             guv=(plan["gu"], plan["gv"]), perm=plan["perm"],
             rgb_mode=rgb_mode, inverse_y=inverse_y, flip_x=flip_x,
             flip_y=flip_y)
-    return rgb.cpu().numpy(), depth.cpu().numpy()
+        return frame_outputs(rgb, depth, output)

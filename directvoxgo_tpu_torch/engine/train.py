@@ -50,8 +50,8 @@ and MaskedAdam cover whole grids, and the per-voxel lr takes the exact view
 count. Its key replays as a CUDA graph like every unfused key.
 
 Not ported yet from the JAX engine: ``--data_parallel`` (ROADMAP queue item
-6), and the profiling and export flags. The fused step keys run eagerly:
-their box offsets are host data into K-D and K-E.
+6). The fused step keys run eagerly: their box offsets are host data into
+K-D and K-E.
 """
 
 from __future__ import annotations

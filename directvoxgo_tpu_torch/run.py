@@ -3,12 +3,17 @@ renders the result, or renders a trained checkpoint. Forward-facing
 (``data.ndc``) configs train and render DirectMPIGO, the others
 DirectVoxGO.
 
-Takes the same flags as the JAX package's ``run.py``. Training
+Takes the same flags as the JAX package's ``run.py``: training
 (``--no_reload``, ``--no_reload_optimizer``, ``--ft_path``, ``--i_print``,
-``--i_weights``, ``--seed``) and rendering (``--render_only``,
-``--render_test``, ``--render_train``, ``--render_video``, ``--eval_ssim``)
-work; the export, LPIPS, profiling and ``--data_parallel`` flags raise
-until their slice is ported. Usage::
+``--i_weights``, ``--seed``, ``--profile_dir``: a ``torch.profiler`` trace
+of training, CPU and CUDA activities, as ``trace.json`` in the directory),
+rendering (``--render_only``, ``--render_test``, ``--render_train``,
+``--render_video``, ``--eval_ssim``, ``--eval_lpips_alex``/``_vgg``, which
+need the ``lpips`` package and raise before rendering without it) and the
+exports (``--export_bbox_and_cams_only``, ``--export_coarse_only``,
+``--export_fine_only``: the JAX driver's npz files, from checkpoints of
+either package, then exit). ``--data_parallel`` raises until ROADMAP item
+6 (A6) is ported. Usage::
 
   python -m directvoxgo_tpu_torch.run \\
       --config configs/synthetic/fixture_lego_sparse.py --render_test
@@ -27,6 +32,7 @@ import random
 import numpy as np
 import torch
 
+from . import rays as ray_lib
 from .config import Config
 from .data import load_everything
 from .device import resolve_device
@@ -34,16 +40,11 @@ from .engine import checkpoint as ckpt_lib
 from .engine import metrics as metrics_lib
 from .engine import train as train_lib
 from .engine.render import render_viewpoints, write_png
+from .models.dvgo import DirectVoxGO
 
 # flag -> the ROADMAP item that ports it
 _NOT_PORTED = {
-    "export_bbox_and_cams_only": "ROADMAP A7: export flags",
-    "export_coarse_only": "ROADMAP A7: export flags",
-    "export_fine_only": "ROADMAP A7: export flags",
-    "eval_lpips_alex": "ROADMAP A1: gated LPIPS",
-    "eval_lpips_vgg": "ROADMAP A1: gated LPIPS",
-    "data_parallel": "ROADMAP A13: parallel",
-    "profile_dir": "ROADMAP A7: profiler trace of training",
+    "data_parallel": "ROADMAP item 6 (A6): data parallelism",
 }
 
 
@@ -76,11 +77,27 @@ def config_parser():
     parser.add_argument('--i_print', type=int, default=500)
     parser.add_argument('--i_weights', type=int, default=100000)
     parser.add_argument('--profile_dir', type=str, default='',
-                        help='capture a profiler trace of training')
+                        help='write a torch.profiler trace of training '
+                             '(trace.json) into this directory')
     parser.add_argument('--device', type=str, default=None,
                         help='torch device (default: cuda; "cpu" runs the '
                              'kernels\' plain versions)')
     return parser
+
+
+def train_profiled(args, cfg, data_dict, device):
+    """Train under ``torch.profiler`` (CPU activities, and CUDA's on a CUDA
+    device); the trace goes to ``<profile_dir>/trace.json``."""
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if device.type == 'cuda':
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(args.profile_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        train_lib.train(args, cfg, data_dict, device=device)
+    path = os.path.join(args.profile_dir, 'trace.json')
+    prof.export_chrome_trace(path)
+    print(f'profile: trace written to {path}')
 
 
 def _check_supported(args):
@@ -91,17 +108,56 @@ def _check_supported(args):
 
 
 def _write_frames(savedir, rgbs, depths):
-    """Depth PNGs beside the rgb ones, and an mp4 where imageio can."""
+    """Depth PNGs beside the rgb ones, and an mp4 where imageio can (and
+    the views share one size)."""
+    dmax = max([float(np.max(d)) for d in depths] + [1e-8])
     for i, d in enumerate(depths):
         write_png(os.path.join(savedir, f"depth_{i:03d}.png"),
-                  np.repeat(metrics_lib.to8b(1 - d / max(np.max(depths),
-                                                         1e-8)), 3, -1))
+                  np.repeat(metrics_lib.to8b(1 - d / dmax), 3, -1))
+    if rgbs.dtype == object:
+        print('video export skipped: the views differ in size')
+        return
     try:
         import imageio.v2 as imageio
         imageio.mimwrite(os.path.join(savedir, 'video.rgb.mp4'),
                          metrics_lib.to8b(rgbs), fps=30, quality=8)
     except (ImportError, ValueError) as e:
         print(f'video export skipped: {e}')
+
+
+def export_bbox_and_cams(cfg, data_dict, out_path):
+    """The train views' frustum bbox and each camera's centre and corner
+    rays (out to ``max(near, far * 0.05)``), as the JAX driver writes
+    them."""
+    xyz_min, xyz_max = train_lib.compute_bbox_by_cam_frustrm(
+        cfg=cfg, **data_dict)
+    i_train = data_dict['i_train']
+    near, far = data_dict['near'], data_dict['far']
+    cam_lst = []
+    for c2w, (H, W), K in zip(data_dict['poses'][i_train],
+                              data_dict['HW'][i_train],
+                              data_dict['Ks'][i_train]):
+        rays_o, rays_d, _ = ray_lib.get_rays_of_a_view(
+            H, W, K, c2w, cfg.data.ndc, inverse_y=cfg.data.inverse_y,
+            flip_x=cfg.data.flip_x, flip_y=cfg.data.flip_y)
+        cam_o = rays_o[0, 0]
+        cam_d = rays_d[[0, 0, -1, -1], [0, -1, 0, -1]]
+        cam_lst.append(np.array(
+            [cam_o, *(cam_o + cam_d * max(near, far * 0.05))]))
+    np.savez_compressed(out_path, xyz_min=xyz_min, xyz_max=xyz_max,
+                        cam_lst=np.array(cam_lst))
+
+
+def export_alpha_rgb(cfg, stage, out_path, device):
+    """The ``{stage}_last.tar`` DirectVoxGO's alpha grid and its colour
+    grid through a sigmoid, as the JAX driver writes them."""
+    ckpt_path = os.path.join(cfg.basedir, cfg.expname, f'{stage}_last.tar')
+    model = ckpt_lib.load_model(DirectVoxGO, ckpt_path, device=device)
+    with torch.no_grad():
+        alpha = model.activate_density(model.density).cpu().numpy()
+    k0 = model.k0.detach().cpu().numpy()
+    np.savez_compressed(out_path, alpha=alpha,
+                        rgb=1.0 / (1.0 + np.exp(-k0)))
 
 
 def main(argv=None):
@@ -116,8 +172,25 @@ def main(argv=None):
     torch.manual_seed(args.seed)
 
     data_dict = load_everything(args=args, cfg=cfg)
+    if args.export_bbox_and_cams_only:
+        print('Export bbox and cameras...')
+        export_bbox_and_cams(cfg, data_dict, args.export_bbox_and_cams_only)
+        print('done')
+        return
+    for stage in ('coarse', 'fine'):
+        out_path = getattr(args, f'export_{stage}_only')
+        if out_path:
+            print(f'Export {stage} visualization...')
+            export_alpha_rgb(cfg, stage, out_path, device)
+            print('done')
+            return
+    if args.eval_lpips_alex or args.eval_lpips_vgg:
+        metrics_lib.require_lpips()
     if not args.render_only:
-        train_lib.train(args, cfg, data_dict, device=device)
+        if args.profile_dir:
+            train_profiled(args, cfg, data_dict, device)
+        else:
+            train_lib.train(args, cfg, data_dict, device=device)
     if not (args.render_test or args.render_train or args.render_video):
         print('Done')
         return
@@ -154,7 +227,9 @@ def main(argv=None):
             render_poses=data_dict['poses'][idx],
             HW=data_dict['HW'][idx], Ks=data_dict['Ks'][idx],
             gt_imgs=[np.asarray(data_dict['images'][i]) for i in idx],
-            savedir=savedir, eval_ssim=args.eval_ssim, **common)
+            savedir=savedir, eval_ssim=args.eval_ssim,
+            eval_lpips_alex=args.eval_lpips_alex,
+            eval_lpips_vgg=args.eval_lpips_vgg, **common)
         print(f'render_{split}: views rendered by path {stats["path"]}')
         _write_frames(savedir, rgbs, depths)
     if args.render_video:

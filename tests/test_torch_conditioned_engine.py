@@ -601,8 +601,25 @@ def test_multiscene_blender_dataset_matches_jax(tmp_path, lazy):
     single_t = t_datasets.BlenderDataset(str(tmp_path / "lego"), down=2)
     assert np.abs(single_t.images - single_j.images).max() < 1e-6
     np.testing.assert_array_equal(single_t.K, single_j.K)
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        t_datasets.MultisceneNSVFDataset(basedir=str(tmp_path))
+    # the multi-scene NSVF dataset on the same views in the NSVF layout
+    from directvoxgo_tpu_torch.tools.scene_layouts import write_prefix_split
+    for s, scene in enumerate(("chair", "lego", "ship")):
+        j = single_j if scene == "lego" else jax_datasets.BlenderDataset(
+            str(tmp_path / scene))
+        K = np.array([[20.0, 0, 8.0], [0, 20.0, 8.0], [0, 0, 1]])
+        n = len(j.images)
+        write_prefix_split(str(tmp_path / "nsvf" / scene), j.images,
+                           j.poses, K, [range(n - 1), [], [n - 1]], False)
+    kw = dict(basedir=str(tmp_path / "nsvf"), down=2, test_scenes=("ship",))
+    for split in ("train", "test"):
+        j = jax_datasets.MultisceneNSVFDataset(split=split, **kw)
+        t = t_datasets.MultisceneNSVFDataset(split=split, **kw)
+        assert t.scenes == j.scenes and (t.near, t.far) == (j.near, j.far)
+        for s in range(t.n_scene):
+            a, b = t.scene_data(s), j.scene_data(s)
+            assert np.abs(a["images"] - b["images"]).max() < 1e-6
+            for k in ("poses", "Ks", "HW"):
+                np.testing.assert_array_equal(a[k], b[k])
 
 
 # ------------------------------------------------------------- v1's pools

@@ -112,12 +112,6 @@ def test_blender_data_matches_jax(tmp_path):
                  jax_load_data.load_data(args))
 
 
-def test_other_loaders_name_their_roadmap_item():
-    args = jax_config.ConfigDict(dataset_type="nsvf")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_load_data.load_data(args)
-
-
 @pytest.mark.parametrize("bounds,quantum", [
     (([-1, -1, -1], [1, 1, 1]), 8),
     (([-0.67, -1.15, -0.38], [0.66, 1.2, 1.05]), 8),
@@ -245,7 +239,11 @@ CONDITIONED_MODULES = (
     "models.sr_dvgo", "models.multiscene_dvgo", "models.dvgo_multiscene",
     "models.tri_dvgo_multiscene", "engine.train_conditioned",
     "engine.render_conditioned", "data.datasets", "run_tri", "run_sr",
-    "run_multiscene", "run_tri_multiscene_v2", "run_tri_multiscene")
+    "run_multiscene", "run_tri_multiscene_v2", "run_tri_multiscene",
+    # the remaining loaders, their image files and the scene writers
+    "data.image_io", "data.load_nsvf", "data.load_blendedmvs",
+    "data.load_tankstemple", "data.load_deepvoxels", "data.load_co3d",
+    "tools.scene_layouts")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
