@@ -191,12 +191,33 @@ Phases, each of which fails the run:
      ms and bytes per frame, the export flags on phase 5's checkpoints,
      ``--profile_dir`` (its trace names K-A and K-C) and the ground truth
      of an uncached fixture key rendered on the card (a small key against
-     the CPU at 1e-5).
+     the CPU at 1e-5);
+ 12. data parallelism, the scan frame core and the watchdog: (a) an NCCL
+     group of one rank on the card (its all-reduce, captured in a CUDA
+     graph, returns its input bit for bit), phase 5's 8-step coarse chunk
+     and top-grid fine window steps through the data-parallel step,
+     replayed as CUDA graphs with the all-reduce captured, against the
+     same graphed steps without a group from one state (the first step bit
+     for bit, every step within the graph checks' bounds, a second plain
+     run as the noise floor of K-C's run-to-run sums), ms per step of
+     each; (b) two spawned gloo ranks sharing the card with CUDA tensors:
+     4 window steps, 4 gather steps and one fused step
+     (``DVGO_FUSED_TRAIN=force``) of phase 5's top-grid fine model, both
+     ranks bit for bit equal and against one rank at
+     tests/test_parallel.py's bars (loss 1e-5, parameters rtol 1e-2 /
+     atol 5e-4), or gloo's refusal of CUDA tensors reported; (c) the
+     800^2 lego frame through ``render_frame_sweep(backend="scan")``
+     against K-B's (>= 55 dB rgb, depth within 1e-2), both timed; (d)
+     children with ``DVGO_FETCH_WATCHDOG=2`` whose pull waits behind a
+     spinning kernel, or who sleep inside the guard, exit 17, and one
+     whose guard ends in time does not. Alone: ``python3 -c "import
+     chip_smoke; chip_smoke.phase12_alone()"`` (with phase 5, ~5 min).
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line (one
 entry per kernel and form, each with the launches of the path it belongs
 to; ``[conditioned coarse]`` entries for K-A and K-C on phase 10's coarse
 stages; ``[loaders]`` entries for K-A, K-C and K-B on phase 11's runs;
+``[data parallel]`` entries for K-A and K-C on phase 12's NCCL steps;
 those of K-A, K-C, K-F, K-B, K-D and K-E also with their first
 version's device time on the same inputs, ``prev_ms``, and the instance's
 registers and spills) and, last,
@@ -2317,8 +2338,10 @@ def train_phase(torch, dev, ka, kb, kc, sweep_ops):
                                     top)):
         st = busiest_step(rec, stage, kind, voxels=vox)
         model_g, args_g, kw_g = rec.made[id(st)]
+        # phase 12 takes these steps through the data-parallel step
+        DP_INPUTS[name] = (model_g, args_g, kw_g, *recent_batches(rec, st))
         graph_checks[name] = graph_vs_eager(
-            torch, dev, name, model_g, args_g, kw_g, *recent_batches(rec, st))
+            torch, dev, name, model_g, args_g, kw_g, *DP_INPUTS[name][3:])
     model_g, args_g, kw_g = rec.made[id(st)]
     pool_g = rec.recent[id(st)][0][0]
     b_key, b_sels, b_offs = blocked_batches(torch, model_g, pool_g,
@@ -4380,13 +4403,17 @@ def run(dev):
     loader_entries, training["loaders"] = loaders_phase(
         torch, dev, ka, kb, kc, tf, sweep_ops,
         {"model": model, "H": 800, "W": 800, "K": K2, "c2w": c2w, "rk": rk})
+    # Phase 12: data parallelism, the scan frame core, the watchdog.
+    dp_entries, training["data_parallel"] = dp_phase(
+        torch, dev, ka, kc,
+        {"model": model, "H": 800, "W": 800, "K": K2, "c2w": c2w, "rk": rk})
     training["window_checks"] = errs["window"]
     training["small_graph_checks"] = errs["graphs"]
     fwd = [e for e in train_entries if e["name"].startswith("sweep_fwd")]
     return kernels[:1] + fwd + kernels[1:] \
         + [e for e in train_entries if e not in fwd] + fused_entries \
         + mpi_entries + harness_entries + gather_entries + cond_entries \
-        + loader_entries, training
+        + loader_entries + dp_entries, training
 
 
 # ---------------------------------------------- phase 10: conditioned
@@ -5758,6 +5785,579 @@ def grid_sample_call(torch, slabs, rays, k):
     return lambda: torch.nn.functional.grid_sample(
         inp, grid, mode="bilinear", padding_mode="zeros",
         align_corners=True)
+
+
+# ---------------------------------------------------------------- phase 12
+
+# Phase 5's graph-check inputs (train_phase fills it): name -> (model,
+# make_train_step's args and kwargs, pool, sels [n, N], offs [n, ...]).
+DP_INPUTS = {}
+DP_DIR = os.path.join(CKPT_DIR, "data_parallel")
+DP_STEPS = 4            # train steps of each two-rank case
+DP_WORLD = 2
+# tests/test_parallel.py's bars: loss (absolute), parameters rtol / atol.
+DP_LOSS_TOL, DP_RTOL, DP_ATOL = 1e-5, 1e-2, 5e-4
+SCAN_MIN_PSNR, SCAN_DEPTH_TOL = 55.0, 1e-2   # tests/test_render_sweep.py
+WATCHDOG_S = 2
+# Clock cycles of the spinning kernel the watchdog's child pulls behind
+# (10 s at 2 GHz: the watchdog ends the child within two scans).
+WATCHDOG_SPIN_CYCLES = 20_000_000_000
+
+
+def _free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+# phase 12 (a): parameter elements in which the data-parallel run differs
+# from the nearest plain run, in units of those in which two plain runs
+# differ. A count, not a size: the f32 atomics' order flips a bf16 rounding
+# of a few voxels' gradients (4-80 of 4-53 M elements on the card), and
+# Adam turns each flip into a jump of up to ~5e-4, in one run and not the
+# next (one pair's largest difference was 23x another's); a
+# fault of the data-parallel step (a rounding lost) moves most elements.
+DP_FLOOR_FACTOR = 3.0
+
+
+def dp_nccl_checks(torch, dev, ka, kc):
+    """(a) An NCCL group of one rank on the card: its all-reduce, captured
+    in a CUDA graph, returns its input bit for bit; phase 5's 8-step
+    coarse chunk and top-grid fine window steps through the data-parallel
+    step (graphed, the all-reduce captured) against the same steps without
+    a group, from one state, run three times (K-C sums with f32 atomics,
+    so plain runs differ from each other: their spread is the noise
+    floor). The data-parallel run's loss and PSNR must equal one plain
+    run's bit for bit on every step, and the parameter elements in which
+    it differs from the nearest plain run must be no more than
+    ``DP_FLOOR_FACTOR`` times those in which two plain runs differ (at
+    least 1). Returns
+    (summary, K-A and K-C launches of the data-parallel runs, their last
+    eager K-A and K-C inputs)."""
+    import copy
+    import numpy as np
+    from directvoxgo_tpu_torch.engine import graphs as graphs_lib
+    from directvoxgo_tpu_torch.engine import train as train_lib
+    from directvoxgo_tpu_torch.ops import sweep as sweep_ops
+    from directvoxgo_tpu_torch.parallel import all_reduce_mean, make_mesh
+    t0 = time.time()
+    mesh = make_mesh(dev, backend="nccl", world_size=1, rank=0,
+                     init_method=f"tcp://localhost:{_free_port()}")
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 12)
+    x = torch.randn(1 << 22, generator=gen).to(dev)
+    buf = x.clone()
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        all_reduce_mean(mesh, [buf])
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = all_reduce_mean(mesh, [buf])[0]
+    buf.copy_(x)
+    graph.replay()
+    torch.cuda.synchronize()
+    reduce_bitwise = bool(torch.equal(out, x))
+    log(f"[phase 12] (a) NCCL group of 1 in {time.time() - t0:.1f} s; "
+        f"captured all-reduce returns its input bit for bit: "
+        f"{reduce_bitwise}")
+    if not reduce_bitwise:
+        raise AssertionError("a one-rank NCCL all-reduce changed its input")
+
+    out = {"captured_all_reduce_bitwise": reduce_bitwise}
+    launches = {"sweep_fwd": 0, "sweep_bwd": 0}
+    cap_a = cap_c = None
+    for name, (model, args, kw, pool, sels, offs) in DP_INPUTS.items():
+        key = (kw["axis"], kw.get("clip_sizes"))
+        n = sels.shape[0]
+        runs = {}
+        for label, group in (("plain", None), ("data parallel", mesh),
+                             ("plain again", None), ("plain third", None)):
+            m, opt = copy.deepcopy((model, args[0]))
+            step = train_lib.make_train_step(m, opt, *args[1:],
+                                             **dict(kw, group=group))
+            sg = graphs_lib.StepGraphs(dev)
+            sg.reset(scratch=(np_prod(m.world_size), 2 + m.k0_dim))
+            if group is not None:
+                ka.launches = kc.launches = 0
+                cap_a = Capture(sweep_ops, "sweep_fwd", keep=1)
+                cap_c = Capture(sweep_ops, "sweep_bwd", keep=1)
+            try:
+                res = sg.run(key, step, pool, sels, offs).cpu().numpy()
+                torch.cuda.synchronize()
+            finally:
+                if group is not None:
+                    cap_c.restore()
+                    cap_a.restore()
+            if group is not None:
+                launches["sweep_fwd"] += ka.launches
+                launches["sweep_bwd"] += kc.launches
+                n_kernel = ka.launches
+            runs[label] = (m, step, sg, res)
+        md, _, sgd, rd = runs["data parallel"]
+        plains = [runs[k] for k in ("plain", "plain again", "plain third")]
+
+        def par_diff(ma_, mb_):
+            """(largest difference, parameter elements not bit for bit
+            equal) of two runs' models"""
+            pairs = list(zip(ma_.parameters(), mb_.parameters()))
+            return (max(float((p - q).detach().abs().max())
+                        for p, q in pairs),
+                    sum(int((p != q).sum()) for p, q in pairs))
+
+        # loss and PSNR of every step against each plain run
+        steps_bitwise = [np.array_equal(rd, r) for _, _, _, r in plains]
+        lead = 0
+        while lead < n and np.array_equal(rd[lead], plains[0][3][lead]):
+            lead += 1
+        dpar = [par_diff(md, m) for m, _, _, _ in plains]
+        floor = [par_diff(a[0], b[0]) for i, a in enumerate(plains)
+                 for b in plains[i + 1:]]
+        floor_par = max(f[0] for f in floor)
+        floor_off = max(f[1] for f in floor)
+        floor_loss = max(float(np.abs(a[3] - b[3]).max())
+                         for i, a in enumerate(plains) for b in plains[i + 1:])
+        ok = (np.isfinite(rd).all() and any(steps_bitwise)
+              and dict(sgd.stats) == {"eager": 1, "capture": 1,
+                                      "replay": n - 2}
+              and n_kernel == n
+              and min(d[1] for d in dpar)
+              <= DP_FLOOR_FACTOR * max(floor_off, 1))
+        # wall ms per step of more chunks, replays only, in turns (plain,
+        # data parallel, data parallel, plain): the lower of each's two
+        timed = {"plain": [], "data parallel": []}
+        for label in ("plain", "data parallel", "data parallel", "plain"):
+            m, step, sg, _ = runs[label]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            sg.run(key, step, pool, sels, offs)
+            torch.cuda.synchronize()
+            timed[label].append((time.perf_counter() - t1) * 1e3 / n)
+        timed = {k: min(v) for k, v in timed.items()}
+        out[name] = {
+            "key": str(key), "steps": n, "runs": dict(sgd.stats),
+            "steps_bitwise_with_plain_runs": steps_bitwise,
+            "bitwise_leading_steps_first_plain": lead,
+            "param_diff_to_plain_runs": [d[0] for d in dpar],
+            "params_off_to_plain_runs": [d[1] for d in dpar],
+            "noise_floor_loss_diff": floor_loss,
+            "noise_floor_param_diff": floor_par,
+            "noise_floor_params_off": floor_off,
+            "plain_ms_per_step": timed["plain"],
+            "dp_ms_per_step": timed["data parallel"]}
+        log(f"[phase 12] (a) {name}: {out[name]}")
+        if not ok:
+            raise AssertionError(
+                f"(a) {name}: data-parallel steps of one NCCL rank differ "
+                f"from plain ones: {out[name]}, K-A launches {n_kernel}")
+        del runs
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    return out, launches, (cap_a.calls[-1][0], cap_c.calls[-1][0])
+
+
+def dp_case_run(torch, case, dev, group):
+    """A two-rank case's steps on ``dev`` (``group``: the rank's DataMesh,
+    or None for one rank): losses, PSNRs, the kernels' launches and the
+    parameters after (numpy, the JAX layout)."""
+    from directvoxgo_tpu_torch import convert
+    from directvoxgo_tpu_torch.config import ConfigDict
+    from directvoxgo_tpu_torch.engine import checkpoint as ckpt_lib
+    from directvoxgo_tpu_torch.engine import train as train_lib
+    from directvoxgo_tpu_torch.models.dvgo import DirectVoxGO
+    from directvoxgo_tpu_torch.ops import sweep_bwd as kc
+    from directvoxgo_tpu_torch.ops import sweep_fwd as ka
+    from directvoxgo_tpu_torch.ops import train_fused as tf
+    model = ckpt_lib.load_model(DirectVoxGO, case["ckpt"], device=dev)
+    cfg = ConfigDict(case["cfg"])
+    opt = train_lib.create_optimizer_or_freeze_model(model, cfg)
+    step = train_lib.make_train_step(model, opt, cfg, case["rk"],
+                                     *case["tv"], axis=case["axis"],
+                                     clip_sizes=case["clip_sizes"],
+                                     group=group)
+    pool = {k: torch.as_tensor(v, device=dev) for k, v in
+            case["pool"].items()}
+    ka.launches = kc.launches = tf.launches_fwd = tf.launches_bwd = 0
+    losses, psnrs = [], []
+    for sel, off in zip(case["sels"], case["offs"]):
+        loss, psnr_ = step(pool, torch.as_tensor(sel, device=dev), off)
+        losses.append(float(loss))
+        psnrs.append(float(psnr_))
+    return {"loss": losses, "psnr": psnrs,
+            "launches": {"sweep_fwd": ka.launches, "sweep_bwd": kc.launches,
+                         "train_fused_fwd": tf.launches_fwd,
+                         "train_fused_bwd": tf.launches_bwd},
+            "params": convert.params_to_jax(model)[0]}
+
+
+def dp_rank_main(rank, world, workdir, port, device="cuda:0"):
+    """A spawned rank of (b): gloo, tensors on ``device`` (the card);
+    every case of ``workdir/cases.pt``; outputs to
+    ``workdir/rank<rank>.pt``, or the error to ``workdir/rank<rank>.err``."""
+    import torch
+    from directvoxgo_tpu_torch.parallel import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    try:
+        mesh = make_mesh(dev, backend="gloo", world_size=world, rank=rank,
+                         init_method=f"tcp://localhost:{port}")
+        cases = torch.load(os.path.join(workdir, "cases.pt"),
+                           weights_only=False)
+        out = {name: dp_case_run(torch, case, dev, mesh)
+               for name, case in cases.items()}
+        torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+        torch.distributed.destroy_process_group()
+    except Exception:
+        with open(os.path.join(workdir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def dp_gloo_cases(torch, dev):
+    """(b)'s cases from phase 5's fine window steps at the top grid: the
+    model (saved as a checkpoint), ``DP_STEPS`` of its batches (their rays
+    as a pool of their own) as window steps and as gather steps (the same
+    model with ``query_mode='gather'``), and one fused step over a class of
+    direction-uniform 512-ray tiles of the axis group."""
+    import numpy as np
+    from directvoxgo_tpu_torch.engine import checkpoint as ckpt_lib
+    from directvoxgo_tpu_torch.ops import sweep as sweep_ops
+    from directvoxgo_tpu_torch.ops import train_fused as tf
+    model, args, kw, pool, sels, offs = DP_INPUTS["lego fine window"]
+    cfg, rk = dict(args[1]), dict(args[2])
+    n_rand = int(cfg["N_rand"])
+    os.makedirs(DP_DIR, exist_ok=True)
+    sweep_ckpt = os.path.join(DP_DIR, "fine.tar")
+    ckpt_lib.save_model_checkpoint(sweep_ckpt, model, 0)
+    st = ckpt_lib.load_checkpoint_file(sweep_ckpt)
+    st["model_kwargs"]["query_mode"] = "gather"
+    gather_ckpt = os.path.join(DP_DIR, "fine_gather.tar")
+    ckpt_lib.save_checkpoint_file(gather_ckpt, st)
+
+    sels = np.asarray(sels[:DP_STEPS])
+    idx = torch.as_tensor(sels.reshape(-1), device=pool["rgb"].device)
+    sub = {k: v[idx].cpu().numpy() for k, v in pool.items()}
+    local = np.arange(sels.size).reshape(sels.shape)
+    tv = (args[3], args[4])
+    cases = {
+        "window": {"ckpt": sweep_ckpt, "cfg": cfg, "rk": rk, "tv": tv,
+                   "axis": kw["axis"], "clip_sizes": kw["clip_sizes"],
+                   "pool": sub, "sels": local,
+                   "offs": np.asarray(offs[:DP_STEPS], np.int32)},
+        "gather": {"ckpt": gather_ckpt, "cfg": cfg, "rk": rk,
+                   "tv": (False, False), "axis": None, "clip_sizes": None,
+                   "pool": sub, "sels": local,
+                   "offs": np.zeros((DP_STEPS, 3), np.int32)}}
+
+    # one fused step: same-class tiles of the axis group over its clip box
+    axis = kw["axis"]
+    ro = pool["rays_o"].cpu().numpy()
+    rd = pool["rays_d"].cpu().numpy()
+    g = np.flatnonzero(sweep_ops.sweep_axes(model, rd) == axis)
+    if g.size > 400_000:
+        g = np.sort(np.random.default_rng(SEED).choice(g, 400_000,
+                                                       replace=False))
+    # the engine's rule (Draws.box, Draws._build_fused): the clip box, or
+    # the whole grid at zero offsets; the classes the fused step takes
+    csz, coff = model.sweep_clip_for_axis(axis)
+    box6 = None
+    if csz is None:
+        csz = tuple(int(model.world_size[a]) for a in sweep_ops._PERMS[axis])
+        coff = np.zeros(3, np.int32)
+    else:
+        box6 = tuple(float(x) for o_, b in zip(coff, csz)
+                     for x in (o_, o_ + b - 1))
+    bp, bu, bv = (int(x) for x in csz)
+    tiles = sweep_ops.build_ray_tiles_blocktile(
+        ro[g], rd[g], model.xyz_min, model.xyz_max,
+        tuple(int(x) for x in model.world_size), axis, rk["near"],
+        rk["far"], rk["stepsize"], nt=tf.NT, clip_box=box6)
+    need = n_rand // tf.NT
+    fdim = model.k0_dim if model.rgbnet_direct else model.k0_dim - 3
+    classes = {k: t for k, t in tiles.items()
+               if t.shape[0] >= need and tf.fused_available(
+                   n_rand, bu, bv, fdim, int(model.rgbnet_width),
+                   float(model.fast_color_thres), int(model.rgbnet_depth),
+                   wu=int(k[0]), wv=int(k[1]), device=dev)}
+    windowed = {k: t for k, t in classes.items() if k[:2] != (0, 0)}
+    pick = windowed or classes
+    if not pick:
+        raise AssertionError(f"(b) no tile class of {need} tiles: "
+                             f"{ {k: t.shape[0] for k, t in tiles.items()} }")
+    key = max(pick, key=lambda k: pick[k].shape[0])
+    fsel = g[pick[key][:need].reshape(-1)]
+    cases["fused"] = {
+        "ckpt": sweep_ckpt, "cfg": cfg, "rk": rk, "tv": (False, False),
+        "axis": axis, "clip_sizes": ("fblk", int(key[0]), int(key[1]), bp,
+                                     bu, bv),
+        "pool": {k: v[torch.as_tensor(fsel, device=v.device)].cpu().numpy()
+                 for k, v in pool.items()},
+        "sels": np.arange(fsel.size)[None],
+        "offs": np.asarray(coff, np.int32)[None]}
+    return cases
+
+
+def _is_gloo_cuda_refusal(text):
+    t = text.lower()
+    return "gloo" in t and ("cuda" in t or "device type" in t) and (
+        "not supported" in t or "unsupported" in t or "invalid" in t)
+
+
+def dp_gloo_checks(torch, dev):
+    """(b) Two spawned gloo ranks share the card, with CUDA tensors, and
+    run (b)'s cases; one rank (this process, no group) runs them too.
+    Both ranks end bit for bit equal; against one rank at
+    ``tests/test_parallel.py``'s bars. A refusal of CUDA tensors by gloo
+    is reported as it is."""
+    import numpy as np
+    t0 = time.time()
+    os.makedirs(DP_DIR, exist_ok=True)
+    for f in os.listdir(DP_DIR):
+        if f.startswith("rank"):
+            os.remove(os.path.join(DP_DIR, f))
+    old = os.environ.get("DVGO_FUSED_TRAIN")
+    os.environ["DVGO_FUSED_TRAIN"] = "force"
+    procs = []
+    try:
+        cases = dp_gloo_cases(torch, dev)
+        torch.save(cases, os.path.join(DP_DIR, "cases.pt"))
+        port = _free_port()
+        env = dict(os.environ, PYTHONPATH=REPO)
+        procs = [subprocess.Popen(
+            [sys.executable, "-c",
+             f"import chip_smoke; chip_smoke.dp_rank_main({r}, {DP_WORLD}, "
+             f"{DP_DIR!r}, {port}, {str(dev)!r})"], cwd=REPO, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(DP_WORLD)]
+        one = {name: dp_case_run(torch, case, dev, None)
+               for name, case in cases.items()}
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        if old is None:
+            os.environ.pop("DVGO_FUSED_TRAIN")
+        else:
+            os.environ["DVGO_FUSED_TRAIN"] = old
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    errs = [os.path.join(DP_DIR, f"rank{r}.err") for r in range(DP_WORLD)]
+    if any(p.returncode for p in procs):
+        text = "\n".join(open(e).read() for e in errs if os.path.isfile(e))
+        if _is_gloo_cuda_refusal(text):
+            log(f"[phase 12] (b) gloo refuses CUDA tensors: {text[-2000:]}")
+            return {"refused": text.strip().splitlines()[-1]}
+        raise AssertionError("(b) a gloo rank failed:\n"
+                             + "\n".join(x[-3000:] for x in logs))
+    ranks = [torch.load(os.path.join(DP_DIR, f"rank{r}.pt"),
+                        weights_only=False) for r in range(DP_WORLD)]
+    out = {"seconds": time.time() - t0}
+    for name in cases:
+        a, b, ref = ranks[0][name], ranks[1][name], one[name]
+        same = (a["loss"] == b["loss"] and all(
+            np.array_equal(x, y) for x, y in zip(_leaves(a["params"]),
+                                                 _leaves(b["params"]))))
+        d_loss = max(abs(x - y) for x, y in zip(a["loss"], ref["loss"]))
+        worst = 0.0    # the largest |diff| / (atol + rtol |ref|)
+        for x, y in zip(_leaves(a["params"]), _leaves(ref["params"])):
+            worst = max(worst, float(np.max(np.abs(x - y) / (
+                DP_ATOL + DP_RTOL * np.abs(y)))))
+        out[name] = {"steps": len(a["loss"]), "loss": a["loss"],
+                     "one_rank_loss": ref["loss"], "max_loss_diff": d_loss,
+                     "param_diff_over_bar": worst, "ranks_bitwise": same,
+                     "launches_rank0": a["launches"],
+                     "launches_one_rank": ref["launches"]}
+        log(f"[phase 12] (b) {name}: {out[name]}")
+        kernel = ("train_fused_fwd" if name == "fused" else "sweep_fwd")
+        want = len(a["loss"]) if name != "gather" else 0
+        if not (same and d_loss < DP_LOSS_TOL and worst <= 1.0
+                and np.isfinite(a["loss"]).all()
+                and a["launches"][kernel] == want
+                and (name != "gather" or not any(a["launches"].values()))):
+            raise AssertionError(f"(b) {name}: two gloo ranks against one: "
+                                 f"{out[name]}")
+    log(f"[phase 12] (b) two gloo ranks on one card: {time.time() - t0:.1f} "
+        "s")
+    return out
+
+
+def dp_scan_checks(torch, lego):
+    """(c) The 800^2 lego frame through ``backend="scan"`` against K-B's
+    frame: rgb PSNR and depth at the JAX package's bars; both timed."""
+    import numpy as np
+    from directvoxgo_tpu_torch.engine import render_sweep
+    from directvoxgo_tpu_torch.ops import render_frame as kb
+    args = (lego["model"], lego["H"], lego["W"], lego["K"], lego["c2w"],
+            lego["rk"])
+    kb.launches = 0
+    rgb_k, dep_k = render_sweep.render_frame_sweep(*args)
+    rgb_s, dep_s = render_sweep.render_frame_sweep(*args, backend="scan")
+    scan_launches = kb.launches - 1
+    p = float(-10.0 * np.log10(np.mean((rgb_s - rgb_k) ** 2) + 1e-20))
+    d = float(np.abs(dep_s - dep_k).max())
+    white = float(-10.0 * np.log10(np.mean((rgb_k - 1.0) ** 2) + 1e-20))
+
+    def frame(backend):
+        def go():
+            render_sweep.render_frame_sweep(*args, output="device",
+                                            backend=backend)
+            torch.cuda.synchronize()
+        return go
+
+    out = {"psnr_vs_kernel": p, "max_depth_diff": d,
+           "kernel_frame_vs_white_psnr": white,
+           "kernel_launches_of_scan": scan_launches,
+           "scan_ms": host_time(frame("scan"), 3),
+           "kernel_ms": host_time(frame("kernel"), 5)}
+    log(f"[phase 12] (c) scan frame core at {lego['H']}x{lego['W']}: {out}")
+    if not (np.isfinite(rgb_s).all() and p >= SCAN_MIN_PSNR
+            and d <= SCAN_DEPTH_TOL and scan_launches == 0 and white < 30):
+        raise AssertionError(f"(c) the scan frame disagrees with K-B's: "
+                             f"{out}")
+    return out
+
+
+WATCHDOG_CHILD = r"""
+import sys, time
+import torch
+from directvoxgo_tpu_torch.engine import fetchguard
+x = torch.ones(1 << 20, device="cuda")
+torch.cuda.synchronize()
+if sys.argv[1] == "spin":
+    torch.cuda._sleep(int(sys.argv[2]))       # the stream spins ...
+    with fetchguard.guarded("pull behind a spinning kernel"):
+        float(x.sum())                        # ... and the pull waits
+elif sys.argv[1] == "sleep":
+    with fetchguard.guarded("sleep inside the guard"):
+        time.sleep(60)
+else:
+    with fetchguard.guarded("quick pull"):
+        float(x.sum())
+    time.sleep(fetchguard.SCAN_S + 1.0)
+print("finished")
+"""
+
+
+def dp_watchdog_checks(torch):
+    """(d) Children with ``DVGO_FETCH_WATCHDOG=2``: a pull behind a
+    spinning kernel and a sleep inside the guard each end with exit 17; a
+    guard that finishes inside its deadline does not."""
+    env = dict(os.environ, DVGO_FETCH_WATCHDOG=str(WATCHDOG_S),
+               PYTHONPATH=REPO)
+    out = {}
+    for what, want in (("spin", 17), ("sleep", 17), ("quick", 0)):
+        t0 = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-c", WATCHDOG_CHILD, what,
+             str(WATCHDOG_SPIN_CYCLES)], cwd=REPO, env=env,
+            capture_output=True, text=True, timeout=120)
+        out[what] = {"exit": proc.returncode,
+                     "seconds": time.time() - t0}
+        log(f"[phase 12] (d) watchdog child '{what}': exit "
+            f"{proc.returncode} in {out[what]['seconds']:.1f} s; "
+            f"{proc.stderr.strip()[-300:]}")
+        if proc.returncode != want or (want == 0
+                                       and "finished" not in proc.stdout):
+            raise AssertionError(f"(d) watchdog child '{what}' exited "
+                                 f"{proc.returncode}, not {want}")
+    return out
+
+
+def dp_phase(torch, dev, ka, kc, lego):
+    """Phase 12: (a) data-parallel steps of one NCCL rank, graphed, against
+    plain ones; (b) two gloo ranks on the card against one rank; (c) the
+    scan frame core against K-B; (d) the watchdog. Returns the
+    ``[data parallel]`` entries of K-A and K-C (launches of (a)'s
+    data-parallel runs, checked and timed on their last eager inputs) and
+    the summary."""
+    t0 = time.time()
+    summary = {}
+    summary["nccl_one_rank"], launches, (a_in, c_in) = dp_nccl_checks(
+        torch, dev, ka, kc)
+    summary["gloo_two_ranks"] = dp_gloo_checks(torch, dev)
+    summary["scan_frame"] = dp_scan_checks(torch, lego)
+    summary["watchdog"] = dp_watchdog_checks(torch)
+    slabs, rays, k, v_base, wv = a_in
+    err_a = check_sweep_rel(ka, slabs, rays, k, v_base, wv,
+                            "data parallel")
+    nums_a = fwd_numbers(torch, ka, slabs, rays, k, v_base, wv)
+    g, c_rays, c_k, shape, dtype, c_vb, c_wv = c_in
+    err_c = check_bwd(kc, g, c_rays, c_k, shape, dtype, c_vb, c_wv,
+                      "data parallel")
+    nums_c = bwd_numbers(torch, kc, g, c_rays, c_k, shape, dtype, c_vb, c_wv)
+    entries = [
+        dict({"name": "sweep_fwd [data parallel]", "route": "cuda",
+              "source": "directvoxgo_tpu_torch/csrc/sweep_fwd.cu",
+              "replaces": "directvoxgo_tpu/ops/pallas_sweep_train.py:85",
+              "launches": launches["sweep_fwd"], "max_abs_err": err_a,
+              "launches_of": "phase 12 (a): data-parallel steps of one "
+                             "NCCL rank, replayed as CUDA graphs"},
+             **nums_a),
+        dict({"name": "sweep_bwd [data parallel]", "route": "cuda",
+              "source": "directvoxgo_tpu_torch/csrc/sweep_bwd.cu",
+              "replaces": "directvoxgo_tpu/ops/pallas_sweep_train.py:247 "
+                          "(fold_bwd_partials :356)",
+              "launches": launches["sweep_bwd"], "max_abs_err": err_c,
+              "launches_of": "phase 12 (a): data-parallel steps of one "
+                             "NCCL rank, replayed as CUDA graphs"},
+             **nums_c)]
+    summary["seconds"] = time.time() - t0
+    log(f"[phase 12] done in {summary['seconds']:.1f} s")
+    return entries, summary
+
+
+def lego_frame(torch, dev, ckpt):
+    """The 800^2 frame of an accepted lego test view, as phase 4 renders
+    it: {"model", "H", "W", "K", "c2w", "rk"}."""
+    from directvoxgo_tpu_torch.config import Config
+    from directvoxgo_tpu_torch.data import load_everything
+    from directvoxgo_tpu_torch.engine import checkpoint as ckpt_lib
+    from directvoxgo_tpu_torch.engine import render_sweep
+    from directvoxgo_tpu_torch.models.dvgo import DirectVoxGO
+    cfg = Config.fromfile(CONFIG)
+    data = load_everything(None, cfg)
+    model = ckpt_lib.load_model(DirectVoxGO, ckpt, device=dev)
+    v = next(int(i) for i in data["i_test"] if render_sweep.plan_camera_sweep(
+        model, 400, 400, data["Ks"][i], data["poses"][i], data["near"],
+        data["far"]) is not None)
+    K2 = data["Ks"][v].copy()
+    K2[:2, :3] *= 2.0
+    rk = {"near": data["near"], "far": data["far"], "bg": 1.0,
+          "stepsize": cfg.fine_model_and_render.stepsize, "inverse_y": False}
+    return {"model": model, "H": 800, "W": 800, "K": K2,
+            "c2w": data["poses"][v], "rk": rk}
+
+
+def phase12_alone():
+    """Phase 12 on its own (with phase 5, whose steps it reuses, and the
+    builds and checkpoint it needs): ``python3 -c "import chip_smoke;
+    chip_smoke.phase12_alone()"``. Prints the phase's JSON summary."""
+    import torch
+    from directvoxgo_tpu_torch.ops import _build
+    from directvoxgo_tpu_torch.ops import render_frame as kb
+    from directvoxgo_tpu_torch.ops import sweep as sweep_ops
+    from directvoxgo_tpu_torch.ops import sweep_bwd as kc
+    from directvoxgo_tpu_torch.ops import sweep_fwd as ka
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.chdir(REPO)
+    dev = torch.device("cuda", 0)
+    logs = _build.build_all(_build.KERNELS + PREV_KERNELS)
+    USAGE.update(ptxas_usage(logs))
+    ckpt = build_checkpoint(torch, dev)
+    train_phase(torch, dev, ka, kb, kc, sweep_ops)
+    entries, summary = dp_phase(torch, dev, ka, kc,
+                                lego_frame(torch, dev, ckpt))
+    print(json.dumps({"kernels": entries, "data_parallel": summary}))
 
 
 def main():

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from .. import convert
+from . import fetchguard
 
 _SAFE_GLOBALS = {
     ("numpy._core.multiarray", "_reconstruct"),
@@ -109,11 +110,58 @@ def newest_numbered_checkpoint(logdir, stage):
     return numbered[-1] if numbered else None
 
 
+# model_kwargs a resume does not compare: progressive scaling changes the
+# voxel count, and the bbox sets the bounds.
+RESUME_UNCHECKED = ("num_voxels", "xyz_min", "xyz_max")
+
+
+def _same_value(a, b):
+    if a is None or b is None or isinstance(a, str) or isinstance(b, str):
+        return a == b
+    a, b = np.asarray(a), np.asarray(b)
+    if a.shape != b.shape:
+        return False
+    if a.dtype.kind in "biuf" and b.dtype.kind in "biuf":
+        return bool(np.allclose(a.astype(np.float64), b.astype(np.float64),
+                                rtol=1e-6, atol=0.0))
+    return bool(np.all(a == b))
+
+
+def resume_mismatches(ckpt_kwargs, cfg_model):
+    """The keys that both the checkpoint's ``model_kwargs`` and the stage's
+    model config name (but :data:`RESUME_UNCHECKED`) on which they
+    disagree, as ``{key: (checkpoint's, config's)}``."""
+    return {k: (ckpt_kwargs[k], cfg_model[k])
+            for k in sorted(set(ckpt_kwargs) & set(cfg_model))
+            if k not in RESUME_UNCHECKED
+            and not _same_value(ckpt_kwargs[k], cfg_model[k])}
+
+
+def check_numbered_resume(path, cfg_model):
+    """Print the numbered checkpoint a stage is about to resume, and raise
+    when its model differs from the one the current config builds: a
+    fresh run in a directory that holds an older run's checkpoints must
+    not train that older model."""
+    print(f"resume: numbered checkpoint {path}")
+    diff = resume_mismatches(load_checkpoint_file(path)["model_kwargs"],
+                             cfg_model)
+    if diff:
+        lines = ", ".join(f"{k}: checkpoint {a!r}, config {b!r}"
+                          for k, (a, b) in diff.items())
+        raise ValueError(
+            f"numbered checkpoint {path} was written for another model "
+            f"({lines}); pass --no_reload to train from scratch, or remove "
+            "the numbered checkpoints")
+
+
 def save_model_checkpoint(path, model, global_step, optimizer_state=None,
                           compact=False):
     """``optimizer_state``: the JAX-layout pytree of
     :func:`..convert.opt_state_to_jax`, or None."""
-    params, mask = convert.params_to_jax(model)
+    # checkpoint pulls move hundreds of MB: four times a scalar's budget
+    with fetchguard.guarded("checkpoint tree",
+                            timeout=4 * fetchguard.timeout_default()):
+        params, mask = convert.params_to_jax(model)
     state = {"mask": mask}
     state.update(params)
     save_checkpoint_file(path, {

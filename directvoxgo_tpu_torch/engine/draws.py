@@ -120,7 +120,7 @@ class Draws:
     after every progressive rescale, once ``clip_plan`` is fresh."""
 
     def __init__(self, model, cfg_train, cfg_model, rays_o, rays_d, near,
-                 far, rng, clip_plan, device, stage):
+                 far, rng, clip_plan, device, stage, world=1):
         self.model, self.cfg_train, self.cfg_model = model, cfg_train, \
             cfg_model
         self.rays_o = np.asarray(rays_o).reshape(-1, 3)
@@ -164,14 +164,18 @@ class Draws:
 
         self.forced = getattr(model, "forced_sweep_axis", None)
         bucket_tiles = bool(cfg_train.get("bucket_tiles", True))
+        # Data-parallel steps (``world`` ranks) split each batch: a rank's
+        # share must still be whole ray tiles (and whole fused tiles), and
+        # forced-axis 2D buckets are off, as in the JAX engine.
         self.bucket_ok = (bucket_tiles and self.forced is None
-                          and n_rand % sweep_ops.TILE_N == 0)
-        self.bucket2d_ok = bucket_tiles and self.forced is not None
+                          and n_rand % (sweep_ops.TILE_N * world) == 0)
+        self.bucket2d_ok = (bucket_tiles and self.forced is not None
+                            and world == 1)
         self.persp2d = self.bucket_ok and bool(
             cfg_train.get("bucket_2d", True))
         self.fused_tiles = (self.persp2d
                             and bool(cfg_train.get("fused_tiles", True))
-                            and n_rand % fused_ops.NT == 0
+                            and n_rand % (fused_ops.NT * world) == 0
                             and fused_ops.fused_enabled(device)
                             and model.supports_fused_step())
 

@@ -12,6 +12,10 @@ else in chunks over the clip box. A gather model (``query_mode='gather'``)
 renders every view per ray, through its gather ``forward``, in chunks of
 the whole ray list in order (the JAX package takes the frame sweep and the
 NDC tiles only for sweep models).
+
+Each pull of rendered pixels to the host runs under the opt-in watchdog of
+:mod:`.fetchguard`: the pull alone, never the rendering before it, whose
+first call may build a kernel.
 """
 
 from __future__ import annotations
@@ -26,6 +30,8 @@ from . import render_sweep as render_sweep_lib
 from .. import rays as ray_lib
 from ..data.image_io import write_png
 from ..ops import sweep as sweep_ops
+from ..parallel import all_gather_rays, shard_batch_tree
+from .fetchguard import guarded, timeout_default
 
 
 def _round_up(x, m):
@@ -37,16 +43,29 @@ def _round_up(x, m):
 WINDOWED_RENDER_MIN_PLANE = 128 * 128
 
 
-def make_render_fn(model, render_kwargs):
+def make_render_fn(model, render_kwargs, group=None):
     """Render one ray chunk -> (rgb [N, 3], depth [N]) tensors: along a
     sweep ``axis`` the chunk's rays share, or through the gather forward
     for ``axis`` None. ``render_chunk.use_sweep`` says whether the model
-    renders through the sweep."""
+    renders through the sweep. ``group`` (a :class:`..parallel.DataMesh`)
+    splits each chunk over the ranks, every rank rendering its contiguous
+    block with its replica of the model, and gathers the blocks back: each
+    rank returns the whole chunk's result (N must split over the
+    ranks)."""
     kwargs = {k: v for k, v in render_kwargs.items()
               if k in ("near", "far", "bg", "stepsize")}
 
     @torch.no_grad()
     def render_chunk(ro, rd, vd, axis, clip_sizes, clip_off):
+        if group is not None:
+            ro, rd, vd = shard_batch_tree(group, (ro, rd, vd))
+            rgb, depth = render_local(ro, rd, vd, axis, clip_sizes,
+                                      clip_off)
+            return (all_gather_rays(group, rgb),
+                    all_gather_rays(group, depth))
+        return render_local(ro, rd, vd, axis, clip_sizes, clip_off)
+
+    def render_local(ro, rd, vd, axis, clip_sizes, clip_off):
         if axis is None:
             ret = model(ro, rd, vd, render_depth=True, **kwargs)
         else:
@@ -97,8 +116,9 @@ def render_rays_chunked(render_fn, model, rays_o, rays_d, viewdirs, chunk):
             t = lambda a: torch.as_tensor(a[i:i + chunk], device=dev)  # noqa
             outs.append(render_fn(t(ro), t(rd), t(vd), axis, clip_sizes,
                                   clip_off))
-        rgb_out[idx] = torch.cat([o[0] for o in outs]).cpu().numpy()[:n_g]
-        dep_out[idx] = torch.cat([o[1] for o in outs]).cpu().numpy()[:n_g]
+        with guarded("eval chunks", timeout=4 * timeout_default()):
+            rgb_out[idx] = torch.cat([o[0] for o in outs]).cpu().numpy()[:n_g]
+            dep_out[idx] = torch.cat([o[1] for o in outs]).cpu().numpy()[:n_g]
     return rgb_out, dep_out
 
 
@@ -175,9 +195,10 @@ def _render_rays_windowed_2d(render_fn, model, rays_o, rays_d, viewdirs,
                                            off)))
     rgb_out = np.empty((len(ro), 3), np.float32)
     dep_out = np.empty((len(ro),), np.float32)
-    for sel, (rgb, dep) in outs:    # one sync, after every launch
-        rgb_out[sel] = rgb.cpu().numpy()
-        dep_out[sel] = dep.cpu().numpy()
+    with guarded("eval frame chunks", timeout=4 * timeout_default()):
+        for sel, (rgb, dep) in outs:    # one sync, after every launch
+            rgb_out[sel] = rgb.cpu().numpy()
+            dep_out[sel] = dep.cpu().numpy()
     return rgb_out[:n], dep_out[:n]
 
 
@@ -355,7 +376,9 @@ def render_frame_ndc_tiles(render_fn, model, H, W, K, c2w, rk, chunk=8192,
         0, 2, 1, 3, 4).reshape(hp, wp, 3)[:H, :W]
     dep = torch.stack(deps).reshape(nth, ntw, th, tw).permute(
         0, 2, 1, 3).reshape(hp, wp)[:H, :W]
-    return (rgb.reshape(-1, 3).cpu().numpy(), dep.reshape(-1).cpu().numpy())
+    with guarded("eval tiles", timeout=4 * timeout_default()):
+        return (rgb.reshape(-1, 3).cpu().numpy(),
+                dep.reshape(-1).cpu().numpy())
 
 
 def render_viewpoints(model, render_poses, HW, Ks, ndc, render_kwargs,
@@ -392,7 +415,11 @@ def render_viewpoints(model, render_poses, HW, Ks, ndc, render_kwargs,
                 {**render_kwargs, "flip_x": flip_x, "flip_y": flip_y})
         else:
             out = render_sweep_lib.render_frame_sweep(
-                model, H, W, np.asarray(K), np.asarray(c2w), render_kwargs)
+                model, H, W, np.asarray(K), np.asarray(c2w), render_kwargs,
+                output="device")
+            if out is not None:
+                with guarded(f"eval view {i}", timeout=4 * timeout_default()):
+                    out = tuple(x.cpu().numpy() for x in out)
         if out is not None:
             rgb, depth = out
             paths.append("tiles" if ndc else "frame")

@@ -16,6 +16,12 @@ renders the view per ray (``engine/render.render_rays_chunked``).
 A frame leaves as f32 numpy arrays, as device tensors, or shrunk on the
 device for a display or encoder (:func:`frame_outputs`): uint8 rgb with
 f16 depth, or a planar I420 buffer.
+
+``render_frame_sweep(..., backend="scan")`` composites the same frame
+without K-B: :func:`_sweep_frame_core`, a plain-PyTorch loop over every
+station of bf16 hat-matrix products (large plain matrix products, as the
+JAX package computes its ``backend="xla"`` frame outside Pallas), and the
+same homography warp (:func:`_warp_to_screen`). The default stays K-B.
 """
 
 from __future__ import annotations
@@ -23,8 +29,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import rays as ray_lib
 from ..models import mlp as mlp_lib
 from ..ops import grid as grid_ops
+from ..ops import raymarch as rm
 from ..ops import sweep as sweep_ops
 from ..ops.render_frame import S_BLK, TILE, render_frame
 
@@ -343,7 +351,193 @@ def _render_frame_fused(model, d_geo, d_k0, K, c2w, sc, *, hw, hiwi, guv,
     return rgb, depth
 
 
+def _interp_matrix(coords, g):
+    """[M] continuous coords -> [M, g] bf16 hat-function interp rows."""
+    iota = torch.arange(g, dtype=torch.float32, device=coords.device)
+    return torch.clamp(1.0 - torch.abs(coords[:, None] - iota), min=0.0).to(
+        torch.bfloat16)
+
+
+def _mm(a, b):
+    """``a @ b`` of bf16 operands with f32 products and sums: the operands
+    are widened exactly (a bf16 value is exact in f32 and in TF32)."""
+    return torch.matmul(a.to(torch.bfloat16).float(),
+                        b.to(torch.bfloat16).float())
+
+
+@torch.no_grad()
+def _sweep_frame_core(grid_perm, layers, vd_emb, dnorm, dclip, ur_grid,
+                      vr_grid, sc, *, k, guv, sign, rgb_mode):
+    """Composite every station of the frame in march order, in plain
+    PyTorch.
+
+    grid_perm: [Gp, Gu, Gv, C] bf16 permuted grid (density, mask, k0).
+    layers: [(w [in, out], b [out])] of the colour MLP, or None.
+    vd_emb: [Hi, Wi, E] view embedding of each intermediate pixel (or None).
+    dnorm: [Hi, Wi] world |d| of each pixel's ray, d scaled so that t is the
+    station fraction ``lam`` along origin -> reference plane.
+    dclip: [Hi, Wi] |d . f_cam|: ``lam * dclip`` is the ray parameter in
+    which near and far clip.
+    ur_grid / vr_grid: [Hi], [Wi] reference-plane coordinates.
+    sc: [10] f32 (op, ou, ov, p_ref, act_shift, voxel_size_base,
+    fast_color_thres, near, far, bg).
+    Returns (rgb [Hi, Wi, 3], depth [Hi, Wi], T [Hi, Wi]) f32.
+    """
+    f32 = torch.float32
+    op, ou, ov, p_ref = sc[0], sc[1], sc[2], sc[3]
+    act_shift, interval_base = sc[4], sc[5]
+    fast_thres, near, far, bg = sc[6], sc[7], sc[8], sc[9]
+    gu, gv = guv
+    gp, _, _, c = grid_perm.shape
+    hi, wi = ur_grid.shape[0], vr_grid.shape[0]
+    slabs = sweep_ops._station_slabs(grid_perm.reshape(gp, gu, gv * c), k)
+    s_total = slabs.shape[0]
+    p_stations = torch.arange(s_total, dtype=f32, device=slabs.device) / k
+    order = range(s_total) if sign > 0 else range(s_total - 1, -1, -1)
+    inv_span = 1.0 / (p_ref - op)
+
+    # The view-dependent half of the MLP's first layer is constant per
+    # pixel across stations. The non-direct mode feeds the MLP k0[3:] and
+    # offsets its logits by k0[:3].
+    feat_lo = 5 if rgb_mode == "logit_plus_k0" else 2
+    if layers is not None:
+        w1, b1 = layers[0]
+        d1 = c - feat_lo
+        shared1 = _mm(vd_emb, w1[d1:]) + b1.to(f32)
+        w1a = w1[:d1]
+
+    t_cum = torch.ones((hi, wi), dtype=f32, device=slabs.device)
+    rgb_acc = torch.zeros((hi, wi, 3), dtype=f32, device=slabs.device)
+    depth_acc = torch.zeros((hi, wi), dtype=f32, device=slabs.device)
+    interval = torch.abs((dnorm * (inv_span / k)) / interval_base)
+    for s in order:
+        lam = (p_stations[s] - op) * inv_span
+        au = _interp_matrix(ou + lam * (ur_grid - ou), gu)     # [Hi, Gu]
+        av = _interp_matrix(ov + lam * (vr_grid - ov), gv)     # [Wi, Gv]
+        t1 = _mm(au, slabs[s]).reshape(hi, gv, c)
+        warped = _mm(t1.permute(0, 2, 1), av.t()).permute(0, 2, 1)
+        alpha = rm.raw2alpha(warped[..., 0], act_shift, interval)
+        valid = ((lam * dclip >= near) & (lam * dclip <= far)
+                 & (warped[..., 1] > 0) & (alpha > fast_thres)
+                 & (t_cum >= rm.T_TERMINATE))
+        alpha = torch.where(valid, alpha, torch.zeros_like(alpha))
+        w = t_cum * alpha
+        if layers is not None:
+            h = torch.relu(_mm(warped[..., feat_lo:], w1a) + shared1)
+            for i, (wl, bl) in enumerate(layers[1:]):
+                h = _mm(h, wl) + bl.to(f32)
+                if i < len(layers) - 2:
+                    h = torch.relu(h)
+            if rgb_mode == "logit_plus_k0":
+                h = h + warped[..., 2:5]
+            rgb = torch.sigmoid(h)
+        else:
+            rgb = torch.sigmoid(warped[..., 2:5])
+        rgb_acc = rgb_acc + w[..., None] * rgb
+        depth_acc = depth_acc + w * (lam * dnorm)
+        t_cum = t_cum * (1.0 - alpha + rm.T_EPS)
+    return rgb_acc + t_cum[..., None] * bg, depth_acc, t_cum
+
+
+def _warp_to_screen(inter_rgb, inter_depth, inter_alphainv, ur_px, vr_px,
+                    valid_px, bg):
+    """Homography resample of the intermediate image to screen pixels:
+    (rgb [H, W, 3], depth [H, W], alphainv [H, W])."""
+    packed = torch.cat([inter_rgb, inter_depth[..., None],
+                        inter_alphainv[..., None]], -1)
+    out = grid_ops.bilinear_sample_parts(packed, ur_px, vr_px)
+    rgb = torch.where(valid_px[..., None], out[..., :3],
+                      torch.full_like(out[..., :3], float(bg)))
+    depth = torch.where(valid_px, out[..., 3], torch.zeros_like(out[..., 3]))
+    alphainv = torch.where(valid_px, out[..., 4],
+                           torch.ones_like(out[..., 4]))
+    return rgb, depth, alphainv
+
+
+def _render_frame_scan(model, plan, H, W, K, c2w, k, near, far, bg,
+                       inverse_y, flip_x, flip_y):
+    """The frame through :func:`_sweep_frame_core`: the host set-up of the
+    JAX package's ``backend="xla"`` frame (intermediate grids, directions,
+    clip distances and the screen warp in numpy), the composite on the
+    model's device. Returns (rgb [H, W, 3], depth [H, W]) tensors."""
+    dev = model.density.device
+    sdt = torch.bfloat16
+    perm = plan["perm"]
+    hi, wi = plan["hi"], plan["wi"]
+    op, ou, ov = plan["o_pv"]
+    p_ref = plan["p_ref"]
+    with torch.no_grad():
+        chans = [model.density.to(sdt)[..., None], model.mask.to(sdt)[
+            ..., None]]
+        if model.k0_dim > 0:
+            chans.append(model.k0.to(sdt))
+        grid_perm = sweep_ops.permute_grid(torch.cat(chans, -1),
+                                           plan["axis"], dtype=sdt)
+
+    ur_grid = np.linspace(plan["ur_range"][0], plan["ur_range"][1], hi,
+                          dtype=np.float32)
+    vr_grid = np.linspace(plan["vr_range"][0], plan["vr_range"][1], wi,
+                          dtype=np.float32)
+    # Each intermediate pixel's world direction d = P(ref) - o (t == lam).
+    ws = np.asarray(model.world_size, np.float64)
+    ext = (np.asarray(model.xyz_max, np.float64)
+           - np.asarray(model.xyz_min, np.float64))
+    inv_scale = ext / (ws - 1.0)  # voxel -> world per axis
+    d_world = np.zeros((hi, wi, 3), np.float32)
+    d_world[..., plan["axis"]] = np.full((hi, wi), p_ref - op, np.float32) \
+        * inv_scale[plan["axis"]]
+    d_world[..., perm[1]] = ((ur_grid - ou)[:, None]
+                             * np.ones((1, wi), np.float32)
+                             * inv_scale[perm[1]])
+    d_world[..., perm[2]] = (np.ones((hi, 1), np.float32)
+                             * (vr_grid - ov)[None, :] * inv_scale[perm[2]])
+    dnorm = np.linalg.norm(d_world, axis=-1)
+    viewdirs = d_world / np.maximum(dnorm[..., None], 1e-12)
+    dclip = np.abs(d_world @ np.asarray(c2w[:3, 2], np.float64)).astype(
+        np.float32)
+
+    def t(x):
+        return torch.as_tensor(np.ascontiguousarray(x), device=dev)
+
+    layers = vd_emb = None
+    if model.has_rgbnet:
+        layers = [(layer.weight.detach().t(), layer.bias.detach())
+                  for layer in model.rgbnet.layers]
+        vd_emb = mlp_lib.positional_encoding(t(viewdirs), model.viewbase_pe)
+    rgb_mode = "direct"
+    if model.has_rgbnet and not model.rgbnet_direct:
+        rgb_mode = "logit_plus_k0"
+    sc = t(np.asarray([op, ou, ov, p_ref, model.act_shift,
+                       model.voxel_size_base, model.fast_color_thres, near,
+                       far, bg], np.float32))
+    inter_rgb, inter_depth, inter_ainv = _sweep_frame_core(
+        grid_perm, layers, vd_emb, t(dnorm), t(dclip), t(ur_grid),
+        t(vr_grid), sc, k=k, guv=(plan["gu"], plan["gv"]),
+        sign=plan["sign"], rgb_mode=rgb_mode)
+
+    # Each screen pixel's ray meets the reference plane at (Ur, Vr): sample
+    # the intermediate image there, in its pixel lattice's coordinates.
+    _, rays_d, _ = ray_lib.get_rays_of_a_view(
+        H, W, K, c2w, False, inverse_y=inverse_y, flip_x=flip_x,
+        flip_y=flip_y)
+    d_pv = np.asarray(rays_d) * ((ws - 1.0) / ext)
+    dp_px = d_pv[..., plan["axis"]]
+    dp_safe = np.where(np.abs(dp_px) < 1e-12, 1e-12, dp_px)
+    t_ref = (p_ref - op) / dp_safe
+    ur_px = ou + t_ref * d_pv[..., perm[1]]
+    vr_px = ov + t_ref * d_pv[..., perm[2]]
+    valid_px = ((t_ref > 0) & (ur_px >= ur_grid[0]) & (ur_px <= ur_grid[-1])
+                & (vr_px >= vr_grid[0]) & (vr_px <= vr_grid[-1]))
+    ur_l = (ur_px - ur_grid[0]) / max(ur_grid[1] - ur_grid[0], 1e-12)
+    vr_l = (vr_px - vr_grid[0]) / max(vr_grid[1] - vr_grid[0], 1e-12)
+    rgb, depth, _ = _warp_to_screen(
+        inter_rgb, inter_depth, inter_ainv, t(ur_l.astype(np.float32)),
+        t(vr_l.astype(np.float32)), t(valid_px), bg)
+    return rgb, depth
+
+
 OUTPUTS = ("numpy", "device", "device_compact", "device_yuv420")
+BACKENDS = ("kernel", "scan")
 
 
 def to_u8(x):
@@ -406,8 +600,14 @@ def frame_outputs(rgb, depth, output="numpy"):
     raise ValueError(f"output {output!r} is none of {OUTPUTS}")
 
 
-def render_frame_sweep(model, H, W, K, c2w, render_kwargs, output="numpy"):
+def render_frame_sweep(model, H, W, K, c2w, render_kwargs, output="numpy",
+                       backend="kernel"):
     """Render one camera frame with the separable station sweep.
+
+    ``backend``: "kernel" (K-B; its plain version on the CPU) or "scan"
+    (:func:`_sweep_frame_core`, plain PyTorch; it returns None for an MLP
+    with ``rgbnet_full_implicit`` or ``posbase_pe``, as the JAX package's
+    does).
 
     Returns (rgb [H, W, 3], depth [H, W]) in the form ``output`` names
     (:func:`frame_outputs`; numpy f32 arrays by default), or None when the
@@ -416,6 +616,8 @@ def render_frame_sweep(model, H, W, K, c2w, render_kwargs, output="numpy"):
     """
     if output not in OUTPUTS:
         raise ValueError(f"output {output!r} is none of {OUTPUTS}")
+    if backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r} is none of {BACKENDS}")
     near = float(render_kwargs["near"])
     far = float(render_kwargs["far"])
     bg = float(render_kwargs["bg"])
@@ -430,6 +632,14 @@ def render_frame_sweep(model, H, W, K, c2w, render_kwargs, output="numpy"):
         return None
 
     k = sweep_ops.substeps_for_stepsize(stepsize)
+    if backend == "scan":
+        if model.has_rgbnet and (model.rgbnet_full_implicit
+                                 or model.posbase_pe > 0):
+            return None
+        rgb, depth = _render_frame_scan(
+            model, plan, H, W, np.asarray(K), np.asarray(c2w), k, near, far,
+            bg, inverse_y, flip_x, flip_y)
+        return frame_outputs(rgb, depth, output)
     hi, wi = plan["hi"], plan["wi"]
     rgb_mode = "direct"
     if model.has_rgbnet and not model.rgbnet_direct:

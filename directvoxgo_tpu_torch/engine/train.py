@@ -23,9 +23,9 @@ more than 1.1 M voxels (or with ``steps_per_dispatch`` 1) a batch is one
 spatially sorted segment of one window class, trained as a composed clip
 box (``(bp, eu, ev)``) or as per-p-block windows (``('blk', B, eu, ev)``).
 PyTorch runs eagerly, so there is nothing to compile ahead of a step and no
-remote dispatch to hide: the JAX engine's precompile queue, compile epochs,
-background sorts and guarded fetches have no counterpart here; every
-window class is drawable from the first step.
+remote dispatch to hide: the JAX engine's precompile queue, compile epochs
+and background sorts have no counterpart here; every window class is
+drawable from the first step.
 
 With ``DVGO_FUSED_TRAIN`` set (:func:`..ops.train_fused.fused_enabled`) a
 stage whose model supports it trains through the fused step (kernels K-D
@@ -49,9 +49,15 @@ step key is ``(None, None)`` (no sweep axis, no clip box), the TV gradient
 and MaskedAdam cover whole grids, and the per-voxel lr takes the exact view
 count. Its key replays as a CUDA graph like every unfused key.
 
-Not ported yet from the JAX engine: ``--data_parallel`` (ROADMAP queue item
-6). The fused step keys run eagerly: their box offsets are host data into
-K-D and K-E.
+With a :class:`..parallel.DataMesh` (``--data_parallel``) a stage trains
+data-parallel over rays, one rank per card: each rank renders its block of
+every batch and the gradients meet in one all-reduce a step
+(:func:`make_train_step`'s ``group``). The fused step keys run eagerly:
+their box offsets are host data into K-D and K-E.
+
+The pulls from the device that the loop waits on (the mask's bbox, the
+progress line's loss, the checkpoints) run under the opt-in watchdog of
+:mod:`.fetchguard`.
 """
 
 from __future__ import annotations
@@ -67,12 +73,16 @@ from .. import convert
 from .. import rays as ray_lib
 from ..device import resolve_device
 from ..models.dmpigo import DirectMPIGO
+from ..models import mlp as mlp_lib
 from ..models.dvgo import DirectVoxGO
 from ..ops import grid as grid_ops
 from ..ops import sweep as sweep_ops
 from ..ops import tv as tv_ops
 from ..optim import MaskedAdam
+from ..parallel import (all_reduce_mean, replica_spread, replicate,
+                        shard_rays)
 from . import checkpoint as ckpt_lib
+from . import fetchguard
 from .draws import Draws
 from .graphs import StepGraphs
 
@@ -167,7 +177,8 @@ def create_optimizer_or_freeze_model(model, cfg_train):
 
 
 def make_train_step(model, optimizer, cfg_train, render_kwargs,
-                    apply_tv, tv_dense, axis=None, clip_sizes=None, wv=0):
+                    apply_tv, tv_dense, axis=None, clip_sizes=None, wv=0,
+                    group=None):
     """Build the train step of the current phase:
     ``step(pool, sel, clip_off, v_base=None) -> (loss, psnr)`` (0-d
     tensors, not synchronised) gathers the batch ``sel`` from the device
@@ -208,6 +219,22 @@ def make_train_step(model, optimizer, cfg_train, render_kwargs,
     batch through :meth:`..models.dvgo.DirectVoxGO.forward`, the per-point
     colour loss from its ``raw_rgb``, whole-grid TV and a whole-grid
     update; ``clip_off`` is ignored.
+
+    ``group`` (a :class:`..parallel.DataMesh`, or None) makes the step
+    data-parallel, the counterpart of the JAX step's ``mesh``: every rank
+    is given the same ``sel`` (and ``v_base``) and takes its contiguous
+    block of it, renders that, and normalises every loss term by its own
+    ray count; the gradients, the loss and the MSE then go through one
+    all-reduce (:func:`..parallel.all_reduce_mean`), before the TV term and
+    the optimizer, which so see the full batch's gradient (TV's gate and
+    ``skip_zero_grad`` included: a voxel only another rank's rays touched
+    updates on every rank). Loss and PSNR are of the ranks' mean. The
+    gradient sums that one card rounds to bf16 (the sweep's grid cotangent,
+    the colour MLP's weights: :mod:`..ops.rounding`) cross the all-reduce
+    in f32 and are rounded after it, so that a group of one rank steps bit
+    for bit as no group does, and N ranks as one up to the order of f32
+    sums. Under NCCL the collective can be captured with the step
+    (:mod:`.graphs`).
     """
     gather = axis is None
     assert not gather or clip_sizes is None, \
@@ -228,11 +255,31 @@ def make_train_step(model, optimizer, cfg_train, render_kwargs,
     w_tv_density = float(cfg_train.weight_tv_density)
     w_tv_k0 = float(cfg_train.weight_tv_k0)
     n_rand = int(cfg_train.N_rand)
+    if group is not None:
+        block = group.block(n_rand)
+    # the rays of this rank's share of a batch: every loss term's count
+    n_loc = n_rand if group is None else n_rand // group.world
     trainable = list(optimizer.groups)
     grid_names = [n for n in ("density", "k0") if n in trainable]
     all_skip = all(bool(optimizer.groups[n].get("skip_zero_grad", False))
                    for n in grid_names)
     tv_boxed = apply_tv and not tv_dense
+    # A data-parallel sweep step reduces the ranks' unrounded f32 gradient
+    # sums of the bf16 paths (grid cotangents, the MLP's weights) and rounds
+    # their mean where one card rounds its batch's sum: group -> dtype (or
+    # None) of each of its parameters' gradients.
+    f32_cot = group is not None and not gather and not fused
+    round_after = {}
+    if f32_cot:
+        sdt = getattr(model, "sweep_dtype", torch.float32)
+        if sdt != torch.float32:
+            round_after.update({n: [sdt] for n in grid_names})
+        mdt = getattr(model, "mlp_dtype", None)
+        if mdt is not None and "rgbnet" in trainable:
+            rounded = {id(p) for p in mlp_lib.split_cl_rounded(model.rgbnet)}
+            round_after["rgbnet"] = [
+                mdt if id(p) in rounded else None
+                for p in optimizer.groups["rgbnet"]["params"]]
     region_mode = (clip_sizes is not None and (not apply_tv or tv_boxed)
                    and all_skip and grid_names != [])
     assert not fused or region_mode, \
@@ -254,6 +301,10 @@ def make_train_step(model, optimizer, cfg_train, render_kwargs,
         return boxed, model.mask[box], (offs_xyz, sizes_xyz)
 
     def train_step(pool, sel, clip_off, v_base=None):
+        if group is not None:
+            sel = sel[block[0]:block[1]]
+            if v_base is not None:
+                v_base = shard_rays(group, v_base)
         target = pool["rgb"][sel]
         rays_o, rays_d = pool["rays_o"][sel], pool["rays_d"][sel]
         viewdirs = pool["viewdirs"][sel]
@@ -292,14 +343,14 @@ def make_train_step(model, optimizer, cfg_train, render_kwargs,
                 ret = model.forward_sweep(
                     rays_o, rays_d, viewdirs, axis, block_windows=(
                         blocked, (clip_off[:, 0], clip_off[:, 1])),
-                    **kwargs)
+                    f32_cot=f32_cot, **kwargs)
             else:
                 ret = model.forward_sweep(
                     rays_o, rays_d, viewdirs, axis, clip_sizes=clip_sizes,
                     clip_offsets=clip_off, grids_pre_clipped=region_mode,
                     tile_windows=((v_base, wv) if wv and v_base is not None
                                   else None),
-                    grids=grids, **kwargs)
+                    grids=grids, f32_cot=f32_cot, **kwargs)
             mse = torch.mean((ret["rgb_marched"] - target) ** 2)
             loss = w_main * mse
             if w_entropy > 0:
@@ -309,23 +360,34 @@ def make_train_step(model, optimizer, cfg_train, render_kwargs,
                 loss = loss + w_entropy * entropy
             if w_rgbper > 0:
                 if "rgbper_sum" in ret:   # fused step: reduced per ray
-                    rgbper_loss = torch.sum(ret["rgbper_sum"]) / n_rand
+                    rgbper_loss = torch.sum(ret["rgbper_sum"]) / n_loc
                 elif gather:              # raw_rgb [N, K, 3]
                     rgbper = torch.sum(
                         (ret["raw_rgb"] - target[:, None, :]) ** 2, -1)
                     rgbper_loss = torch.sum(
-                        rgbper * ret["weights"].detach()) / n_rand
+                        rgbper * ret["weights"].detach()) / n_loc
                 else:
                     rgbper = torch.sum(
                         (ret["raw_rgb_cl"] - target.t()[:, :, None]) ** 2, 0)
                     rgbper_loss = torch.sum(
-                        rgbper * ret["weights"].detach()) / n_rand
+                        rgbper * ret["weights"].detach()) / n_loc
                 loss = loss + w_rgbper * rgbper_loss
             flat = [p for n in trainable for p in leaves[n]]
             flat_grads = torch.autograd.grad(loss, flat, allow_unused=True)
         it = iter(flat_grads)
         grads = {n: [torch.zeros_like(p) if g is None else g
                      for p, g in zip(leaves[n], it)] for n in trainable}
+        loss, mse = loss.detach(), mse.detach()
+        if group is not None:
+            # the full batch's gradient on every rank, before TV and Adam
+            red = iter(all_reduce_mean(
+                group, [g for n in trainable for g in grads[n]]
+                + [loss.reshape(1), mse.reshape(1)]))
+            grads = {n: [next(red) for _ in grads[n]] for n in trainable}
+            loss, mse = next(red)[0], next(red)[0]
+            for n, rnd in round_after.items():
+                grads[n] = [g.to(rnd[i]).float() if rnd[i] else g
+                            for i, g in enumerate(grads[n])]
 
         with torch.no_grad():
             if apply_tv and region_mode:
@@ -355,8 +417,8 @@ def make_train_step(model, optimizer, cfg_train, render_kwargs,
             regions = ({n: region for n in grid_names}
                        if region_mode else None)
             optimizer.step(grads, regions=regions)
-            psnr = -10.0 * torch.log10(mse.detach())
-        return loss.detach(), psnr
+            psnr = -10.0 * torch.log10(mse)
+        return loss, psnr
 
     return train_step
 
@@ -412,10 +474,21 @@ def gather_training_rays(model, cfg, cfg_train, data_dict, render_kwargs):
 
 def scene_rep_reconstruction(args, cfg, cfg_model, cfg_train, xyz_min,
                              xyz_max, data_dict, stage,
-                             coarse_ckpt_path=None, device=None):
+                             coarse_ckpt_path=None, device=None, mesh=None):
     """One optimisation stage; returns the trained model. On a CUDA device
-    its unfused steps replay as CUDA graphs (:mod:`.graphs`)."""
+    its unfused steps replay as CUDA graphs (:mod:`.graphs`).
+
+    ``mesh`` (a :class:`..parallel.DataMesh`, or None) trains the stage
+    data-parallel, with the JAX engine's rules: N_rand must split over the
+    ranks (else the stage runs whole on every rank, as on one card),
+    window buckets need whole ray tiles per rank, forced-axis 2D buckets
+    are off, fused tiles need ``N_rand % (512 * world) == 0``. Every rank
+    builds the pool, the view count and the draws; rank 0's state is
+    broadcast once as a guard; only rank 0 prints progress and writes
+    checkpoints. Under NCCL the steps replay as CUDA graphs with their
+    all-reduce captured; under gloo they run eagerly."""
     device = resolve_device(device)
+    writer = mesh is None or mesh.rank == 0
     t_stage = time.time()
     if stage == "fine" and not cfg.fine_model_and_render.get(
             "use_coarse_geo", True):
@@ -435,8 +508,11 @@ def scene_rep_reconstruction(args, cfg, cfg_model, cfg_train, xyz_min,
     elif os.path.isfile(last_ckpt_path):
         reload_ckpt_path = last_ckpt_path
     else:
-        # an interrupted run resumes from its newest i_weights checkpoint
+        # an interrupted run resumes from its newest i_weights checkpoint,
+        # if it was written for the model this config builds
         reload_ckpt_path = ckpt_lib.newest_numbered_checkpoint(logdir, stage)
+        if reload_ckpt_path is not None:
+            ckpt_lib.check_numbered_resume(reload_ckpt_path, cfg_model)
 
     if reload_ckpt_path is None:
         print(f"scene_rep_reconstruction ({stage}): train from scratch")
@@ -476,6 +552,17 @@ def scene_rep_reconstruction(args, cfg, cfg_model, cfg_train, xyz_min,
     rgb_tr, rays_o_tr, rays_d_tr, viewdirs_tr, imsz = gather_training_rays(
         model, cfg, cfg_train, data_dict, render_kwargs)
 
+    # Data parallelism over rays: every rank takes its block of each batch.
+    group = None
+    if mesh is not None:
+        if cfg_train.N_rand % mesh.world:
+            print(f"data_parallel: N_rand={cfg_train.N_rand} not divisible "
+                  f"by {mesh.world} devices; running single-chip")
+        else:
+            group = mesh
+            print(f"data_parallel: sharding ray batches over {mesh.world} "
+                  "devices")
+
     # The ray pool lives on the device; a step uploads only its indices.
     rays_d_np = np.asarray(rays_d_tr).reshape(-1, 3)
 
@@ -489,7 +576,8 @@ def scene_rep_reconstruction(args, cfg, cfg_model, cfg_train, xyz_min,
     # Occupancy-bbox sweep clipping: refreshed when the mask changes.
     clip_plan = {}   # axis -> (sizes or None, offsets int32[3])
     draws = Draws(model, cfg_train, cfg_model, rays_o_tr, rays_d_np, near,
-                  far, rng, clip_plan, device, stage)
+                  far, rng, clip_plan, device, stage,
+                  world=1 if group is None else group.world)
 
     # View-count-based per-voxel lr; voxels seen by at most two views are
     # switched off.
@@ -505,13 +593,20 @@ def scene_rep_reconstruction(args, cfg, cfg_model, cfg_train, xyz_min,
             model.density.masked_fill_(cnt <= 2, -100.0)
         print(f"scene_rep_reconstruction ({stage}): voxel_count_views in "
               f"{time.time() - t0:.1f} s")
+    if group is not None:
+        st = optimizer.state
+        replicate(group, [*model.parameters(), *model.buffers(), st["step"],
+                          *(t for d in (st["exp_avg"], st["exp_avg_sq"])
+                            for ts in d.values() for t in ts)]
+                  + ([] if st["per_lr"] is None else [st["per_lr"]]))
 
     gather = model.query_mode != "sweep"
 
     def refresh_clip():
         if gather:       # no sweep, no clip box
             return
-        bb = grid_ops.mask_bbox_vox_device(model.mask).cpu().numpy()
+        bb = fetchguard.guarded_get(grid_ops.mask_bbox_vox_device(
+            model.mask), "mask bbox").numpy()
         bbox = (bb[0].astype(np.float64), bb[1].astype(np.float64))
         for ax in range(3):
             new = model.sweep_clip_for_axis(ax, bbox=bbox)
@@ -542,7 +637,12 @@ def scene_rep_reconstruction(args, cfg, cfg_model, cfg_train, xyz_min,
     print(f"scene_rep_reconstruction ({stage}): setup in "
           f"{time.time() - t_stage:.1f} s")
     psnr_lst = []
-    steps = StepGraphs(device)
+    # gloo's collectives cannot be captured in a CUDA graph
+    steps = StepGraphs(device, graphed=group is None or group.graphable)
+    if group is not None and not group.graphable \
+            and torch.device(device).type == "cuda":
+        print(f"data_parallel: {group.backend} collectives cannot be "
+              "captured in CUDA graphs; the steps run eagerly")
 
     def fresh_steps():
         # the whole grid's voxels and the sweep's channels: K-C's largest
@@ -598,7 +698,7 @@ def scene_rep_reconstruction(args, cfg, cfg_model, cfg_train, xyz_min,
         if key not in train_steps:
             train_steps[key] = make_train_step(
                 model, optimizer, cfg_train, render_kwargs, *tv_state,
-                axis=axis, clip_sizes=clip_sizes)
+                axis=axis, clip_sizes=clip_sizes, group=group)
         # the fused keys' offsets are host data into K-D and K-E: eager
         res = steps.run(key, train_steps[key], pool, sels, offs,
                         eager=clip_sizes is not None
@@ -607,41 +707,60 @@ def scene_rep_reconstruction(args, cfg, cfg_model, cfg_train, xyz_min,
         psnr_lst.append(res[:, 1])
         global_step += n_sub - 1
 
-        if global_step % args.i_print == 0:
+        if global_step % args.i_print == 0 and writer:
             eps_time = time.time() - time0
             eps_str = (f"{eps_time//3600:02.0f}:{eps_time//60%60:02.0f}:"
                        f"{eps_time%60:02.0f}")
-            psnr_avg = float(torch.cat(psnr_lst).mean())
+            loss_h, psnr_h = fetchguard.guarded_get(
+                (loss, torch.cat(psnr_lst).mean()), "i_print loss")
             print(f"scene_rep_reconstruction ({stage}): iter "
-                  f"{global_step:6d} / Loss: {float(loss):.9f} / "
-                  f"PSNR: {psnr_avg:5.2f} / Eps: {eps_str}")
+                  f"{global_step:6d} / Loss: {float(loss_h):.9f} / "
+                  f"PSNR: {float(psnr_h):5.2f} / Eps: {eps_str}")
+        if global_step % args.i_print == 0:
             psnr_lst = []
 
-        if global_step % args.i_weights == 0:
-            ckpt_lib.save_model_checkpoint(
-                os.path.join(logdir, f"{stage}_{global_step:06d}.tar"),
-                model, global_step, convert.opt_state_to_jax(optimizer),
-                compact=True)
+        if global_step % args.i_weights == 0 and writer:
+            _save(os.path.join(logdir, f"{stage}_{global_step:06d}.tar"),
+                  model, global_step, optimizer)
 
-    ckpt_lib.save_model_checkpoint(
-        last_ckpt_path, model, global_step,
-        convert.opt_state_to_jax(optimizer), compact=True)
-    print(f"scene_rep_reconstruction ({stage}): saved {last_ckpt_path}")
+    if group is not None:
+        # every rank applied the same updates to the same state
+        spread = replica_spread(group, list(model.parameters()))
+        print(f"data_parallel: replicas after {stage}: largest difference "
+              f"from rank 0 {spread!r}")
+    if writer:
+        _save(last_ckpt_path, model, global_step, optimizer)
+        print(f"scene_rep_reconstruction ({stage}): saved {last_ckpt_path}")
+    if mesh is not None:
+        mesh.barrier()     # the next stage reads this stage's checkpoint
     return model
 
 
-def train(args, cfg, data_dict, device=None):
+def _save(path, model, global_step, optimizer):
+    """A compact checkpoint of ``model`` and ``optimizer``; the optimizer's
+    pull from the device is guarded (the model's, in
+    :func:`.checkpoint.save_model_checkpoint`)."""
+    with fetchguard.guarded("optimizer state",
+                            timeout=4 * fetchguard.timeout_default()):
+        opt_state = convert.opt_state_to_jax(optimizer)
+    ckpt_lib.save_model_checkpoint(path, model, global_step, opt_state,
+                                   compact=True)
+
+
+def train(args, cfg, data_dict, device=None, mesh=None):
     """Full coarse -> fine pipeline; the checkpoints ``coarse_last.tar`` and
-    ``fine_last.tar`` are on disk when it returns the fine model."""
+    ``fine_last.tar`` are on disk when it returns the fine model. ``mesh``:
+    train data-parallel (:func:`scene_rep_reconstruction`)."""
     device = resolve_device(device)
     print("train: start")
     eps_time = time.time()
     logdir = os.path.join(cfg.basedir, cfg.expname)
     os.makedirs(logdir, exist_ok=True)
-    with open(os.path.join(logdir, "args.txt"), "w") as f:
-        for arg in sorted(vars(args)):
-            f.write(f"{arg} = {getattr(args, arg)}\n")
-    cfg.dump(os.path.join(logdir, "config.py"))
+    if mesh is None or mesh.rank == 0:
+        with open(os.path.join(logdir, "args.txt"), "w") as f:
+            for arg in sorted(vars(args)):
+                f.write(f"{arg} = {getattr(args, arg)}\n")
+        cfg.dump(os.path.join(logdir, "config.py"))
 
     # coarse geometry searching
     eps_coarse = time.time()
@@ -652,7 +771,7 @@ def train(args, cfg, data_dict, device=None):
             args=args, cfg=cfg, cfg_model=cfg.coarse_model_and_render,
             cfg_train=cfg.coarse_train, xyz_min=xyz_min_coarse,
             xyz_max=xyz_max_coarse, data_dict=data_dict, stage="coarse",
-            device=device)
+            device=device, mesh=mesh)
         print("train: coarse geometry searching in "
               f"{time.time() - eps_coarse:.1f} s")
         coarse_ckpt_path = os.path.join(logdir, "coarse_last.tar")
@@ -675,7 +794,7 @@ def train(args, cfg, data_dict, device=None):
         args=args, cfg=cfg, cfg_model=cfg.fine_model_and_render,
         cfg_train=cfg.fine_train, xyz_min=xyz_min_fine,
         xyz_max=xyz_max_fine, data_dict=data_dict, stage="fine",
-        coarse_ckpt_path=coarse_ckpt_path, device=device)
+        coarse_ckpt_path=coarse_ckpt_path, device=device, mesh=mesh)
     print(f"train: fine detail reconstruction in "
           f"{time.time() - eps_fine:.1f} s")
     print(f"train: finish (eps time {time.time() - eps_time:.1f} s)")

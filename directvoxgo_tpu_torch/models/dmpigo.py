@@ -292,7 +292,7 @@ class DirectMPIGO(nn.Module):
     def forward_sweep(self, rays_o, rays_d, viewdirs, axis, *, near, far, bg,
                       stepsize, render_depth=False, clip_sizes=None,
                       clip_offsets=None, grids_pre_clipped=False, grids=None,
-                      **_):
+                      f32_cot=False, **_):
         """The NDC sampler as a z-station sweep of density, mask and k0 in
         one pass (kernel K-A), composited with early termination
         (``raw2alpha`` with interval ``stepsize * voxel_size_ratio``); the
@@ -302,7 +302,8 @@ class DirectMPIGO(nn.Module):
         superset of the nearest-voxel occupancy; the thresholds prune the
         rest).
 
-        Gradients, ``grids``, ``grids_pre_clipped`` and the slab cache under
+        Gradients, ``grids``, ``grids_pre_clipped``, ``f32_cot`` and the slab
+        cache under
         ``torch.no_grad()`` as in :meth:`.dvgo.DirectVoxGO.forward_sweep`.
         ``axis`` must be 2 (``forced_sweep_axis``). ``depth`` is in
         sample-index units (sample j of the NDC sampler at depth j).
@@ -327,10 +328,11 @@ class DirectMPIGO(nn.Module):
                     else [int(v) for v in np.asarray(clip_offsets)])
             grid_cat = self._stacked_grids(
                 density, k0, mask_g, 2,
-                None if grids_pre_clipped else clip_sizes, offs)
+                None if grids_pre_clipped else clip_sizes, offs, f32_cot)
             out = sweep_ops.sweep_samples(
                 grid_cat, rays_o, rays_d, self.xyz_min, self.xyz_max, 2, k,
-                interp_dtype=self.sweep_dtype, pre_clipped=True, **common)
+                interp_dtype=self.sweep_dtype, pre_clipped=True,
+                f32_cot=f32_cot, **common)
         vals, t, fwd = out["vals"], out["t"], out["forward"]
         density_s, mask_s, k0_cl = vals[0], vals[1], vals[2:]
         n_s = t.shape[1]
@@ -371,7 +373,8 @@ class DirectMPIGO(nn.Module):
         else:
             vd_emb = mlp_lib.positional_encoding(viewdirs, self.viewbase_pe)
             rgb_cl = torch.sigmoid(mlp_lib.mlp_apply_split_cl(
-                self.rgbnet, k0_cl, vd_emb, compute_dtype=self.mlp_dtype))
+                self.rgbnet, k0_cl, vd_emb, compute_dtype=self.mlp_dtype,
+                f32_cot=f32_cot))
 
         rgb_marched = (torch.einsum("ns,cns->nc", w_eff, rgb_cl)
                        + alphainv_last[..., None] * bg)

@@ -35,6 +35,7 @@ from torch import nn
 from ..device import resolve_device
 from ..ops import grid as grid_ops
 from ..ops import raymarch as rm
+from ..ops import rounding
 from ..ops import sweep as sweep_ops
 from ..ops.tv import total_variation_add_grad
 from . import mlp as mlp_lib
@@ -678,11 +679,13 @@ class DirectVoxGO(nn.Module):
                                       u0: u0 + bu, v0: v0 + bv].contiguous()
         return cache[key]
 
-    def _stacked_grids(self, density, k0, mask_g, axis, clip_sizes, offs):
+    def _stacked_grids(self, density, k0, mask_g, axis, clip_sizes, offs,
+                       f32_cot=False):
         """[X, Y, Z, 2 + k0_dim] (density, mask, k0) in ``sweep_dtype``,
         sliced to the clip box (``clip_sizes`` permuted, ``offs`` ints, or
         an integer tensor on the grids' device read as device data) before
-        the cast; differentiable in density and k0."""
+        the cast; differentiable in density and k0 (``f32_cot``: by
+        unrounded gradients, :mod:`..ops.rounding`)."""
         sdt = self.sweep_dtype
         inv = {ax: i for i, ax in enumerate(sweep_ops._PERMS[axis])}
         if clip_sizes is not None and torch.is_tensor(offs):
@@ -694,14 +697,16 @@ class DirectVoxGO(nn.Module):
             sl = tuple(slice(offs[inv[a]], offs[inv[a]]
                              + int(clip_sizes[inv[a]])) for a in range(3))
             density, mask_g, k0 = density[sl], mask_g[sl], k0[sl]
-        return torch.cat([density.to(sdt)[..., None],
-                          mask_g.to(sdt)[..., None], k0.to(sdt)], -1)
+        def cast(t):
+            return rounding.to_dtype(t, sdt, f32_cot)
+        return torch.cat([cast(density)[..., None], cast(mask_g)[..., None],
+                          cast(k0)], -1)
 
     def forward_sweep(self, rays_o, rays_d, viewdirs, axis, *, near, far, bg,
                       stepsize, render_depth=False, clip_sizes=None,
                       clip_offsets=None, grids_pre_clipped=False,
                       tile_windows=None, block_windows=None, grids=None,
-                      **_):
+                      f32_cot=False, **_):
         """Station-sweep volume rendering of a ray batch whose rays share
         the dominant ``axis``: density, mask and colour features are swept
         in one pass (kernel K-A), composited with early termination, and the
@@ -719,6 +724,8 @@ class DirectVoxGO(nn.Module):
         ((B, wu, wv), (u_off, v_off)): per-p-block (u, v) windows of an
         unclipped sweep (:func:`..ops.sweep.sweep_samples_blocked`, the
         blocked train step), read from the grids with gradients.
+        ``f32_cot``: the gradients of the bf16 grid and MLP paths come back
+        unrounded (:mod:`..ops.rounding`; the data-parallel step).
 
         Returns a dict with ``rgb_marched [N, 3]``, ``alphainv_last [N]``,
         ``weights``, ``raw_alpha``, ``raw_rgb_cl``, ``wmask`` and optionally
@@ -734,9 +741,11 @@ class DirectVoxGO(nn.Module):
                 self.density, self.k0, self.mask)
             block_sizes, (u_off, v_off) = block_windows
             out = sweep_ops.sweep_samples_blocked(
-                self._stacked_grids(density, k0, mask_g, axis, None, None),
+                self._stacked_grids(density, k0, mask_g, axis, None, None,
+                                    f32_cot),
                 rays_o, rays_d, self.xyz_min, self.xyz_max, axis, k,
-                block_sizes, u_off, v_off, interp_dtype=self.sweep_dtype)
+                block_sizes, u_off, v_off, interp_dtype=self.sweep_dtype,
+                f32_cot=f32_cot)
         elif grids is None and not torch.is_grad_enabled():
             out = sweep_ops.sweep_samples(
                 None, rays_o, rays_d, self.xyz_min, self.xyz_max, axis, k,
@@ -750,11 +759,11 @@ class DirectVoxGO(nn.Module):
                     else [int(v) for v in np.asarray(clip_offsets)])
             grid_cat = self._stacked_grids(
                 density, k0, mask_g, axis,
-                None if grids_pre_clipped else clip_sizes, offs)
+                None if grids_pre_clipped else clip_sizes, offs, f32_cot)
             out = sweep_ops.sweep_samples(
                 grid_cat, rays_o, rays_d, self.xyz_min, self.xyz_max, axis,
                 k, interp_dtype=self.sweep_dtype, pre_clipped=True,
-                tile_windows=tile_windows, **common)
+                tile_windows=tile_windows, f32_cot=f32_cot, **common)
         vals, t, fwd = out["vals"], out["t"], out["forward"]
         density_s, mask_s, k0_cl = vals[0], vals[1], vals[2:]
 
@@ -796,12 +805,13 @@ class DirectVoxGO(nn.Module):
             vd_emb = mlp_lib.positional_encoding(viewdirs, self.viewbase_pe)
             if self.rgbnet_direct:
                 logit_cl = mlp_lib.mlp_apply_split_cl(
-                    self.rgbnet, k0_cl, vd_emb, compute_dtype=self.mlp_dtype)
+                    self.rgbnet, k0_cl, vd_emb, compute_dtype=self.mlp_dtype,
+                    f32_cot=f32_cot)
                 rgb_cl = torch.sigmoid(logit_cl)
             else:
                 logit_cl = mlp_lib.mlp_apply_split_cl(
                     self.rgbnet, k0_cl[3:], vd_emb,
-                    compute_dtype=self.mlp_dtype)
+                    compute_dtype=self.mlp_dtype, f32_cot=f32_cot)
                 rgb_cl = torch.sigmoid(logit_cl + k0_cl[:3])
 
         rgb_marched = (torch.einsum("ns,cns->nc", w_eff, rgb_cl)

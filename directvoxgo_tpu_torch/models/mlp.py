@@ -13,6 +13,8 @@ import math
 import torch
 from torch import nn
 
+from ..ops import rounding
+
 BF16 = torch.bfloat16
 
 
@@ -49,6 +51,20 @@ def _rnd(x, dtype):
     return x if dtype is None else x.to(dtype).float()
 
 
+def _rnd_param(p, dtype, f32_cot):
+    """:func:`_rnd` of a parameter, whose gradient (a sum over the batch)
+    stays unrounded with ``f32_cot`` (:func:`..ops.rounding.to_dtype`)."""
+    return p if dtype is None else rounding.to_dtype(p, dtype,
+                                                     f32_cot).float()
+
+
+def split_cl_rounded(mlp):
+    """The parameters whose gradients :func:`mlp_apply_split_cl` rounds to
+    its compute dtype: every weight, and every bias but the last."""
+    return [p for layer in mlp.layers for p in (layer.weight, layer.bias)
+            ][:-1]
+
+
 def mlp_apply(mlp, x):
     """The MLP over the last dim of ``x [..., dim_in]`` in f32 (the gather
     forward's colour query): ReLU between layers, logits ``[...,
@@ -62,7 +78,8 @@ def mlp_apply(mlp, x):
     return x
 
 
-def mlp_apply_split_cl(mlp, x_cl, x_shared, compute_dtype=None):
+def mlp_apply_split_cl(mlp, x_cl, x_shared, compute_dtype=None,
+                       f32_cot=False):
     """MLP over ``concat([x_samples, x_shared])`` with channels-leading
     sample features ``x_cl [D1, N, S]`` and per-ray ``x_shared [N, D2]``;
     returns logits ``[D_out, N, S]`` f32.
@@ -70,23 +87,26 @@ def mlp_apply_split_cl(mlp, x_cl, x_shared, compute_dtype=None):
     With ``compute_dtype=bf16`` operands and hidden activations are rounded
     to bf16 (products accumulate in f32), matching the JAX package's
     rounding points: the per-ray half of layer 1 is rounded once, the
-    sample half after its product and again after the add.
+    sample half after its product and again after the add. ``f32_cot``:
+    the parameters' gradients are not rounded (:mod:`..ops.rounding`).
     """
     cd = compute_dtype
     layers = mlp.layers
     w1, b1 = layers[0].weight.t(), layers[0].bias
     d1 = x_cl.shape[0]
-    wa, wb = _rnd(w1[:d1], cd), _rnd(w1[d1:], cd)
+    wa = _rnd_param(w1[:d1], cd, f32_cot)
+    wb = _rnd_param(w1[d1:], cd, f32_cot)
     x_cl, x_shared = _rnd(x_cl.float(), cd), _rnd(x_shared.float(), cd)
-    shared = _rnd(x_shared @ wb + _rnd(b1, cd), cd)
+    shared = _rnd(x_shared @ wb + _rnd_param(b1, cd, f32_cot), cd)
     x = _rnd(torch.einsum("dns,dw->nsw", x_cl, wa), cd)
     x = torch.relu(_rnd(x + shared[:, None, :], cd))
     for i, layer in enumerate(layers[1:]):
         w, b = layer.weight.t(), layer.bias
         if i == len(layers) - 2:
-            logit = x @ _rnd(w, cd) + b
+            logit = x @ _rnd_param(w, cd, f32_cot) + b
             return logit.permute(2, 0, 1)
-        x = torch.relu(_rnd(_rnd(x @ _rnd(w, cd), cd) + _rnd(b, cd), cd))
+        x = torch.relu(_rnd(_rnd(x @ _rnd_param(w, cd, f32_cot), cd)
+                            + _rnd_param(b, cd, f32_cot), cd))
     raise AssertionError("MLP needs depth >= 2")
 
 

@@ -95,7 +95,7 @@ class _StationSweep(torch.autograd.Function):
     gradient."""
 
     @staticmethod
-    def forward(ctx, grid_perm, rays, v_base, k, wv):
+    def forward(ctx, grid_perm, rays, v_base, k, wv, grid_f32=None):
         slabs = _station_slabs(grid_perm, k).contiguous()
         n = rays.shape[1]
         # The forward kernel wants per-tile starts only; a trailing
@@ -103,34 +103,40 @@ class _StationSweep(torch.autograd.Function):
         fwd_vb = v_base[: -(-n // TILE_N)] if wv else None
         vals = sweep_fwd(slabs, rays, k, fwd_vb, wv)     # [S, C, N]
         ctx.save_for_backward(rays, v_base)
-        ctx.sweep = (tuple(grid_perm.shape), grid_perm.dtype, k, wv)
+        ctx.sweep = (tuple(grid_perm.shape), grid_perm.dtype, k, wv,
+                     grid_f32 is not None)
         return vals.permute(1, 2, 0)
 
     @staticmethod
     def backward(ctx, g_vals):
         rays, v_base = ctx.saved_tensors
-        shape, dtype, k, wv = ctx.sweep
+        shape, dtype, k, wv, to_f32 = ctx.sweep
         # K-C reads the cotangent through its strides: autograd's [C, N, S]
         # layout goes to the kernel as it is, without a copy.
         g = g_vals.permute(2, 0, 1)
-        d_grid = sweep_bwd(g, rays, k, shape, dtype, v_base, wv)
-        return d_grid, None, None, None, None
+        d_grid = sweep_bwd(g, rays, k, shape, dtype, v_base, wv,
+                           out_dtype=torch.float32 if to_f32 else None)
+        if to_f32:
+            return None, None, None, None, None, d_grid
+        return d_grid, None, None, None, None, None
 
 
-def station_sweep(grid_perm, rays_pv, k, v_base=None, wv=0):
+def station_sweep(grid_perm, rays_pv, k, v_base=None, wv=0, grid_f32=None):
     """Sample every station along each ray, differentiably in the grid.
 
     grid_perm: [Gp, Gu, Gv, C] permuted grid slabs (:func:`permute_grid`)
     in the sweep's interp dtype. ``v_base``/``wv``: per-ray-tile v-windows
     ([N // TILE_N] int32 starts; one more entry, the batch's window, in the
     segment convention) - exact when every ray of a tile keeps its v
-    support inside the tile's window. Returns (vals [C, N, S] f32 in slab
-    order, t [N, S] (no gradient))."""
+    support inside the tile's window. ``grid_f32``: the same slabs in f32
+    storage (a view); the cotangent then goes to it, unrounded, and not to
+    ``grid_perm``. Returns (vals [C, N, S] f32 in slab order, t [N, S] (no
+    gradient))."""
     rays, op, dp_safe = _pack_rays(rays_pv)
     if v_base is None or not wv:
         v_base, wv = torch.zeros(0, dtype=torch.int32, device=rays.device), 0
     vals = _StationSweep.apply(grid_perm, rays.detach(), v_base, int(k),
-                               int(wv))
+                               int(wv), grid_f32)
     s_total = k * (grid_perm.shape[0] - 1) + 1
     return vals, _station_t(op, dp_safe, s_total, k).detach()
 
@@ -138,7 +144,7 @@ def station_sweep(grid_perm, rays_pv, k, v_base=None, wv=0):
 def sweep_samples(grid, rays_o, rays_d, xyz_min, xyz_max, axis, k,
                   interp_dtype=torch.bfloat16, clip_sizes=None,
                   clip_offsets=None, pre_clipped=False, world_size=None,
-                  tile_windows=None, slabs=None):
+                  tile_windows=None, slabs=None, f32_cot=False):
     """Density/mask/feature channels at every station of every ray, in slab
     order (the caller composites bidirectionally).
 
@@ -153,6 +159,9 @@ def sweep_samples(grid, rays_o, rays_d, xyz_min, xyz_max, axis, k,
     v-windows, only for unclipped sweeps whose ray count tiles.
     ``slabs``: prebuilt station slabs of the (clipped) grid - the render
     path's cache; no gradient flows and ``grid`` is not read.
+    ``f32_cot``: ``grid``'s values are already rounded to ``interp_dtype``
+    in f32 storage (:func:`.rounding.to_dtype`), and its cotangent comes
+    back in f32, unrounded.
 
     Returns dict: vals [C, N, S], t [N, S], forward [N] (True where t
     ascends with the station index), interval [N] (world distance between
@@ -188,6 +197,11 @@ def sweep_samples(grid, rays_o, rays_d, xyz_min, xyz_max, axis, k,
     if slabs is not None:
         vals, t = station_sweep_slabs(slabs, (o_pv, d_pv), k)
     else:
+        grid_f32 = None
+        if (f32_cot and grid.requires_grad
+                and grid.dtype != interp_dtype):
+            grid_f32 = grid.permute(*_PERMS[axis], 3)
+            grid = grid.detach()
         grid_perm = permute_grid(grid, axis, dtype=interp_dtype)
         v_base, wv = None, 0
         if tile_windows is not None and clip_sizes is None:
@@ -198,7 +212,8 @@ def sweep_samples(grid, rays_o, rays_d, xyz_min, xyz_max, axis, k,
                     or v_base.shape[0] not in (n // TILE_N,
                                                n // TILE_N + 1)):
                 v_base, wv = None, 0
-        vals, t = station_sweep(grid_perm, (o_pv, d_pv), k, v_base, wv)
+        vals, t = station_sweep(grid_perm, (o_pv, d_pv), k, v_base, wv,
+                                grid_f32)
     forward = d_pv[0] >= 0
     d_norm = torch.sqrt(torch.sum(rays_d * rays_d, -1))
     interval = d_norm / (k * torch.clamp(d_pv[0].abs(), min=1e-10))
@@ -208,7 +223,7 @@ def sweep_samples(grid, rays_o, rays_d, xyz_min, xyz_max, axis, k,
 
 def sweep_samples_blocked(grid, rays_o, rays_d, xyz_min, xyz_max, axis, k,
                           block_sizes, u_off, v_off,
-                          interp_dtype=torch.bfloat16):
+                          interp_dtype=torch.bfloat16, f32_cot=False):
     """Blocked sweep: B composed clip-box sub-sweeps, concatenated along S.
 
     The station range is split into the p-blocks of
@@ -236,7 +251,7 @@ def sweep_samples_blocked(grid, rays_o, rays_d, xyz_min, xyz_max, axis, k,
         out = sweep_samples(
             grid, rays_o, rays_d, xyz_min, xyz_max, axis, k,
             interp_dtype=interp_dtype, clip_sizes=(r1 - r0 + 1, eu, ev),
-            clip_offsets=offs)
+            clip_offsets=offs, f32_cot=f32_cot)
         last = b == len(rows) - 1
         vals.append(out["vals"] if last else out["vals"][:, :, :-1])
         ts.append(out["t"] if last else out["t"][:, :-1])

@@ -12,8 +12,10 @@ rendering (``--render_only``, ``--render_test``, ``--render_train``,
 need the ``lpips`` package and raise before rendering without it) and the
 exports (``--export_bbox_and_cams_only``, ``--export_coarse_only``,
 ``--export_fine_only``: the JAX driver's npz files, from checkpoints of
-either package, then exit). ``--data_parallel`` raises until ROADMAP item
-6 (A6) is ported. Usage::
+either package, then exit) and ``--data_parallel``: training split over
+one rank per card (under ``torchrun`` this process is one; otherwise one
+process is spawned per visible card; with one device it trains there); the
+rendering that follows runs on rank 0 alone. Usage::
 
   python -m directvoxgo_tpu_torch.run \\
       --config configs/synthetic/fixture_lego_sparse.py --render_test
@@ -21,13 +23,20 @@ either package, then exit). ``--data_parallel`` raises until ROADMAP item
       --render_only --render_test [--ft_path ckpt.tar] [--device cuda]
   python -m directvoxgo_tpu_torch.run \\
       --config configs/synthetic/fixture_ndc_tiny.py --device cpu --render_test
+  python -m directvoxgo_tpu_torch.run --config configs/nerf/lego.py \\
+      --data_parallel --render_test         # one rank per visible card
+  torchrun --nproc_per_node 4 -m directvoxgo_tpu_torch.run \\
+      --config configs/nerf/lego.py --data_parallel
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import random
+import socket
+import sys
 
 import numpy as np
 import torch
@@ -41,11 +50,7 @@ from .engine import metrics as metrics_lib
 from .engine import train as train_lib
 from .engine.render import render_viewpoints, write_png
 from .models.dvgo import DirectVoxGO
-
-# flag -> the ROADMAP item that ports it
-_NOT_PORTED = {
-    "data_parallel": "ROADMAP item 6 (A6): data parallelism",
-}
+from .parallel import make_mesh
 
 
 def config_parser():
@@ -85,7 +90,7 @@ def config_parser():
     return parser
 
 
-def train_profiled(args, cfg, data_dict, device):
+def train_profiled(args, cfg, data_dict, device, mesh=None):
     """Train under ``torch.profiler`` (CPU activities, and CUDA's on a CUDA
     device); the trace goes to ``<profile_dir>/trace.json``."""
     from torch.profiler import ProfilerActivity, profile
@@ -94,17 +99,25 @@ def train_profiled(args, cfg, data_dict, device):
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(args.profile_dir, exist_ok=True)
     with profile(activities=activities) as prof:
-        train_lib.train(args, cfg, data_dict, device=device)
+        train_lib.train(args, cfg, data_dict, device=device, mesh=mesh)
     path = os.path.join(args.profile_dir, 'trace.json')
     prof.export_chrome_trace(path)
     print(f'profile: trace written to {path}')
 
 
-def _check_supported(args):
-    for flag, item in _NOT_PORTED.items():
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag} is not ported yet ({item})")
+def _free_port():
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _rank_main(rank, argv, world, init_method):
+    """One spawned rank of ``--data_parallel`` on the card ``rank``."""
+    args = config_parser().parse_args(argv)
+    cfg = Config.fromfile(args.config)
+    mesh = make_mesh(torch.device("cuda", rank), init_method=init_method,
+                     world_size=world, rank=rank)
+    _run(args, cfg, mesh.device, mesh)
 
 
 def _write_frames(savedir, rgbs, depths):
@@ -163,8 +176,39 @@ def export_alpha_rgb(cfg, stage, out_path, device):
 def main(argv=None):
     args = config_parser().parse_args(argv)
     cfg = Config.fromfile(args.config)
-    _check_supported(args)
     device = resolve_device(args.device)
+    mesh = None
+    n_cards = torch.cuda.device_count() if device.type == 'cuda' else 1
+    if args.data_parallel and 'WORLD_SIZE' in os.environ:
+        # under torchrun: this process is one rank, on card LOCAL_RANK
+        if device.type == 'cuda':
+            device = torch.device('cuda', int(os.environ.get('LOCAL_RANK',
+                                                             0)))
+        mesh = make_mesh(device)
+    elif args.data_parallel and n_cards > 1:
+        import torch.multiprocessing as mp
+        print(f'data_parallel: one rank per card, {n_cards} ranks')
+        mp.spawn(_rank_main, nprocs=n_cards, join=True, args=(
+            list(argv if argv is not None else sys.argv[1:]), n_cards,
+            f'tcp://localhost:{_free_port()}'))
+        return
+    elif args.data_parallel:
+        # as the JAX package does with one device
+        print(f'data_parallel: one device ({device}); training on it')
+    _run(args, cfg, device, mesh)
+
+
+def _run(args, cfg, device, mesh=None):
+    """The command line's work on ``device``; with a ``mesh``, as one
+    rank of data-parallel training (only rank 0 prints, writes and
+    renders)."""
+    if mesh is None or mesh.rank == 0:
+        return _run_rank(args, cfg, device, mesh, True)
+    with open(os.devnull, 'w') as null, contextlib.redirect_stdout(null):
+        return _run_rank(args, cfg, device, mesh, False)
+
+
+def _run_rank(args, cfg, device, mesh, writer):
     # The gather forward's colour MLP computes in f32, as the JAX package's.
     torch.backends.cuda.matmul.allow_tf32 = False
     np.random.seed(args.seed)
@@ -172,6 +216,9 @@ def main(argv=None):
     torch.manual_seed(args.seed)
 
     data_dict = load_everything(args=args, cfg=cfg)
+    if not writer and (args.export_bbox_and_cams_only
+                       or args.export_coarse_only or args.export_fine_only):
+        return
     if args.export_bbox_and_cams_only:
         print('Export bbox and cameras...')
         export_bbox_and_cams(cfg, data_dict, args.export_bbox_and_cams_only)
@@ -188,9 +235,14 @@ def main(argv=None):
         metrics_lib.require_lpips()
     if not args.render_only:
         if args.profile_dir:
-            train_profiled(args, cfg, data_dict, device)
+            train_profiled(args, cfg, data_dict, device, mesh)
         else:
-            train_lib.train(args, cfg, data_dict, device=device)
+            train_lib.train(args, cfg, data_dict, device=device, mesh=mesh)
+    if mesh is not None:
+        import torch.distributed as dist
+        dist.destroy_process_group()
+        if not writer:
+            return
     if not (args.render_test or args.render_train or args.render_video):
         print('Done')
         return

@@ -253,11 +253,20 @@ def test_lpips_gate_raises_before_rendering(tmp_path, pair):
                         "--eval_lpips_vgg", "--device", "cpu"])
 
 
-def test_only_data_parallel_is_refused():
-    assert set(torch_run._NOT_PORTED) == {"data_parallel"}
-    with pytest.raises(NotImplementedError, match=r"item 6 \(A6\)"):
-        torch_run.main(["--config", TINY, "--data_parallel",
-                        "--device", "cpu"])
+def test_data_parallel_runs_the_tiny_fixture_on_one_device(tmp_path,
+                                                           monkeypatch,
+                                                           capsys):
+    """Every flag is ported: ``--data_parallel`` with one device (no
+    ``torchrun`` environment) trains there, as the JAX package does with
+    one device, and says so."""
+    assert not getattr(torch_run, "_NOT_PORTED", None)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    cfg = _tiny_config(tmp_path, coarse={"N_iters": 3, "N_rand": 256},
+                       fine={"N_iters": 3, "N_rand": 256, "pg_scale": []})
+    torch_run.main(["--config", cfg, "--data_parallel", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "data_parallel: one device (cpu); training on it" in out
+    assert os.path.isfile(tmp_path / "logs" / "tiny" / "fine_last.tar")
 
 
 # -------------------------------------------------------- GT generation

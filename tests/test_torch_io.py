@@ -243,7 +243,10 @@ CONDITIONED_MODULES = (
     # the remaining loaders, their image files and the scene writers
     "data.image_io", "data.load_nsvf", "data.load_blendedmvs",
     "data.load_tankstemple", "data.load_deepvoxels", "data.load_co3d",
-    "tools.scene_layouts")
+    "tools.scene_layouts",
+    # data parallelism, the fetch watchdog and its restart wrapper
+    "parallel", "parallel.mesh", "engine.fetchguard", "tools.resilient_run",
+    "tools.check_data_parallel")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

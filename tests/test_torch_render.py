@@ -23,6 +23,7 @@ from directvoxgo_tpu.engine import render as jax_render
 from directvoxgo_tpu.engine import render_sweep as jax_render_sweep
 from directvoxgo_tpu.models.dvgo import DirectVoxGO as JaxDVGO
 from directvoxgo_tpu_torch import convert
+from directvoxgo_tpu_torch import rays as torch_rays
 from directvoxgo_tpu_torch.engine import checkpoint as torch_ckpt
 from directvoxgo_tpu_torch.engine import render as torch_render
 from directvoxgo_tpu_torch.engine import render_sweep as torch_render_sweep
@@ -231,3 +232,80 @@ def test_station_slab_caches_follow_the_grids(change):
     assert not any(a is b for a, b in zip(again, first))
     ch = {"density": 0, "mask": 1, "k0": 2}[change]
     assert not torch.equal(again[0][..., ch], first[0][..., ch])
+
+
+# ------------------------------------------------ the scan frame core
+
+def _scan_scene(mode):
+    """``tests/test_render_sweep.py``'s blob (32^3) and 48x48 camera, in
+    both packages, the camera on +z turned to face the blob (that test's
+    final pose looks away from it and sees a white frame); ``mode`` the
+    colour path."""
+    rgbnet_dim = 0 if mode == "no_mlp" else 6
+    jm = _jax_model(0, rgbnet_dim, mode != "logit_plus_k0",
+                    dict(xyz_min=[-1, -1, -1], xyz_max=[1, 1, 1],
+                         num_voxels=32 ** 3, num_voxels_base=32 ** 3),
+                    lambda p: 10 * np.exp(-4 * (p ** 2).sum(-1)) - 3)
+    tm = TorchDVGO(**jm.get_kwargs(), device="cpu")
+    tm.load_state_dict(convert.params_from_jax(
+        jax.tree_util.tree_map(np.asarray, jm.params), np.asarray(jm.mask)))
+    H = W = 48
+    focal = 0.5 * W / np.tan(0.35)
+    K = np.array([[focal, 0, W / 2], [0, focal, H / 2], [0, 0, 1]],
+                 np.float32)
+    c2w = np.array([[1, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, 3.2]],
+                   np.float32)
+    rk = dict(near=0.5, far=6.0, bg=1.0, stepsize=0.5, inverse_y=False,
+              flip_x=False, flip_y=False)
+    return jm, tm, H, W, K, c2w, rk
+
+
+@pytest.mark.parametrize("mode", ["direct", "logit_plus_k0", "no_mlp"])
+def test_scan_frame_matches_jax_xla_and_the_frame_kernel(mode):
+    """``backend="scan"`` against the JAX package's ``backend="xla"``
+    frame and against the port's default frame (K-B's plain version), at
+    the JAX package's bars for its two frame paths: 55 dB on rgb, depth
+    within 1e-2."""
+    jm, tm, H, W, K, c2w, rk = _scan_scene(mode)
+    rgb_s, dep_s = torch_render_sweep.render_frame_sweep(
+        tm, H, W, K, c2w, rk, backend="scan")
+    assert rgb_s.shape == (H, W, 3) and np.isfinite(rgb_s).all()
+    assert _psnr(rgb_s, 1.0) < 30          # the blob is in the frame
+    rgb_x, dep_x = jax_render_sweep.render_frame_sweep(jm, H, W, K, c2w, rk,
+                                                       backend="xla")
+    rgb_k, dep_k = torch_render_sweep.render_frame_sweep(tm, H, W, K, c2w,
+                                                         rk)
+    for rgb, dep in ((np.asarray(rgb_x), np.asarray(dep_x)), (rgb_k, dep_k)):
+        assert _psnr(rgb_s, rgb) > 55
+        assert np.abs(dep_s - dep).max() < 1e-2
+
+
+def test_scan_frame_matches_per_ray():
+    """Against the per-ray sweep of the same view: different quadrature,
+    the same field (``tests/test_render_sweep.py``'s 35 dB)."""
+    _, tm, H, W, K, c2w, rk = _scan_scene("direct")
+    rgb_s, _ = torch_render_sweep.render_frame_sweep(tm, H, W, K, c2w, rk,
+                                                     backend="scan")
+    ro, rd, vd = torch_rays.get_rays_of_a_view(H, W, K, c2w, False, False,
+                                               False, False)
+    rgb_r, _ = torch_render.render_rays_chunked(
+        torch_render.make_render_fn(tm, rk), tm, ro.reshape(-1, 3),
+        rd.reshape(-1, 3), vd.reshape(-1, 3), 2048)
+    assert _psnr(rgb_s, rgb_r.reshape(H, W, 3)) > 35
+
+
+def test_scan_frame_declines_the_rare_variants():
+    """An MLP with ``posbase_pe`` or ``rgbnet_full_implicit`` goes per ray,
+    as the JAX package's scan frame sends it; a bad backend raises."""
+    _, tm, H, W, K, c2w, rk = _scan_scene("direct")
+    with pytest.raises(ValueError, match="backend"):
+        torch_render_sweep.render_frame_sweep(tm, H, W, K, c2w, rk,
+                                              backend="xla")
+    for attr, value in (("posbase_pe", 2), ("rgbnet_full_implicit", True)):
+        old = getattr(tm, attr)
+        setattr(tm, attr, value)
+        try:
+            assert torch_render_sweep.render_frame_sweep(
+                tm, H, W, K, c2w, rk, backend="scan") is None
+        finally:
+            setattr(tm, attr, old)
