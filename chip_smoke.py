@@ -111,8 +111,10 @@ Phases, each of which fails the run:
      perf (v3, v3+gate, v4, v4+gate, v3+gate geo-only, v1 at 1024^2,
      S=192, 160x160 slabs, F 12, W 128, occupancy 0.05), then the op probe
      (``directvoxgo_tpu_torch.tools.probe_ops``: eleven op classes and the
-     null body through K-G, each digest against its plain version, per-op
-     cost against its bound and one library call), and check that K-B ran
+     null body through K-G and its first version, each digest against its
+     plain version, per-op cost on the device alone against its bound, the
+     first version and one library call; a class below its bound fails),
+     and check that K-B ran
      in its v1, v3 and v4 forms and K-G for every class; then the v1, v3
      and v4 forms against their plain and first versions at the bench
      shape, timed with their layout adapters apart;
@@ -853,6 +855,52 @@ def small_fused_case(torch, dev, direct, desc, width, windowed,
         cot=cot.to(dev).contiguous())
 
 
+def plain_bwd_with_mass(torch, tf, b_args, cfg, gp):
+    """K-E's plain version on ``b_args`` and, for d_density and d_k0, the
+    sum of the magnitudes of the contributions each grid entry adds up:
+    the plain scatter of |g| instead of g (its bf16 rounding and weights
+    are sign-symmetric, so each tap adds |its contribution|)."""
+    calls, orig = [], tf._March.scatter
+
+    def scatter(st, acc, sel, g):
+        calls.append((st, acc, sel, g))
+        return orig(st, acc, sel, g)
+
+    tf._March.scatter = scatter
+    try:
+        refs = tf.train_bwd_plain(*b_args, cfg=cfg, gp=gp)
+    finally:
+        tf._March.scatter = orig
+    if len(calls) != 2:
+        raise AssertionError(f"train_bwd_plain scattered {len(calls)} times")
+    mass = []
+    for st, acc, sel, g in calls:
+        m = torch.zeros_like(acc)
+        orig(st, m, sel, g.abs())
+        mass.append(m)
+    return refs, {"d_density": mass[0][..., 0], "d_k0": mass[1]}
+
+
+def zero_flips(torch, got, want, mass):
+    """Entries that are zero in one of ``got`` and ``want`` only: their
+    count and the largest |nonzero side| as a share of the entry's own
+    contribution mass (inf where the plain version adds nothing there).
+    Both versions sum an entry's contributions with f32 atomics in an order
+    that varies from run to run, so where they cancel, one order can land
+    on exactly zero and another an ulp away; and a contribution may differ
+    by a bf16 flip of the MLP (``FUSED_TOL_MAX`` of itself). A touch missed
+    or added leaves a share near 1 or inf."""
+    flip = (got == 0) != (want == 0)
+    n = int(flip.sum())
+    if n == 0:
+        return 0, 0.0
+    v = (got[flip] + want[flip]).abs()
+    m = mass[flip]
+    share = torch.where(m > 0, v / m.clamp(min=1e-38),
+                        torch.full_like(v, float("inf")))
+    return n, float(share.max())
+
+
 def _share(torch, got, ref):
     """(largest, mean) |got - ref| as shares of ref's largest entry."""
     scale = float(ref.abs().max())
@@ -909,7 +957,7 @@ def check_fused(tf, case, what):
     b_args = args[:2] + [cot] + args[2:]
     outs = tf.train_bwd(*b_args, cfg=cfg, gp=gp)
     torch.cuda.synchronize()
-    refs = tf.train_bwd_plain(*b_args, cfg=cfg, gp=gp)
+    refs, mass = plain_bwd_with_mass(torch, tf, b_args, cfg, gp)
     onames = ("d_density", "d_k0", "d_sh1", "d_w1a", "d_w2", "d_b2", "d_w3",
               "d_b3")
     msgs, ok, err_bwd = [], True, 0.0
@@ -920,10 +968,12 @@ def check_fused(tf, case, what):
         err_bwd = max(err_bwd, float((got - want).abs().max()))
         msg = f"{name} {mx:.2e}/{mean:.2e}"
         if name in ("d_density", "d_k0"):
-            differ = int(((got == 0) != (want == 0)).sum())
-            ok = ok and differ == 0
+            differ, flip_share = zero_flips(torch, got, want, mass[name])
+            ok = ok and flip_share <= FUSED_TOL_MAX
             msg += f" (zero pattern differs at {differ} of " \
-                   f"{int((want != 0).sum())} nonzeros)"
+                   f"{int((want != 0).sum())} nonzeros, the nonzero side " \
+                   f"at most {flip_share:.2e} of the entry's contribution " \
+                   f"mass)"
         msgs.append(msg)
     log(f"[phase 1] K-E train_bwd {what}: {', '.join(msgs)}")
     if not ok:
@@ -1594,12 +1644,12 @@ def median(xs):
     return float(xs[len(xs) // 2])
 
 
-# The first versions of K-A, K-C, K-F, K-B, K-D and K-E, kept
+# The first versions of K-A, K-C, K-F, K-B, K-D, K-E and K-G, kept
 # beside their redesign as the yardstick of its `prev_ms` (never loaded by
 # the port).
 PREV_KERNELS = ("sweep_fwd_v1", "sweep_bwd_v1", "tv_add_grad_first",
                 "render_frame_first", "train_fused_fwd_first",
-                "train_fused_bwd_first")
+                "train_fused_bwd_first", "probe_ops_first")
 
 
 def _prev_lib(name):
@@ -1607,6 +1657,10 @@ def _prev_lib(name):
     C signature its wrapper declared."""
     import ctypes
     from directvoxgo_tpu_torch.ops import _build
+    if name == "probe_ops_first":
+        from directvoxgo_tpu_torch.ops import probe_ops as kg
+        lib = kg._lib_first()
+        return lib, lib.dvgo_probe_gemm
     lib = _build.load(name)
     lib.dvgo_error_string.argtypes = [ctypes.c_int]
     lib.dvgo_error_string.restype = ctypes.c_char_p
@@ -1890,6 +1944,28 @@ def kernel_usage(lib, kernel, *targs):
         if name == lib and want in mangled:
             return {"registers": regs, "spills": st + ld}
     return {"registers": None, "spills": None}
+
+
+def probe_usage(kg, cls):
+    """(usage, first version's usage) of the K-G instance that runs class
+    ``cls``, as :func:`kernel_usage` gives them."""
+    body = kg.CLASSES[cls][4]
+    if body[0] != "gemm":
+        return (kernel_usage("probe_ops", "elem_probe", body[1]),
+                kernel_usage("probe_ops_first", "elem_probe", body[1]))
+    p = kg.gemm_plan(cls, kg.CLASSES[cls][3])
+    a_col, b_col = body[8], body[12]
+    want = ("gemm_probeIN6nvcuda4wmma9col_majorENS2_9row_majorEEE" if a_col
+            else "gemm_probeIN6nvcuda4wmma9row_majorENS2_9col_majorEEE"
+            if b_col else "gemm_probeIN6nvcuda4wmma9row_majorES3_EE")
+    first = {"registers": None, "spills": None}
+    for (name, mangled), (regs, st, ld) in USAGE.items():
+        if name == "probe_ops_first" and want in mangled:
+            first = {"registers": regs, "spills": st + ld}
+    inst = (p["n"], p["a_mn"], p["b_mn"], p["k"] // 16,
+            p["n_h"] if p["a_streamed"] else 1, p["mt"] // 128, p["a_sw"],
+            p["b_sw"])
+    return kernel_usage("probe_ops", "gemm_probe", *inst), first
 
 
 def fwd_numbers(torch, ka, slabs, rays, k, v_base=None, wv=0):
@@ -3516,8 +3592,11 @@ def harness_phase(torch, dev, kb):
     frame-kernel harness, and the op probe. Runs ``bench_framekernel``
     check (the three colour modes, every form against its plain version)
     and perf (six variants at the bench shape) and ``probe_ops`` (every
-    class's digest against its plain version, per-op costs), with the
-    launch counts set to 0 just before; then holds the v1 and v3 forms
+    class's digest, the kernel's and its first version's, against its
+    plain version; per-op costs on the device alone; a class reading below
+    its bound fails, and so do r3dot and r3f slower than one
+    ``torch.matmul`` of the same op), with the launch counts set to 0 just
+    before; then holds the v1 and v3 forms
     against their plain versions at the bench shape and times them.
     Returns the ``kernels`` entries of the two forms and the twelve probe
     classes, and the harness's own numbers."""
@@ -3596,6 +3675,7 @@ def harness_phase(torch, dev, kb):
     for cls, row in rows.items():
         per = "launch" if cls == "null" else "op"
         scale = 1.0 if per == "launch" else row["g"] * row["reps"]
+        usage, prev_usage = probe_usage(kg, cls)
         entry = {"name": f"probe_ops [{cls}]", "route": "cuda",
                  "source": "directvoxgo_tpu_torch/csrc/probe_ops.cu",
                  "replaces": "tools/probe_mosaic.py:44",
@@ -3604,19 +3684,36 @@ def harness_phase(torch, dev, kb):
                  "rel_err": row["rel_err"], "per": per,
                  "ms": (row["launch_ms"] if per == "launch"
                         else row["op_us"] / 1e3),
+                 "prev_ms": (row["prev_launch_ms"] if per == "launch"
+                             else row["prev_op_us"] / 1e3),
                  "plain_ms": row["plain_ms"] / (1.0 if per == "launch"
                                                 else row["reps"]),
                  "bound_ms": row["bound_ms"] / scale,
                  "bound_by": row["bound_by"],
                  "library_ms": row["library_op_us"] / 1e3,
-                 "launch_ms": row["launch_ms"], "g": row["g"],
+                 "share_of_bound": row["share"] if per == "op" else None,
+                 "bytes_per_op": row["block_bytes"],
+                 "bytes_tbps": row["bytes_tbps"] if per == "op" else None,
+                 "ops_tflops": row["ops_tflops"] if per == "op" else None,
+                 **usage, "prev_usage": prev_usage,
+                 "prev_rel_err": row["prev_rel_err"],
+                 "launch_ms": row["launch_ms"],
+                 "prev_launch_ms": row["prev_launch_ms"], "g": row["g"],
                  "reps": row["reps"]}
         if cls == "null":
             entry.update(null_ms=row["null_ms"],
-                         per_block_us=row["per_block_us"])
+                         prev_null_ms=row["prev_null_ms"],
+                         per_block_us=row["per_block_us"],
+                         prev_per_block_us=row["prev_per_block_us"])
         entries.append(entry)
+    slower = [c for c in ("r3dot", "r3f")
+              if rows[c]["op_us"] > rows[c]["library_op_us"]]
+    if slower:
+        raise AssertionError(f"K-G slower than torch.matmul per op for "
+                             f"{slower}")
     log(f"[phase 8] probe, per op (us): " + ", ".join(
-        f"{c} {r['op_us']:.3f} (bound {r['bound_op_us']:.3f}, library "
+        f"{c} {r['op_us']:.4f} (first version {r['prev_op_us']:.4f}, bound "
+        f"{r['bound_op_us']:.4f}, {r['share']:.1%} of it, library "
         f"{r['library_op_us']:.3f})" for c, r in rows.items() if c != "null"))
     harness = {"perf": perf, "check": {f"{m} mlp={h}": v
                                        for (m, h), v in held.items()}}

@@ -26,11 +26,17 @@ Classes (x, w[i] -> output of one op; bf16 operands, f32 results):
 
 :func:`probe` launches the kernel for CUDA tensors (or raises) and runs
 :func:`probe_plain`, the same digest in plain PyTorch, for CPU tensors.
+The matmul classes run on ``wgmma`` from shared memory in the loop order
+:func:`gemm_plan` sets out (reps inner: the operand without the rep index
+held across them); :func:`probe_first` launches the first version
+(``csrc/probe_ops_first.cu``), kept as the redesign's yardstick and never
+used by the port.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -80,10 +86,106 @@ K_TRUE = {"lead": 12}
 
 launches = {name: 0 for name in CLASSES}
 
+# The kernel's loop for a matmul class (csrc/probe_ops.cu's Plan, in this
+# order): for o < n_o the held operand takes slot o % h_slots (n_h tiles
+# from held(o, h) = base + o*h_so + h*h_sh); then for j < n_j one streamed
+# tile from base + o*s_so + (j // s_jdiv)*s_sj1 + (j % s_jdiv)*s_sj2 through
+# a ring of ``stages``, and its products. A and B are read as [a_total][lda]
+# and [b_total][ldb] (the kernel's TMA tensor maps); a tile spans a_rows x
+# a_cols of A, a B tile b_rows x b_cols; mt and n are the M and N of a step,
+# k its K; a_mn / b_mn mark an operand stored MN-major; a_sw / b_sw are the
+# bytes of its swizzle (128 where its tile's contiguous extent holds whole
+# 64-column atoms, else 64).
+PLAN_FIELDS = ("n_o", "n_j", "n_h", "h_slots", "stages", "a_streamed",
+               "a_total", "b_total", "a_rows", "a_cols", "lda", "b_rows",
+               "b_cols", "ldb", "s_so", "s_jdiv", "s_sj1", "s_sj2", "h_so",
+               "h_sh", "mt", "n", "k", "a_mn", "b_mn", "a_sw", "b_sw")
+# Dynamic shared memory a plan may take: the H100's 227 KB a block, less
+# 1 KB for the static barriers and sums.
+SMEM_LIMIT = 232448 - 1024
+MAX_STAGES = 8
+TILE_BYTES = 32768     # A tiles streamed by the classes with m > 128
+N_TILES = (128, 64)    # B's n-tile: the first that divides n
+
+
+def gemm_plan(name, reps):
+    """The loop of class ``name``'s matmul body at ``reps`` reps as a dict
+    of :data:`PLAN_FIELDS`: the operand without the rep index is held in
+    shared memory across the reps, the rep-indexed one streams. mmT holds
+    w and streams 128-row tiles of x[i]; r3dot, r3f and lead (m > 128)
+    hold every rep's w[i] and stream x in tiles of TILE_BYTES; the others
+    (m = 128) hold x (a batch entry at a time, two slots) and stream w[i]
+    in n-tiles of :data:`N_TILES` (b8geo's n = 320 is above wgmma's 256:
+    tiles of 64, which leave room for 7 stages where 160 left 2). The ring
+    takes what shared memory the held slots leave, up to MAX_STAGES."""
+    body = CLASSES[name][4]
+    if body[0] != "gemm":
+        raise ValueError(f"probe {name}: not a matmul class")
+    (batch, m, n, k, a_bat, a_rep, lda, a_col,
+     b_bat, b_rep, ldb, b_col) = body[1:]
+    x_shape, _, w_shape = CLASSES[name][:3]
+    p = dict(n_o=batch, lda=lda, ldb=ldb, k=k, a_mn=a_col, b_mn=1 - b_col,
+             a_total=math.prod(x_shape) // lda,
+             b_total=math.prod(w_shape) // ldb)
+    if a_rep:
+        mt, nt = 128, n
+        p.update(a_streamed=1, n_h=1, h_slots=1, n_j=reps * (m // mt),
+                 s_so=a_bat, s_jdiv=m // mt, s_sj1=a_rep,
+                 s_sj2=mt if a_col else mt * lda, h_so=b_bat, h_sh=0)
+    elif m > 128:
+        mt, nt = min(m, 128 * max(1, TILE_BYTES // (2 * k * 128))), n
+        p.update(a_streamed=1, n_h=reps, h_slots=1, n_j=m // mt, s_so=a_bat,
+                 s_jdiv=1, s_sj1=mt if a_col else mt * lda, s_sj2=0,
+                 h_so=b_bat, h_sh=b_rep)
+    else:
+        mt, nt = m, next(t for t in N_TILES if n % t == 0)
+        p.update(a_streamed=0, n_h=1, h_slots=min(2, batch),
+                 n_j=reps * (n // nt), s_so=b_bat, s_jdiv=n // nt,
+                 s_sj1=b_rep, s_sj2=nt * ldb if b_col else nt, h_so=a_bat,
+                 h_sh=0)
+    p.update(mt=mt, n=nt, stages=0)
+    p["a_rows"], p["a_cols"] = (k, mt) if a_col else (mt, k)
+    p["b_rows"], p["b_cols"] = (nt, k) if b_col else (k, nt)
+    p["a_sw"], p["b_sw"] = (64 if p[c] % 64 else 128
+                            for c in ("a_cols", "b_cols"))
+    s_bytes = 2 * (p["a_rows"] * p["a_cols"] if p["a_streamed"]
+                   else p["b_rows"] * p["b_cols"])
+    p["stages"] = min(MAX_STAGES, p["n_o"] * p["n_j"],
+                      (SMEM_LIMIT - plan_smem(p)) // s_bytes)
+    if p["stages"] < 2 or m % mt or nt > 256 or k % 16:
+        raise ValueError(f"probe {name}: no plan fits shared memory")
+    return p
+
+
+def plan_smem(p):
+    """Dynamic shared memory bytes of plan ``p``: its held slots, its ring
+    and 1024 for the base's alignment (as csrc/probe_ops.cu counts them)."""
+    a_bytes = 2 * p["a_rows"] * p["a_cols"]
+    b_bytes = 2 * p["b_rows"] * p["b_cols"]
+    s_bytes, h_bytes = (a_bytes, b_bytes) if p["a_streamed"] else (
+        b_bytes, a_bytes)
+    return p["h_slots"] * p["n_h"] * h_bytes + p["stages"] * s_bytes + 1024
+
 
 def _lib():
     """The kernel library, with every C function's signature declared."""
     lib = _build.load("probe_ops")
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.dvgo_probe_gemm.argtypes = [p, p, p, ctypes.POINTER(ll), i, i, p]
+    lib.dvgo_probe_elem.argtypes = [i, p, p, p, i, ll, i, i, i, p]
+    lib.dvgo_probe_plan_len.argtypes = []
+    for fn in (lib.dvgo_probe_gemm, lib.dvgo_probe_elem,
+               lib.dvgo_probe_plan_len):
+        fn.restype = ctypes.c_int
+    lib.dvgo_error_string.argtypes = [ctypes.c_int]
+    lib.dvgo_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _lib_first():
+    """The first version's library (``csrc/probe_ops_first.cu``), with its
+    C signatures declared."""
+    lib = _build.load("probe_ops_first")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.dvgo_probe_gemm.argtypes = [p, p, p, i, i, i, i, ll, ll, i, i, ll,
                                     ll, i, i, i, i, p]
@@ -160,28 +262,36 @@ def _check(name, x, w, reps):
         raise ValueError(f"probe {name}: reps {reps} out of range")
 
 
-def probe(name, x, w, g, reps=None):
-    """Digest partials ``[g]`` f64 of ``g`` blocks of ``reps`` op bodies of
-    class ``name`` (default: the class's reps) on inputs ``x``, ``w`` of the
-    class's shapes (:data:`CLASSES`)."""
-    reps = CLASSES[name][3] if reps is None else reps
-    _check(name, x, w, reps)
-    dev = x.device
-    if dev.type == "cpu":
-        return probe_plain(name, x, w, g, reps)
-    if dev.type != "cuda":
-        raise ValueError(f"probe: unsupported device {dev}")
+def _launch(name, x, w, g, reps, first):
+    """Digest partials of one launch of the kernel (or of its first
+    version) on CUDA tensors; raises if the launch is refused."""
     body = CLASSES[name][4]
+    dev = x.device
     partial = torch.empty(g, dtype=torch.float64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    lib = _lib()
+    lib = _lib_first() if first else _lib()
+    # TMA and 16-byte loads; the first version's wmma fragment loads, 32.
+    align = 32 if first and body[0] == "gemm" else 16
+    for what, t in (("x", x), ("w", w)):
+        if t is not None and t.data_ptr() % align:
+            raise ValueError(f"probe {name}: {what} must be {align}-byte "
+                             "aligned")
     if body[0] == "gemm":
-        if x.data_ptr() % 32 or w.data_ptr() % 32:
-            raise ValueError(f"probe {name}: operands must be 32-byte "
-                             "aligned (wmma fragment loads)")
-        err = lib.dvgo_probe_gemm(x.data_ptr(), w.data_ptr(),
-                                  partial.data_ptr(), *body[1:], g, reps,
-                                  stream)
+        if first:
+            err = lib.dvgo_probe_gemm(x.data_ptr(), w.data_ptr(),
+                                      partial.data_ptr(), *body[1:], g, reps,
+                                      stream)
+        else:
+            plan = gemm_plan(name, reps)
+            if lib.dvgo_probe_plan_len() != len(PLAN_FIELDS):
+                raise RuntimeError("probe: the kernel's plan has "
+                                   f"{lib.dvgo_probe_plan_len()} fields, "
+                                   f"the wrapper's {len(PLAN_FIELDS)}")
+            arr = (ctypes.c_longlong * len(PLAN_FIELDS))(
+                *(plan[f] for f in PLAN_FIELDS))
+            err = lib.dvgo_probe_gemm(x.data_ptr(), w.data_ptr(),
+                                      partial.data_ptr(), arr,
+                                      len(PLAN_FIELDS), g, stream)
     else:
         kind, period = body[1:]
         w_rep = 0 if w is None else w[0].numel()
@@ -192,5 +302,31 @@ def probe(name, x, w, g, reps=None):
     if err:
         raise RuntimeError(f"probe {name} launch failed: "
                            + lib.dvgo_error_string(err).decode())
-    launches[name] += 1
     return partial
+
+
+def _run(name, x, w, g, reps, first):
+    reps = CLASSES[name][3] if reps is None else reps
+    _check(name, x, w, reps)
+    dev = x.device
+    if dev.type == "cpu":
+        return probe_plain(name, x, w, g, reps)
+    if dev.type != "cuda":
+        raise ValueError(f"probe: unsupported device {dev}")
+    partial = _launch(name, x, w, g, reps, first)
+    if not first:
+        launches[name] += 1
+    return partial
+
+
+def probe(name, x, w, g, reps=None):
+    """Digest partials ``[g]`` f64 of ``g`` blocks of ``reps`` op bodies of
+    class ``name`` (default: the class's reps) on inputs ``x``, ``w`` of the
+    class's shapes (:data:`CLASSES`)."""
+    return _run(name, x, w, g, reps, first=False)
+
+
+def probe_first(name, x, w, g, reps=None):
+    """:func:`probe` through the first version of the kernel
+    (``csrc/probe_ops_first.cu``), on the same inputs; uncounted."""
+    return _run(name, x, w, g, reps, first=True)

@@ -101,3 +101,163 @@ def test_probe_checks_its_inputs():
     with pytest.raises(ValueError):
         kg.probe("b12", torch.empty(x.shape, dtype=x.dtype, device=meta),
                  torch.empty(w.shape, dtype=w.dtype, device=meta), 2)
+
+
+# Worked out by hand from tools/probe_mosaic.py's shapes (R = 8 weight
+# slices, G = 512 blocks). Per op: (operand bytes, ((operations, unit),
+# ...), bytes a block brings in per op with reps inner). A matmul moves
+# 2*batch*(m*k + k*n) bytes and does 2*batch*m*n*k operations, lead at
+# k = 12 (its 16 stored rows hold 4 of zeros).
+OP_WORK = {
+    "null": (8 * 128 * 4, ((2 * 8 * 128, "f32"),), 8 * 128 * 4),
+    "b12": (983040, ((62914560, "bf16 tensor"),),
+            12 * 128 * 160 * 2 // 8 + 12 * 160 * 128 * 2),
+    "b8geo": (1146880, ((104857600, "bf16 tensor"),),
+              8 * 128 * 160 * 2 // 8 + 8 * 160 * 320 * 2),
+    "lead": (396288, ((50331648, "bf16 tensor"),),
+             16 * 128 * 128 * 2 // 4 + 16 * 128 * 2),
+    "mm": (655360, ((78643200, "bf16 tensor"),),
+           128 * 160 * 2 // 8 + 160 * 1920 * 2),
+    "mmT": (655360, ((78643200, "bf16 tensor"),),
+            1920 * 160 * 2 + 160 * 128 * 2 // 8),
+    "small": (81920, ((5242880, "bf16 tensor"),),
+              128 * 160 * 2 // 8 + 128 * 160 * 2),
+    "acc": (128 ** 3 * 2 + 128 * 2,
+            ((128 ** 3, "bf16"), (2 * 128 ** 3, "bf16 tensor")),
+            128 ** 3 * 2 // 8 + 128 * 2),
+    "r3dot": (4227072, ((536870912, "bf16 tensor"),),
+              128 ** 3 * 2 // 4 + 128 * 128 * 2),
+    "r3f": (4227072, ((536870912, "bf16 tensor"),),
+            128 ** 3 * 2 // 4 + 128 * 128 * 2),
+    "vpu2d": (2 * 128 * 128 * 4, ((12 * 128 * 128, "f32"),
+                                  (128 * 128, "sfu")),
+              128 * 128 * 4 // 8 + 128 * 128 * 4),
+    "vpu3d8": (2 * 8 * 128 * 128 * 4, ((12 * 8 * 128 * 128, "f32"),
+                                       (8 * 128 * 128, "sfu")),
+               8 * 128 * 128 * 4 // 8 + 8 * 128 * 128 * 4),
+}
+# One launch at G = 512 and the class's reps: x once, each rep's slice
+# once, 512 f64 partials; and the operations of G * reps op bodies.
+LAUNCH_BYTES = {"null": 8192, "b12": 4427776, "b8geo": 6885376,
+                "lead": 544768, "mm": 4960256, "mmT": 4960256,
+                "small": 372736, "acc": 4200448, "r3dot": 4329472,
+                "r3f": 4329472, "vpu2d": 593920, "vpu3d8": 4722688}
+# Peaks: HBM 3.35 TB/s; bf16 tensor 989 TFLOP/s; packed bf16 133.8; f32
+# 67; the special-function units 16 a clock on each of 132 SMs at 1980 MHz.
+PEAK = {"bf16 tensor": 989e12, "bf16": 133.8e12, "f32": 67e12,
+        "sfu": 16 * 132 * 1980e6}
+
+
+@pytest.mark.parametrize("name", list(kg.CLASSES))
+def test_op_work_and_bound_by_hand(name):
+    n_bytes, ops, per_block = OP_WORK[name]
+    assert tool.op_work(name) == (n_bytes, ops)
+    assert tool.block_bytes(name) == per_block
+    reps = kg.CLASSES[name][3]
+    t_bytes = LAUNCH_BYTES[name] / 3.35e12
+    t_ops = max(512 * reps * n / PEAK[unit] for n, unit in ops)
+    ms, by = tool.launch_bound(name, 512, reps)
+    assert ms == pytest.approx(max(t_bytes, t_ops) * 1e3, rel=1e-12)
+    assert by == ("bytes" if t_bytes >= t_ops else "operations")
+
+
+@pytest.mark.parametrize("name", ["vpu2d", "vpu3d8"])
+def test_exp_bound_carries_the_special_function_term(name):
+    """An exp costs one special-function result (16 per SM per clock), and
+    that term, not the f32 one, sets the exp classes' bound; it follows
+    the SM clock. The old count (3 f32 operations an element at 67
+    TFLOP/s) lies below it."""
+    n_el = int(np.prod(kg.CLASSES[name][0]))
+    ms, by = tool.launch_bound(name, 512, 8)
+    sfu = 512 * 8 * n_el / (16 * 132 * 1980e6) * 1e3
+    f32 = 512 * 8 * 12 * n_el / 67e12 * 1e3
+    assert by == "operations"
+    assert ms == pytest.approx(sfu, rel=1e-12) and sfu > f32
+    assert 512 * 8 * 3 * n_el / 67e12 * 1e3 < ms
+    assert tool.launch_bound(name, 512, 8, sm_mhz=990)[0] == pytest.approx(
+        2 * ms, rel=1e-12)
+
+
+@pytest.mark.parametrize("name", list(kg.CLASSES))
+def test_first_version_takes_the_same_inputs(name):
+    """The first version's entry takes the inputs of :data:`CLASSES` as the
+    redesign's does, and refuses the same wrong ones."""
+    x, w = tool.make_inputs(name, seed=5)
+    got = kg.probe(name, x, w, 3)
+    assert torch.equal(kg.probe_first(name, x, w, 3), got)
+    assert torch.equal(got, kg.probe_plain(name, x, w, 3))
+    bad = x.float() if x.dtype == torch.bfloat16 else x.to(torch.bfloat16)
+    for entry in (kg.probe, kg.probe_first):
+        with pytest.raises(ValueError):
+            entry(name, bad, w, 3)
+        with pytest.raises(ValueError):
+            entry(name, x, w, 3, reps=kg.R + 1)
+
+
+def test_device_timer_refuses_the_cpu():
+    with pytest.raises(ValueError):
+        tool.device_time(lambda: None, torch.device("cpu"), 1)
+
+
+def _walk_plan(name, x, w, reps):
+    """The kernel's loop for a matmul class, walked from its plan alone:
+    the held and streamed tiles at the plan's offsets, each step's products
+    (every held tile of B against the A tile), summed in f64. Returns
+    (digest, operations run)."""
+    p = kg.gemm_plan(name, reps)
+    a_flat, b_flat = x.double().reshape(-1), w.double().reshape(-1)
+    a_tile = (p["a_rows"], p["a_cols"], p["lda"])
+    b_tile = (p["b_rows"], p["b_cols"], p["ldb"])
+    (s_flat, s_tile), (h_flat, h_tile) = (
+        ((a_flat, a_tile), (b_flat, b_tile)) if p["a_streamed"]
+        else ((b_flat, b_tile), (a_flat, a_tile)))
+
+    def tile(flat, off, shape):
+        rows, cols, ld = shape
+        return flat[off + torch.arange(rows)[:, None] * ld
+                    + torch.arange(cols)[None, :]]
+
+    def as_a(t):                    # [mt, k]
+        return t.t() if p["a_mn"] else t
+
+    def as_b(t):                    # [k, n]
+        return t if p["b_mn"] else t.t()
+
+    digest, ops = 0.0, 0
+    for o in range(p["n_o"]):
+        held = [tile(h_flat, o * p["h_so"] + h * p["h_sh"], h_tile)
+                for h in range(p["n_h"])]
+        for j in range(p["n_j"]):
+            st = tile(s_flat, o * p["s_so"] + j // p["s_jdiv"] * p["s_sj1"]
+                      + j % p["s_jdiv"] * p["s_sj2"], s_tile)
+            a, bs = ((as_a(st), [as_b(t) for t in held]) if p["a_streamed"]
+                     else (as_a(held[0]), [as_b(st)]))
+            assert a.shape == (p["mt"], p["k"])
+            for b in bs:
+                assert b.shape == (p["k"], p["n"])
+                digest += float((a @ b).sum())
+                ops += 2 * p["mt"] * p["n"] * p["k"]
+    return digest, ops
+
+
+@pytest.mark.parametrize("name", [n for n, c in kg.CLASSES.items()
+                                  if c[4][0] == "gemm"])
+def test_gemm_plan_runs_every_product_once(name):
+    """The plan the kernel walks covers each rep's full product exactly
+    once (every tile, every rep: no sum of the w[i] first, nothing
+    skipped), fits the block's shared memory with a ring of two stages or
+    more, and its digest is the plain version's."""
+    reps = kg.CLASSES[name][3]
+    x, w = tool.make_inputs(name, seed=7)
+    p = kg.gemm_plan(name, reps)
+    assert 2 <= p["stages"] <= kg.MAX_STAGES
+    assert kg.plan_smem(p) <= kg.SMEM_LIMIT
+    assert p["n"] <= 256 and p["mt"] % 128 == 0 and p["k"] % 16 == 0
+    assert p["a_cols"] % (p["a_sw"] // 2) == 0
+    assert p["b_cols"] % (p["b_sw"] // 2) == 0
+    digest, ops = _walk_plan(name, x, w, reps)
+    batch, m, n, k = kg.CLASSES[name][4][1:5]
+    assert ops == reps * 2 * batch * m * n * k
+    terms = {}
+    ref = float(kg.probe_plain(name, x, w, 1, reps, terms=terms).sum())
+    assert abs(digest - ref) <= 1e-5 * terms["abs_sum"]
