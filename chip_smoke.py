@@ -213,7 +213,25 @@ Phases, each of which fails the run:
      children with ``DVGO_FETCH_WATCHDOG=2`` whose pull waits behind a
      spinning kernel, or who sleep inside the guard, exit 17, and one
      whose guard ends in time does not. Alone: ``python3 -c "import
-     chip_smoke; chip_smoke.phase12_alone()"`` (with phase 5, ~5 min).
+     chip_smoke; chip_smoke.phase12_alone()"`` (with phase 5, ~5 min);
+ 13. the last entry points and the JPEG decoder, with ``imageio``, ``cv2``
+     and ``PIL`` blocked: (a) every committed sample of
+     tests/data/torch_jpeg/ decoded bit for bit against its digest of
+     ``imageio``'s pixels in ``expected.json`` (the progressive and CMYK
+     samples must raise), the 800^2 4:2:0 frame's decode timed on the host
+     (best of 3, seconds and MP/s, with the card's name and power limit);
+     (b) ``python -m directvoxgo_tpu_torch.run --render_only
+     --render_test`` (in process) of phase 5's fine checkpoint, K-B once
+     per view the frame plan accepts and K-A per ray for the others, then
+     ``python -m directvoxgo_tpu_torch.eval_metrics --eval_ssim`` (in
+     process) on the PNGs it wrote: its PSNR equal to that of the render's
+     frames truncated to 8 bits as the writer stores them (1e-6 dB; its
+     difference from the render's own mean PSNR logged), its SSIM in
+     (0, 1]; (c) ``tools.visualize_feature``'s
+     panels of that checkpoint on the card and on the CPU (1e-6, the panel
+     count); (d) ``tools.crop_image`` on a frame of (b) and an RGBA PNG
+     against a numpy crop and composite. Alone: ``python3 -c "import
+     chip_smoke; chip_smoke.phase13_alone()"`` (with phase 5, ~3 min).
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line (one
 entry per kernel and form, each with the launches of the path it belongs
@@ -4504,6 +4522,8 @@ def run(dev):
     dp_entries, training["data_parallel"] = dp_phase(
         torch, dev, ka, kc,
         {"model": model, "H": 800, "W": 800, "K": K2, "c2w": c2w, "rk": rk})
+    # Phase 13: the last entry points and the JPEG decoder.
+    training["entry_points"] = entry_phase(torch, dev, ka, kb, kc)
     training["window_checks"] = errs["window"]
     training["small_graph_checks"] = errs["graphs"]
     fwd = [e for e in train_entries if e["name"].startswith("sweep_fwd")]
@@ -6457,6 +6477,274 @@ def phase12_alone():
     print(json.dumps({"kernels": entries, "data_parallel": summary}))
 
 
+# ---------------------------- phase 13: the last entry points, JPEG
+
+JPEG_SAMPLES = os.path.join(REPO, "tests", "data", "torch_jpeg")
+JPEG_TIMED = "lego_800_420_q95.jpg"
+JPEG_RUNS = 3
+# dB between eval_metrics and the render's frames as the PNG writer stores
+# them. Against the render's float PSNRs the truncating 8-bit write alone
+# moved the mean 0.040 and 0.049 dB on phase 5's model (it renders brighter
+# than the ground truth): no fixed bar there holds across trainings.
+EVAL_8BIT_TOL = 1e-6
+PANEL_TOL = 1e-6       # feature panels, card against CPU
+CROP_BOX = (37, 51, 311, 283)    # x0, y0, x1, y1 of phase 13 (d)
+
+
+def card_name_and_limit():
+    """``nvidia-smi --query-gpu=name,power.limit``'s first line."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=False).stdout.strip().splitlines()
+    return smi[0] if smi else "nvidia-smi: no output"
+
+
+def jpeg_checks():
+    """(a) every committed JPEG sample against its digest of imageio's
+    pixels (bit for bit), the refused samples raising and naming
+    themselves, and the 800^2 4:2:0 frame's decode timed on the host."""
+    import hashlib
+    import numpy as np
+    from directvoxgo_tpu_torch.data.image_io import read_jpeg
+    with open(os.path.join(JPEG_SAMPLES, "expected.json")) as f:
+        expected = json.load(f)
+    decoded, refused = 0, 0
+    for name, want in sorted(expected.items()):
+        path = os.path.join(JPEG_SAMPLES, name)
+        if "raises" in want:
+            try:
+                read_jpeg(path)
+            except ValueError as e:
+                if want["raises"] not in str(e) or path not in str(e):
+                    raise AssertionError(f"{name}: raised {e!r}, expected "
+                                         f"{want['raises']!r} and its path")
+                refused += 1
+                continue
+            raise AssertionError(f"{name}: decoded; it must raise "
+                                 f"({want['raises']})")
+        px = np.ascontiguousarray(read_jpeg(path))
+        got = {"shape": list(px.shape), "dtype": str(px.dtype),
+               "sha256": hashlib.sha256(px.tobytes()).hexdigest()}
+        if got != want:
+            raise AssertionError(f"{name}: decoded {got}, imageio gives "
+                                 f"{want}")
+        decoded += 1
+    path = os.path.join(JPEG_SAMPLES, JPEG_TIMED)
+    secs = []
+    for _ in range(JPEG_RUNS):
+        t0 = time.perf_counter()
+        px = read_jpeg(path)
+        secs.append(time.perf_counter() - t0)
+    best = min(secs)
+    out = {"samples_bit_exact": decoded, "samples_refused": refused,
+           "timed": JPEG_TIMED, "shape": list(px.shape),
+           "decode_s_best_of_3": best, "decode_s": secs,
+           "megapixels_per_s": px.shape[0] * px.shape[1] / 1e6 / best,
+           "host": "the card's host CPU, one thread of Python and numpy",
+           "card": card_name_and_limit()}
+    log(f"[phase 13] (a) JPEG: {decoded} samples bit for bit against "
+        f"imageio's digests, {refused} refused as expected; {JPEG_TIMED} "
+        f"{tuple(px.shape)} decoded in {best:.4f} s (best of {JPEG_RUNS}: "
+        f"{[round(x, 4) for x in secs]}), {out['megapixels_per_s']:.3f} "
+        f"MP/s on the host; card {out['card']}")
+    return out
+
+
+def score_render(torch, dev, ka, kb, kc):
+    """(b) ``run.py --render_only --render_test`` of phase 5's fine
+    checkpoint, then ``eval_metrics`` on the PNGs it wrote. Returns the
+    summary and the render directory."""
+    import numpy as np
+    from directvoxgo_tpu_torch import eval_metrics
+    from directvoxgo_tpu_torch import run as run_lib
+    from directvoxgo_tpu_torch.config import Config
+    from directvoxgo_tpu_torch.data import load_everything
+    from directvoxgo_tpu_torch.engine import metrics
+    cfg = Config.fromfile(TRAIN_CONFIG)
+    savedir = os.path.join(cfg.basedir, cfg.expname,
+                           "render_test_fine_last")
+    if os.path.isdir(savedir):
+        for f in os.listdir(savedir):
+            os.remove(os.path.join(savedir, f))
+    cap_r = Capture(run_lib, "render_viewpoints", results=True)
+    ka.launches = kb.launches = kc.launches = 0
+    t0 = time.time()
+    try:
+        run_lib.main(["--config", TRAIN_CONFIG, "--render_only",
+                      "--render_test", "--device", str(dev)])
+        torch.cuda.synchronize()
+    finally:
+        cap_r.restore()
+    render_s = time.time() - t0
+    stats = cap_r.results[0][2]
+    paths = list(stats["path"])
+    launches = {"render_frame": kb.launches, "sweep_fwd": ka.launches,
+                "sweep_bwd": kc.launches}
+    n_frame = paths.count("frame")
+    log(f"[phase 13] (b) --render_only --render_test of phase 5's "
+        f"fine_last.tar in {render_s:.1f} s: paths {paths}, launches "
+        f"{launches}, PSNR per view {[round(x, 4) for x in stats['psnr']]}")
+    if not (launches["render_frame"] == n_frame and 0 < n_frame < len(paths)
+            and launches["sweep_fwd"] > 0 and launches["sweep_bwd"] == 0):
+        raise AssertionError(f"render: K-B {launches['render_frame']} "
+                             f"launches for {n_frame} accepted views, K-A "
+                             f"{launches['sweep_fwd']} for "
+                             f"{len(paths) - n_frame} per ray (both must "
+                             f"run), K-C {launches['sweep_bwd']}; paths "
+                             f"{paths}")
+    t0 = time.time()
+    means = eval_metrics.main(["--render_dir", savedir, "--config",
+                               TRAIN_CONFIG, "--eval_ssim"])
+    eval_s = time.time() - t0
+    psnr_views = float(np.mean(stats["psnr"]))
+    # the same frames as the PNG writer stores them (8 bits, truncated)
+    data = load_everything(None, cfg)
+    psnr_8bit = float(np.mean([metrics.psnr(
+        (metrics.to8b(rgb) / 255.0).astype(np.float32),
+        np.asarray(data["images"][i], np.float32))
+        for rgb, i in zip(cap_r.results[0][0], data["i_test"])]))
+    with open(os.path.join(savedir, "_metrics.txt")) as f:
+        report = f.read()
+    log(f"[phase 13] (b) eval_metrics in {eval_s:.1f} s: {means} "
+        f"(_metrics.txt {report.split()}); render_viewpoints' mean PSNR "
+        f"{psnr_views:.4f} dB, of its frames as 8 bits {psnr_8bit:.6f} dB")
+    log(f"[phase 13] (b) eval_metrics PSNR minus the render's mean: "
+        f"{means['psnr'] - psnr_views:+.4f} dB (the 8-bit write)")
+    if not abs(means["psnr"] - psnr_8bit) <= EVAL_8BIT_TOL:
+        raise AssertionError(f"eval_metrics PSNR {means['psnr']} vs the "
+                             f"render's frames at 8 bits {psnr_8bit}")
+    if not 0.0 < means["ssim"] <= 1.0:
+        raise AssertionError(f"eval_metrics SSIM {means['ssim']} not in "
+                             "(0, 1]")
+    if report != f"psnr {means['psnr']:.4f}\nssim {means['ssim']:.4f}\n":
+        raise AssertionError(f"_metrics.txt reads {report!r}")
+    return {"paths": paths, "launches": launches, "render_s": render_s,
+            "psnr_views": list(stats["psnr"]), "psnr_views_mean": psnr_views,
+            "psnr_views_8bit_mean": psnr_8bit, "eval_metrics": means,
+            "eval_s": eval_s}, savedir
+
+
+def panel_checks(torch, dev):
+    """(c) the feature panels of phase 5's fine checkpoint on the card and
+    on the CPU."""
+    import numpy as np
+    from directvoxgo_tpu_torch.config import Config
+    from directvoxgo_tpu_torch.engine import checkpoint as ckpt_lib
+    from directvoxgo_tpu_torch.tools import visualize_feature
+    cfg = Config.fromfile(TRAIN_CONFIG)
+    st = ckpt_lib.load_checkpoint_file(os.path.join(
+        cfg.basedir, cfg.expname, "fine_last.tar"))
+    state, kw = st["model_state_dict"], st["model_kwargs"]
+    out = {}
+    for n_slices, max_channels in ((6, 12), (4, 5)):
+        card = visualize_feature.feature_panels(
+            state, kw, n_slices=n_slices, max_channels=max_channels,
+            device=dev)
+        cpu = visualize_feature.feature_panels(
+            state, kw, n_slices=n_slices, max_channels=max_channels,
+            device="cpu")
+        channels = np.asarray(state["k0"]).shape[-1]
+        want = n_slices + min(channels, max_channels)
+        err = max(float(np.abs(a - b).max()) for a, b in zip(card[0],
+                                                              cpu[0]))
+        finite = all(np.isfinite(p).all() for p in card[0])
+        out[f"{n_slices}x{max_channels}"] = {
+            "panels": len(card[0]), "expected": want, "max_abs_err": err,
+            "shape": list(card[0][0].shape)}
+        if not (len(card[0]) == want and card[1] == cpu[1] and finite
+                and err <= PANEL_TOL):
+            raise AssertionError(f"feature panels ({n_slices} slices, "
+                                 f"{max_channels} channels): "
+                                 f"{len(card[0])} of {want}, titles "
+                                 f"{card[1]} vs {cpu[1]}, finite {finite}, "
+                                 f"card vs CPU {err}")
+    log(f"[phase 13] (c) feature panels of the "
+        f"{tuple(np.asarray(state['density']).shape)} density and "
+        f"{np.asarray(state['k0']).shape[-1]} k0 channels, card against "
+        f"CPU: {out}")
+    return out
+
+
+def crop_checks(savedir):
+    """(d) ``crop_image`` on a frame of (b) and on an RGBA PNG, against a
+    numpy crop and composite of the same input."""
+    import numpy as np
+    from directvoxgo_tpu_torch.data.image_io import read_png, write_png
+    from directvoxgo_tpu_torch.tools import crop_image
+    x0, y0, x1, y1 = CROP_BOX
+    box = ["--x0", str(x0), "--y0", str(y0), "--x1", str(x1), "--y1",
+           str(y1)]
+    frame = os.path.join(savedir, "000.png")
+    rng = np.random.default_rng(SEED)
+    rgba = np.concatenate([read_png(frame), rng.integers(
+        0, 256, read_png(frame).shape[:2] + (1,)).astype(np.uint8)], -1)
+    rgba_path = os.path.join(CKPT_DIR, "crop_rgba_in.png")
+    write_png(rgba_path, rgba)
+    out = {}
+    for what, src in (("rgb frame", frame), ("rgba", rgba_path)):
+        dst = os.path.join(CKPT_DIR, f"crop_{what.split()[0]}_out.png")
+        crop_image.main([src, dst] + box)
+        # the JAX tool's composite: through float32, onto white
+        img = (read_png(src) / 255.0).astype(np.float32)
+        if img.shape[-1] == 4:
+            img = img[..., :3] * img[..., 3:] + (1.0 - img[..., 3:])
+        want = (255 * np.clip(img, 0, 1)).astype(np.uint8)[y0:y1, x0:x1]
+        got = read_png(dst)
+        same = got.shape == want.shape and bool((got == want).all())
+        out[what] = {"shape": list(got.shape), "equal": same}
+        if not same:
+            raise AssertionError(f"crop_image of the {what}: {got.shape} "
+                                 f"vs numpy's {want.shape}, equal {same}")
+    log(f"[phase 13] (d) crop_image against numpy: {out}")
+    return out
+
+
+def entry_phase(torch, dev, ka, kb, kc):
+    """Phase 13, with ``imageio``, ``cv2`` and ``PIL`` blocked: (a) the
+    JPEG decoder on the committed samples, timed; (b) phase 5's test
+    views rendered through ``run.py`` and scored by ``eval_metrics``; (c)
+    ``visualize_feature``'s panels card against CPU; (d) ``crop_image``.
+    Returns the summary."""
+    t0 = time.time()
+    blocked = BlockedImports()
+    try:
+        summary = {"jpeg": jpeg_checks()}
+        summary["eval_metrics"], savedir = score_render(torch, dev, ka, kb,
+                                                        kc)
+        summary["feature_panels"] = panel_checks(torch, dev)
+        summary["crop_image"] = crop_checks(savedir)
+        still = [m for m in BLOCKED_MODULES if sys.modules[m] is not None]
+        if still:
+            raise AssertionError(f"phase 13 imported {still}")
+    finally:
+        blocked.restore()
+    summary["seconds"] = time.time() - t0
+    log(f"[phase 13] done in {summary['seconds']:.1f} s")
+    return summary
+
+
+def phase13_alone():
+    """Phase 13 on its own (with phase 5, whose checkpoint it reads, and
+    the builds it needs): ``python3 -c "import chip_smoke;
+    chip_smoke.phase13_alone()"``. Prints the phase's JSON summary."""
+    import torch
+    from directvoxgo_tpu_torch.ops import _build
+    from directvoxgo_tpu_torch.ops import render_frame as kb
+    from directvoxgo_tpu_torch.ops import sweep as sweep_ops
+    from directvoxgo_tpu_torch.ops import sweep_bwd as kc
+    from directvoxgo_tpu_torch.ops import sweep_fwd as ka
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.chdir(REPO)
+    dev = torch.device("cuda", 0)
+    logs = _build.build_all(_build.KERNELS + PREV_KERNELS)
+    USAGE.update(ptxas_usage(logs))
+    build_checkpoint(torch, dev)
+    train_phase(torch, dev, ka, kb, kc, sweep_ops)
+    print(json.dumps({"entry_points": entry_phase(torch, dev, ka, kb, kc)}))
+
+
 def main():
     if len(sys.argv) > 1:
         log(f"chip_smoke: takes no arguments, got {sys.argv[1:]}")
@@ -6480,11 +6768,7 @@ def main():
     except Exception:  # report the failed phase, print no result
         traceback.print_exc()
         return 1
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=False).stdout.strip().splitlines()
-    print(smi[0] if smi else "nvidia-smi: no output")
+    print(card_name_and_limit())
     print(json.dumps({"kernels": kernels, "training": training}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,19 +20,20 @@ Interlaced files raise.
 
 :func:`area_resize_np` is the numpy form of :func:`..ops.resize.area_resize`
 (OpenCV's ``INTER_AREA`` weights). :func:`image_size` reads the size of a
-PNG or JPEG from its header. JPEG decoding is left to ``imageio``
-(:func:`read_image` raises, naming the package, where it is missing).
+PNG or JPEG from its header. :func:`read_jpeg` (from :mod:`.jpeg`) decodes
+a sequential JPEG as ``imageio.v2.imread`` does, and :func:`read_image`
+picks the decoder by the file's first bytes.
 """
 
 from __future__ import annotations
 
-import os
 import struct
 import zlib
 
 import numpy as np
 
 from ..ops.resize import area_weights
+from .jpeg import read_jpeg  # noqa: F401  (part of this module's interface)
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}   # PNG colour type -> samples
@@ -177,18 +178,16 @@ def image_size(path):
 
 
 def read_image(path):
-    """A PNG through :func:`read_png`; any other file (JPEG) through
-    ``imageio``, which must then be installed."""
-    if path.lower().endswith(".png"):
+    """A PNG through :func:`read_png`, a JPEG through :func:`read_jpeg`,
+    told apart by their first bytes (as ``imageio`` does, whatever the
+    file's extension); any other file raises."""
+    with open(path, "rb") as f:
+        head = f.read(8)
+    if head == _SIGNATURE:
         return read_png(path)
-    try:
-        import imageio.v2 as imageio
-    except ImportError as e:
-        raise ImportError(
-            f"decoding {os.path.basename(path)} needs the 'imageio' package; "
-            "PNG files (such as an LLFF scene's images_<factor> folders) "
-            "load without it") from e
-    return imageio.imread(path)
+    if head[:2] == b"\xff\xd8":
+        return read_jpeg(path)
+    raise ValueError(f"{path}: neither a PNG nor a JPEG file")
 
 
 def area_resize_np(img, out_h, out_w):

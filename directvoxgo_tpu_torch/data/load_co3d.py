@@ -4,8 +4,8 @@ Reads the gzip json frame annotations (kept to one sequence), the
 train/test set lists, each frame's foreground mask (frames whose mask is
 empty are dropped) and pytorch3d-convention viewpoints, turned into c2w
 and pixel intrinsics. Views may differ in size: the images and masks are
-then object arrays (``irregular_shape``). PNG frames load without
-``imageio``; JPEG frames need it (:func:`.image_io.read_image`).
+then object arrays (``irregular_shape``). PNG and JPEG frames (CO3D ships
+``.jpg``) load without ``imageio`` (:func:`.image_io.read_image`).
 """
 
 from __future__ import annotations

@@ -6,8 +6,8 @@ downsampled image directories (``images_{factor}``, ``images_{W}x{H}``)
 are made by an area resize (OpenCV's ``INTER_AREA`` and its uint8
 rounding, :func:`.image_io.area_resize_u8`), under the directory names the
 upstream loader's ImageMagick step uses, so either's cache serves the
-other. PNGs are read by :func:`.image_io.read_png`; only decoding a JPEG
-(the raw ``images/*.JPG`` of a folder not yet made) needs ``imageio``.
+other. Images, the raw ``images/*.JPG`` included, are read by
+:func:`.image_io.read_image` (PNG or sequential JPEG), without ``imageio``.
 """
 
 from __future__ import annotations

@@ -246,7 +246,10 @@ CONDITIONED_MODULES = (
     "tools.scene_layouts",
     # data parallelism, the fetch watchdog and its restart wrapper
     "parallel", "parallel.mesh", "engine.fetchguard", "tools.resilient_run",
-    "tools.check_data_parallel")
+    "tools.check_data_parallel",
+    # the last entry points and the JPEG decoder
+    "eval_metrics", "tools.visualize_feature", "tools.crop_image",
+    "data.jpeg")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

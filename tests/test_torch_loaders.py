@@ -4,8 +4,9 @@ imageio write (every colour type and bit depth the loaders meet, every row
 filter), the area resize against OpenCV, the NSVF, BlendedMVS,
 Tanks&Temples, DeepVoxels and CO3D loaders and the multi-scene NSVF dataset
 on scenes written here, the written scenes' rays against the fixture's,
-three train steps on an NSVF and a CO3D scene against JAX's, and the PNG
-loaders with ``imageio``, ``cv2`` and Pillow blocked.
+three train steps on an NSVF and a CO3D scene against JAX's, the PNG
+loaders with ``imageio``, ``cv2`` and Pillow blocked, and so a JPEG CO3D
+scene and a raw JPEG LLFF scene against the JAX loaders.
 """
 
 import importlib
@@ -623,3 +624,92 @@ def test_png_loaders_need_no_imageio_cv2_or_pil(tmp_path, fixture40):
     lines = proc.stdout.split("\n")
     assert sum(1 for x in lines if x.split(" ")[0] in cfgs) == len(cfgs)
     assert "multiscene 2 blender (2, 20, 20, 3)" in proc.stdout
+
+
+def _co3d_as_jpeg(root):
+    """Re-encode the frames of a CO3D scene written by ``write_co3d`` as
+    JPEGs (4:2:0, quality 90, as CO3D ships them) and point its
+    annotations and set lists at them."""
+    import gzip
+    import json
+    cat = os.path.join(root, "fixture")
+    annot_path = os.path.join(cat, "frame_annotations.jgz")
+    with gzip.open(annot_path, "rt") as f:
+        annots = json.load(f)
+    for a in annots:
+        png = a["image"]["path"]
+        jpg = png[:-4] + ".jpg"
+        Image.open(os.path.join(root, png)).save(
+            os.path.join(root, jpg), quality=90, subsampling=2)
+        os.remove(os.path.join(root, png))
+        a["image"]["path"] = jpg
+    with gzip.open(annot_path, "wt") as f:
+        json.dump(annots, f)
+    split_path = os.path.join(cat, "set_lists.json")
+    with open(split_path) as f:
+        sets = json.load(f)
+    sets = {k: [[s, i, p[:-4] + ".jpg"] for s, i, p in v]
+            for k, v in sets.items()}
+    with open(split_path, "w") as f:
+        json.dump(sets, f)
+
+
+def test_jpeg_loaders_need_no_imageio_cv2_or_pil(tmp_path, fixture40):
+    """A CO3D scene whose frames are JPEGs and a raw LLFF scene whose
+    ``images/`` are JPEGs (``_minify`` makes ``images_2`` from them), loaded
+    by the port with ``imageio``, ``cv2`` and ``PIL`` blocked, against the
+    JAX loaders on the same files (loaded before, with them)."""
+    import pickle
+    import shutil
+    d = fixture40
+    co3d_cfg = write_layout(str(tmp_path / "co3d"), "co3d", d)[0]
+    _co3d_as_jpeg(str(tmp_path / "co3d"))
+    llff_cfgs = {who: dict(
+        dataset_type="llff", datadir=str(tmp_path / f"llff_{who}"),
+        factor=2, width=None, height=None, spherify=False, llffhold=2,
+        ndc=True, load_depths=False, white_bkgd=False)
+        for who in ("jax", "port")}
+    os.makedirs(tmp_path / "llff_jax" / "images")
+    rows = []
+    for i in range(4):
+        img = scene_layouts.to_u8(d["images"][i])[:38, :, :]  # 38x40
+        Image.fromarray(img).save(
+            str(tmp_path / "llff_jax" / "images" / f"IMG_{i:03d}.JPG"),
+            quality=85, subsampling=2)
+        pose = np.concatenate([np.eye(3), np.zeros((3, 1)) + i * 0.1,
+                               [[38], [40], [30.0]]], 1)
+        rows.append(np.concatenate([pose.ravel(), [2.0, 8.0]]))
+    np.save(tmp_path / "llff_jax" / "poses_bounds.npy", np.stack(rows))
+    shutil.copytree(tmp_path / "llff_jax" / "images",
+                    tmp_path / "llff_port" / "images")
+    shutil.copy(tmp_path / "llff_jax" / "poses_bounds.npy",
+                tmp_path / "llff_port" / "poses_bounds.npy")
+    want = {"co3d": jax_load_data.load_data(JaxConfigDict(**co3d_cfg)),
+            "llff": jax_load_data.load_data(JaxConfigDict(
+                **llff_cfgs["jax"]))}
+    out = str(tmp_path / "port.pkl")
+    cfgs = {"co3d": co3d_cfg, "llff": llff_cfgs["port"]}
+    code = (
+        "import pickle, sys\n"
+        "for m in ('imageio', 'cv2', 'PIL'):\n"
+        "    sys.modules[m] = None\n"
+        "from directvoxgo_tpu_torch.config import ConfigDict\n"
+        "from directvoxgo_tpu_torch.data import load_data\n"
+        f"cfgs = {cfgs!r}\n"
+        "got = {k: load_data(ConfigDict(**c)) for k, c in cfgs.items()}\n"
+        f"pickle.dump(got, open({out!r}, 'wb'))\n"
+        "assert not [m for m in ('imageio', 'cv2', 'PIL')\n"
+        "            if sys.modules[m] is not None]\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300,
+                          env=dict(os.environ, PYTHONPATH=REPO,
+                                   OMP_NUM_THREADS="1"))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = pickle.load(open(out, "rb"))
+    for name in ("co3d", "llff"):
+        _same_loaded(got[name], want[name])
+    assert "minifying to" in proc.stdout
+    assert sorted(os.listdir(tmp_path / "llff_port" / "images_2")) == [
+        f"IMG_{i:03d}.png" for i in range(4)]
+    assert got["llff"]["images"].shape[1:3] == (19, 20)
+    assert len(got["co3d"]["images"]) == len(d["i_train"]) + len(d["i_test"])
