@@ -11,7 +11,13 @@ Phases, each of which fails the run:
      yardstick of their redesign; keep each kernel instance's registers and
      spills from ``-Xptxas -v``;
   1. hold each kernel against its plain PyTorch version on the card, at a
-     small shape here (the sweep's forward at every count of stations a
+     small shape here (the sweep's forward first, in this process and then
+     in FRESH_REPEATS fresh ones, each its first launch after the builds,
+     every other one on freed memory filled with SENTINEL; K-G on every
+     probe class at PROBE_SMALL_G blocks; a failed check logs its
+     mismatch_report: the worst element, the elements off, a second run of
+     both sides, both against the plain version on the CPU; the sweep's
+     forward at every count of stations a
      thread and its backward in its global and shared forms, on both
      cotangent layouts, full, segment and per-tile windowed, for every
      channel instance; the fused train step in both colour modes, both
@@ -251,6 +257,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -362,6 +369,107 @@ class Capture:
         setattr(self.module, self.name, self.orig)
 
 
+# ------------------------------------------ phase 1: reports of a failure
+
+# What :func:`poison_free_memory` fills freed card memory with before a
+# sweep check allocates its outputs: an element that no thread writes then
+# reads exactly this value.
+SENTINEL = -12345.5
+
+
+def poison_free_memory(torch, dev):
+    """Fill card memory that the caching allocator then holds free with
+    ``SENTINEL``: one 256 MB block (the large pool) and 64 blocks of just
+    under 1 MB (the small pool's 2 MB segments), all freed again. Outputs
+    allocated next come from that memory, so an element that no thread
+    writes reads ``SENTINEL`` instead of a stale value or a zero that a
+    zero plain value would hide."""
+    if dev.type != "cuda":
+        return
+    blocks = [torch.full((64 << 20,), SENTINEL, device=dev)]
+    blocks += [torch.full(((1 << 18) - 128,), SENTINEL, device=dev)
+               for _ in range(64)]
+    torch.cuda.synchronize()
+    del blocks
+
+
+def _pair_stats(torch, got, want, tol):
+    """(index of the worst element, kernel and plain value there, elements
+    off: beyond ``tol`` or not finite, non-finite elements of each side,
+    elements equal to ``SENTINEL`` on each side) of one output pair."""
+    import numpy as np
+    g = got.detach().float()
+    w = want.detach().float().to(g.device)
+    d = (g - w).abs()
+    off = int((~(d <= tol)).sum())
+    key = torch.where(torch.isnan(d), torch.full_like(d, float("inf")), d)
+    flat = int(torch.argmax(key.reshape(-1))) if d.numel() else 0
+    idx = tuple(int(i) for i in np.unravel_index(flat, tuple(d.shape)))
+    return (idx, float(g.reshape(-1)[flat]), float(w.reshape(-1)[flat]),
+            off, int((~torch.isfinite(g)).sum()),
+            int((~torch.isfinite(w)).sum()), int((g == SENTINEL).sum()),
+            int((w == SENTINEL).sum()))
+
+
+def _max_diff(torch, a, b):
+    return float((a.detach().float() - b.detach().float().to(
+        a.device)).abs().max()) if a.numel() else 0.0
+
+
+def mismatch_report(torch, what, pairs, rerun=None, cpu=None):
+    """Log what a failed phase-1 kernel check saw, before it raises. For
+    each (name, kernel output, plain output, tolerance) of ``pairs``: the
+    index of the worst element and both values there, how many elements
+    are off (beyond the tolerance, or not finite), how many are not finite
+    on each side, and how many equal ``SENTINEL`` (unwritten, where the
+    memory was filled with it). ``rerun()``: a second kernel launch and a
+    second plain run on the same inputs, [(kernel, plain)] in the order of
+    ``pairs``; logged: how far each moved from the first run and how far
+    the two are apart. ``cpu()``: the plain version on the CPU from copies
+    of the same inputs, [plain] in that order; logged: how far the first
+    kernel and plain outputs are from it, which says which side was wrong.
+    A part that raises is logged and skipped: the report never hides the
+    failure it reports."""
+    log(f"[phase 1] FAILED {what}: report")
+    for name, got, want, tol in pairs:
+        try:
+            idx, g, w, off, nf_g, nf_w, sg, sw = _pair_stats(
+                torch, got, want, tol)
+            log(f"  {name} {tuple(got.shape)}: worst at {idx}: kernel {g!r}"
+                f", plain {w!r}; {off} of {got.numel()} elements off, not "
+                f"finite: kernel {nf_g}, plain {nf_w}; equal to the sentinel"
+                f" {SENTINEL}: kernel {sg}, plain {sw}")
+        except Exception as e:  # noqa: BLE001 - the report is best effort
+            log(f"  {name}: report failed: {e!r}")
+    for label, fn in (("second run", rerun), ("plain on the CPU", cpu)):
+        if fn is None:
+            continue
+        try:
+            again = fn()
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            for (name, got, want, tol), res in zip(pairs, again):
+                if label == "second run":
+                    got2, want2 = res
+                    off = _pair_stats(torch, got2, want2, tol)[3]
+                    apart = _max_diff(torch, got2, want2)
+                    log(f"  {name} {label}: kernel moved "
+                        f"{_max_diff(torch, got2, got):.6g}, plain moved "
+                        f"{_max_diff(torch, want2, want):.6g}; second kernel"
+                        f" against second plain {apart:.6g} ({off} elements"
+                        " off)")
+                else:
+                    log(f"  {name} {label}: first kernel output off it by "
+                        f"{_max_diff(torch, got, res):.6g}, first plain "
+                        f"output by {_max_diff(torch, want, res):.6g}")
+        except Exception as e:  # noqa: BLE001
+            log(f"  {label}: report failed: {e!r}")
+
+
+def _cpu(torch, x):
+    return x.cpu() if torch.is_tensor(x) else x
+
+
 # ----------------------------------------------------------------- phase 1
 
 def small_sweep_case(torch, dev):
@@ -413,8 +521,18 @@ def small_frame_case(torch, dev, width=128, f_k0=12, rgb_mode="direct"):
                 activity=to(activity), has_mlp=True, rgb_mode=rgb_mode)
 
 
+def _inputs_changed(torch, before, after):
+    """Elements of each input that differ from its copy taken before the
+    launch (a write past a kernel's output into the plain side's inputs)."""
+    return ", ".join(f"{name} {int((a.cpu() != b).sum())} of {b.numel()}"
+                     for name, b, a in zip(("slabs", "rays"), before, after))
+
+
 def check_sweep(ka, slabs, rays, k, what, nonempty=False):
     import torch
+    poison_free_memory(torch, slabs.device)
+    # the inputs as they were before the launch: the CPU arbiter reads these
+    before = (slabs.to("cpu", copy=True), rays.to("cpu", copy=True))
     out = ka.sweep_fwd(slabs, rays, k)
     torch.cuda.synchronize()
     ref = ka.sweep_fwd_plain(slabs, rays, k)
@@ -424,6 +542,13 @@ def check_sweep(ka, slabs, rays, k, what, nonempty=False):
         f"slab={tuple(slabs.shape[1:])} N={rays.shape[1]} "
         f"max|kernel-plain|={err:.3e} nonzero share={share:.4f}")
     if not err <= 1e-2:
+        log(f"[phase 1] K-A {what}: inputs changed since before the launch: "
+            f"{_inputs_changed(torch, before, (slabs, rays))}")
+        mismatch_report(
+            torch, f"K-A {what}", [("out", out, ref, 1e-2)],
+            rerun=lambda: [(ka.sweep_fwd(slabs, rays, k),
+                            ka.sweep_fwd_plain(slabs, rays, k))],
+            cpu=lambda: [ka.sweep_fwd_plain(*before, k)])
         raise AssertionError(f"K-A {what}: max abs err {err} > 1e-2")
     if nonempty and share == 0.0:
         raise AssertionError(f"K-A {what}: every sample is zero")
@@ -448,6 +573,18 @@ def check_frame(kb, case, what, empty_check=False):
         f"depth rel err={d_err:.3e} T err={t_err:.3e} "
         f"visible samples={stats['visible_samples']} T<0.5 share={share:.4f}")
     if not (p >= 55.0 and d_err <= 1e-2 and t_err <= 1e-3):
+        def plain(a):
+            return kb.render_frame_plain(**a)
+        cpu_args = {k: ([tuple(_cpu(torch, t) for t in wb) for wb in v]
+                        if k == "layers" and v is not None
+                        else _cpu(torch, v)) for k, v in args.items()}
+        mismatch_report(
+            torch, f"K-B {what}",
+            [("rgb", rgb, r_p, FRAME_RGB_TOL),
+             ("depth", depth, d_p, 1e-2 * torch.clamp(d_p.abs(), min=1.0)),
+             ("T", tcum, t_p, 1e-3)],
+            rerun=lambda: list(zip(kb.render_frame(**args), plain(args))),
+            cpu=lambda: list(plain(cpu_args)))
         raise AssertionError(f"K-B {what}: PSNR {p}, depth {d_err}, T {t_err}")
     if empty_check and not 0.01 <= share <= 0.95:
         raise AssertionError(f"K-B {what}: T<0.5 share {share} outside "
@@ -496,6 +633,17 @@ def hold_frame(torch, kb, f, what):
         f"T and depth equal to the first version: {same}, rgb "
         f"max|kernel-first|={float((rgb - r_f).abs().max()):.3e}")
     if not (err <= FRAME_RGB_TOL and p >= 55.0 and same):
+        def again():
+            r2, d2, t2 = kb.render_frame(**f)
+            _, df2, tf2 = prev_frame_call(torch, f)()
+            return [(r2, kb.render_frame_plain(**f)[0]), (t2, tf2),
+                    (d2, df2)]
+        mismatch_report(
+            torch, f"K-B {what}",
+            [("rgb against plain", rgb, r_p, FRAME_RGB_TOL),
+             ("T against the first version", tcum, t_f, 0.0),
+             ("depth against the first version", depth, d_f, 0.0)],
+            rerun=again)
         raise AssertionError(f"K-B {what}: rgb err {err}, PSNR {p}, T and "
                              f"depth equal to the first version {same}")
     return err
@@ -655,6 +803,7 @@ def check_bwd(kc, g, rays, k, shape, dtype, v_base, wv, what):
     import torch
     n = g.shape[2]
     tol = 1e-5 if n <= 8192 else 2e-5 * (n / 8192) ** 0.5
+    poison_free_memory(torch, g.device)
     acc = kc.sweep_bwd(g, rays, k, shape, dtype, v_base, wv,
                        out_dtype=torch.float32)
     out = kc.sweep_bwd(g, rays, k, shape, dtype, v_base, wv)
@@ -677,6 +826,26 @@ def check_bwd(kc, g, rays, k, shape, dtype, v_base, wv, what):
         f"{float((ref != 0).float().mean()):.4f}")
     if not (scale > 0 and err <= tol * scale and zeros_differ == 0
             and ulp_ok and bool(torch.isfinite(acc).all())):
+        out_tol = (2.0 ** -7 * ref_out.abs() + tol * scale
+                   if dtype == torch.bfloat16 else tol * scale)
+
+        def plain(*a):
+            r = kc.sweep_bwd_plain(*a, k, shape, dtype,
+                                   _cpu(torch, v_base) if a[0].device.type
+                                   == "cpu" else v_base, wv)
+            return r, r.to(dtype).float()
+
+        def again():
+            r2, r2_out = plain(g, rays)
+            return [(kc.sweep_bwd(g, rays, k, shape, dtype, v_base, wv,
+                                  out_dtype=torch.float32), r2),
+                    (kc.sweep_bwd(g, rays, k, shape, dtype, v_base, wv),
+                     r2_out)]
+        mismatch_report(
+            torch, f"K-C {what}",
+            [("f32 accumulator", acc, ref, tol * scale),
+             ("output", out, ref_out, out_tol)],
+            rerun=again, cpu=lambda: list(plain(g.cpu(), rays.cpu())))
         raise AssertionError(f"K-C {what}: err {err} of {scale}, zero "
                              f"pattern differs at {zeros_differ}, ulp "
                              f"{ulp_ok}")
@@ -691,6 +860,7 @@ def check_sweep_rel(ka, slabs, rays, k, v_base, wv, what, zero_slab=False):
     ``zero_slab``: the slabs are all zero (a counted view's), so the output
     must be too."""
     import torch
+    poison_free_memory(torch, slabs.device)
     out = ka.sweep_fwd(slabs, rays, k, v_base, wv)
     torch.cuda.synchronize()
     ref = ka.sweep_fwd_plain(slabs, rays, k, v_base, wv)
@@ -707,6 +877,13 @@ def check_sweep_rel(ka, slabs, rays, k, v_base, wv, what, zero_slab=False):
     if not (bool((err_c <= 1e-5 * scale).all()) and stray == 0
             and (float(scale.max()) > 0) != zero_slab
             and bool(torch.isfinite(out).all())):
+        mismatch_report(
+            torch, f"K-A {what}",
+            [("out", out, ref, 1e-5 * scale[None, :, None])],
+            rerun=lambda: [(ka.sweep_fwd(slabs, rays, k, v_base, wv),
+                            ka.sweep_fwd_plain(slabs, rays, k, v_base, wv))],
+            cpu=lambda: [ka.sweep_fwd_plain(
+                slabs.cpu(), rays.cpu(), k, _cpu(torch, v_base), wv)])
         raise AssertionError(f"K-A {what}: max abs err {err}, {rel} of a "
                              f"channel's largest value, {stray} stray "
                              "nonzeros")
@@ -967,6 +1144,21 @@ def check_fused(tf, case, what):
         f" N={pack.shape[1]} W={cfg.width} max/mean |kernel-plain| as a "
         f"share of the largest entry: {', '.join(msgs)}")
     if not ok:
+        cpu_args = [_cpu(torch, a) for a in args]
+        mismatch_report(
+            torch, f"K-D {what}",
+            [("pack", pack, ref, FUSED_TOL_MAX * float(ref.abs().max())),
+             ("T against the first version", pack[3], first[3], 0.0),
+             ("gates against the first version", gates[5:], first[5:], 0.0)],
+            rerun=lambda: [
+                (tf.train_fwd(*args, cfg=cfg), tf.train_fwd_plain(*args,
+                                                                  cfg=cfg)),
+                (tf.train_fwd(*args, cfg=cfg)[3],
+                 prev_fused_call(torch, args, cfg, mode=tf.MODE_GATES)()[3]),
+                (tf.train_fwd(*args, cfg=cfg, mode=tf.MODE_GATES)[5:],
+                 prev_fused_call(torch, args, cfg,
+                                 mode=tf.MODE_GATES)()[5:])],
+            cpu=lambda: [tf.train_fwd_plain(*cpu_args, cfg=cfg)])
         raise AssertionError(f"K-D {what}: {msgs}")
 
     # K-E takes alphainv_last from the forward it follows.
@@ -995,6 +1187,15 @@ def check_fused(tf, case, what):
         msgs.append(msg)
     log(f"[phase 1] K-E train_bwd {what}: {', '.join(msgs)}")
     if not ok:
+        cpu_args = [_cpu(torch, a) for a in b_args]
+        mismatch_report(
+            torch, f"K-E {what}",
+            [(name, got, want, FUSED_TOL_MAX * float(want.abs().max()))
+             for name, got, want in zip(onames, outs, refs)],
+            rerun=lambda: list(zip(
+                tf.train_bwd(*b_args, cfg=cfg, gp=gp),
+                tf.train_bwd_plain(*b_args, cfg=cfg, gp=gp))),
+            cpu=lambda: list(tf.train_bwd_plain(*cpu_args, cfg=cfg, gp=gp)))
         raise AssertionError(f"K-E {what}: {msgs}")
     return err_fwd, err_bwd
 
@@ -1081,6 +1282,17 @@ def small_tv_checks(torch, dev, tv):
                           and (dense or bool(torch.equal(
                               out[off], g_in[off] + 0.0))))
                     if not ok:
+                        plain = getattr(tv, name + "_plain")
+                        mismatch_report(
+                            torch, f"K-F {name} {shape}",
+                            [("against plain", out, ref, 0.0),
+                             ("against the first version", out, first, 0.0)],
+                            rerun=lambda: [
+                                (getattr(tv, name)(*args), plain(*args)),
+                                (getattr(tv, name)(*args),
+                                 prev_tv_call(torch, name, args, {})())],
+                            cpu=lambda: [plain(*[_cpu(torch, a)
+                                                 for a in args])] * 2)
                         path = tv.path_of(p, g_in, box[0] if box
                                           else (0, 0, 0))
                         raise AssertionError(
@@ -4305,6 +4517,189 @@ def gather_phase(torch, dev, ka, kb, kc, tf, tv):
     return entries, summary
 
 
+# ------------------------------- phase 1 on its own, fresh processes
+
+PROBE_SMALL_G = 4      # blocks of each small K-G launch
+FRESH_REPEATS = 4      # fresh-process repeats of the first K-A check
+
+
+def small_probe_checks(torch, dev):
+    """K-G on every class at ``PROBE_SMALL_G`` blocks: each block's digest
+    against the plain version's within ``DIGEST_TOL`` of the sum of
+    |output element| per block (the harness's rule, block by block), and
+    the first version's likewise. Returns the largest relative error."""
+    from directvoxgo_tpu_torch.ops import probe_ops as kg
+    from directvoxgo_tpu_torch.tools import probe_ops as probe_tool
+    worst, g = 0.0, PROBE_SMALL_G
+    for name in kg.CLASSES:
+        x, w = probe_tool.make_inputs(name)
+        x = x.to(dev)
+        w = None if w is None else w.to(dev)
+        got = kg.probe(name, x, w, g)
+        first = kg.probe_first(name, x, w, g)
+        torch.cuda.synchronize()
+        terms = {}
+        want = kg.probe_plain(name, x, w, g, terms=terms)
+        per_block = max(terms["abs_sum"], 1e-30) / g
+        tol = probe_tool.DIGEST_TOL * per_block
+        rel = float((got - want).abs().max()) / per_block
+        rel_first = float((first - want).abs().max()) / per_block
+        worst = max(worst, rel)
+        if not (rel <= probe_tool.DIGEST_TOL
+                and rel_first <= probe_tool.DIGEST_TOL):
+            mismatch_report(
+                torch, f"K-G {name}",
+                [("digest against plain", got, want, tol),
+                 ("first version against plain", first, want, tol)],
+                rerun=lambda: [(kg.probe(name, x, w, g),
+                                kg.probe_plain(name, x, w, g)),
+                               (kg.probe_first(name, x, w, g),
+                                kg.probe_plain(name, x, w, g))],
+                cpu=lambda: [kg.probe_plain(name, _cpu(torch, x),
+                                            _cpu(torch, w), g)] * 2)
+            raise AssertionError(f"K-G {name}: digest off by {rel:.3e} of "
+                                 f"the |output| sum (first version "
+                                 f"{rel_first:.3e}; allowed "
+                                 f"{probe_tool.DIGEST_TOL})")
+    log(f"[phase 1] K-G probe_ops: {len(kg.CLASSES)} classes at {g} blocks,"
+        f" largest digest error {worst:.3e} of the |output| sum per block")
+    return worst
+
+
+def fresh_ka_check(poison=False, device="cuda"):
+    """Phase 1's first check, K-A against its plain version on the small
+    case, as the first launch of a fresh process right after the builds
+    (the state in which one run saw a max error of 976). With ``poison``
+    the card memory that the outputs then take is first filled with
+    ``SENTINEL``, so an element no thread writes reads exactly that. Prints
+    one JSON line: the error, the plain version's nonzero share, both
+    sides against the plain version on the CPU (the arbiter, on copies of
+    the inputs taken before the launch), the sentinel counts, the input
+    elements changed since then, and the seconds. Returns 0, or 1 if the check failed
+    (``device="cpu"`` rehearses it with the plain version on both sides)."""
+    import torch
+    from directvoxgo_tpu_torch.ops import _build
+    from directvoxgo_tpu_torch.ops import sweep_fwd as ka
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.chdir(REPO)
+    t0 = time.time()
+    _build.build_all(_build.KERNELS + PREV_KERNELS)
+    build_s = time.time() - t0
+    dev = torch.device(device)
+    if poison:
+        poison_free_memory(torch, dev)
+    slabs, rays, k = small_sweep_case(torch, dev)
+    before = (slabs.to("cpu", copy=True), rays.to("cpu", copy=True))
+    out = ka.sweep_fwd(slabs, rays, k)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    ref = ka.sweep_fwd_plain(slabs, rays, k)
+    gold = ka.sweep_fwd_plain(*before, k)
+    err = float((out - ref).abs().max())
+    res = {"err": err, "ok": err <= 1e-2,
+           "nonzero_share": float((ref != 0).float().mean()),
+           "kernel_vs_cpu": _max_diff(torch, out, gold),
+           "plain_vs_cpu": _max_diff(torch, ref, gold),
+           "kernel_sentinels": int((out == SENTINEL).sum()),
+           "plain_sentinels": int((ref == SENTINEL).sum()),
+           "inputs_changed": _inputs_changed(torch, before, (slabs, rays)),
+           "poison": bool(poison), "build_s": build_s,
+           "seconds": time.time() - t0}
+    if not res["ok"]:
+        mismatch_report(
+            torch, "K-A small, fresh process", [("out", out, ref, 1e-2)],
+            rerun=lambda: [(ka.sweep_fwd(slabs, rays, k),
+                            ka.sweep_fwd_plain(slabs, rays, k))],
+            cpu=lambda: [gold])
+    print(json.dumps(res), flush=True)
+    return 0 if res["ok"] else 1
+
+
+def fresh_ka_repeats(n=FRESH_REPEATS, clean=0):
+    """:func:`fresh_ka_check` in ``n`` fresh processes, one after another,
+    every other one with ``poison``; before each of the first ``clean`` the
+    built kernels are deleted, so that nvcc runs first in that process.
+    Raises if any check failed; returns the summary."""
+    from directvoxgo_tpu_torch.ops import _build
+    t0 = time.time()
+    runs = []
+    for i in range(n):
+        if i < clean:
+            shutil.rmtree(_build.build_dir(), ignore_errors=True)
+        poison = i % 2 == 1
+        p = subprocess.run(
+            [sys.executable, "-c", "import sys, chip_smoke; sys.exit("
+             f"chip_smoke.fresh_ka_check(poison={poison}))"],
+            cwd=REPO, capture_output=True, text=True, timeout=900)
+        lines = p.stdout.strip().splitlines()
+        try:
+            res = json.loads(lines[-1])
+        except (IndexError, ValueError):
+            res = {"ok": False}
+        res.update(rc=p.returncode, clean=i < clean)
+        runs.append(res)
+        if p.returncode != 0 or not res["ok"]:
+            log(p.stderr[-6000:])
+        log(f"[phase 1] fresh process {i + 1}/{n}: {json.dumps(res)}")
+    bad = [r for r in runs if r["rc"] != 0 or not r["ok"]]
+    summary = {"runs": n, "clean": clean, "bad": len(bad),
+               "worst_err": max((r.get("err", float("inf")) for r in runs),
+                                default=0.0),
+               "seconds": time.time() - t0}
+    log(f"[phase 1] K-A small in {n} fresh processes: {json.dumps(summary)}")
+    if bad:
+        raise AssertionError(f"K-A small failed in {len(bad)} of {n} fresh "
+                             f"processes: {bad}")
+    return summary
+
+
+def small_checks(torch, dev, ka, kb, kc, tf, tv, sweep_ops, repeats=0):
+    """Phase 1 at the small shapes: K-A's first check in this process, then
+    in ``repeats`` fresh ones; K-A and K-C in every form, K-D/K-E, K-F,
+    K-B, K-G, the window steps and the graph checks. Returns
+    the largest errors by name and the fresh processes' summary (None
+    without ``repeats``)."""
+    errs, fresh = {}, None
+    slabs, rays, k = small_sweep_case(torch, dev)
+    errs["sweep_fwd"] = check_sweep(ka, slabs, rays, k, "small")
+    if repeats:
+        fresh = fresh_ka_repeats(repeats)
+    errs.update(small_train_kernel_checks(torch, dev, ka, kc, sweep_ops))
+    errs.update(small_fused_checks(torch, dev, tf))
+    errs["tv_add_grad"] = small_tv_checks(torch, dev, tv)
+    errs["render_frame"] = small_frame_checks(torch, dev, kb)
+    errs["probe_ops"] = small_probe_checks(torch, dev)
+    errs["window"] = small_window_checks(torch, dev)
+    errs["graphs"] = small_graph_checks(torch, dev)
+    return errs, fresh
+
+
+def phase1_alone():
+    """Phase 1's small checks on their own, after the builds: ``python3 -c
+    "import chip_smoke; chip_smoke.phase1_alone()"``, the program to run
+    under compute-sanitizer. Prints the errors as one JSON line."""
+    import torch
+    from directvoxgo_tpu_torch.ops import _build
+    from directvoxgo_tpu_torch.ops import render_frame as kb
+    from directvoxgo_tpu_torch.ops import sweep as sweep_ops
+    from directvoxgo_tpu_torch.ops import sweep_bwd as kc
+    from directvoxgo_tpu_torch.ops import sweep_fwd as ka
+    from directvoxgo_tpu_torch.ops import train_fused as tf
+    from directvoxgo_tpu_torch.ops import tv
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.chdir(REPO)
+    dev = torch.device("cuda", 0)
+    logs = _build.build_all(_build.KERNELS + PREV_KERNELS)
+    USAGE.update(ptxas_usage(logs))
+    t0 = time.time()
+    errs, _ = small_checks(torch, dev, ka, kb, kc, tf, tv, sweep_ops)
+    torch.cuda.synchronize()
+    log(f"[phase 1] alone: done in {time.time() - t0:.1f} s")
+    print(json.dumps({"phase1": errs}))
+
+
 # ----------------------------------------------------------------- main
 
 def run(dev):
@@ -4327,15 +4722,8 @@ def run(dev):
     log(f"[phase 0] built {list(logs)} in {time.time() - t0:.1f} s")
     USAGE.update(ptxas_usage(logs))
 
-    errs = {}
-    slabs, rays, k = small_sweep_case(torch, dev)
-    errs["sweep_fwd"] = check_sweep(ka, slabs, rays, k, "small")
-    errs.update(small_train_kernel_checks(torch, dev, ka, kc, sweep_ops))
-    errs.update(small_fused_checks(torch, dev, tf))
-    errs["tv_add_grad"] = small_tv_checks(torch, dev, tv)
-    errs["render_frame"] = small_frame_checks(torch, dev, kb)
-    errs["window"] = small_window_checks(torch, dev)
-    errs["graphs"] = small_graph_checks(torch, dev)
+    errs, fresh = small_checks(torch, dev, ka, kb, kc, tf, tv, sweep_ops,
+                               repeats=FRESH_REPEATS)
 
     from directvoxgo_tpu_torch import run as run_lib
     from directvoxgo_tpu_torch.config import Config
@@ -4526,6 +4914,7 @@ def run(dev):
     training["entry_points"] = entry_phase(torch, dev, ka, kb, kc)
     training["window_checks"] = errs["window"]
     training["small_graph_checks"] = errs["graphs"]
+    training["fresh_ka_repeats"] = fresh
     fwd = [e for e in train_entries if e["name"].startswith("sweep_fwd")]
     return kernels[:1] + fwd + kernels[1:] \
         + [e for e in train_entries if e not in fwd] + fused_entries \

@@ -523,9 +523,7 @@ def scene_rep_reconstruction(args, cfg, cfg_model, cfg_train, xyz_min,
             num_voxels = int(num_voxels / (2 ** len(cfg_train.pg_scale)))
         model = model_class_for(cfg)(
             xyz_min=xyz_min, xyz_max=xyz_max, num_voxels=num_voxels,
-            mask_cache_path=coarse_ckpt_path, device=device,
-            generator=torch.Generator().manual_seed(
-                int(getattr(args, "seed", 777))), **model_kwargs)
+            mask_cache_path=coarse_ckpt_path, device=device, **model_kwargs)
         if not cfg.data.ndc and cfg_model.maskout_near_cam_vox:
             model.maskout_near_cam_vox(poses[i_train, :3, 3], near)
         optimizer = create_optimizer_or_freeze_model(model, cfg_train)

@@ -105,8 +105,10 @@ class DirectMPIGO(nn.Module):
         else:
             self.k0_dim = rgbnet_dim
             dim0 = (3 + 3 * viewbase_pe * 2) + self.k0_dim
+            gen = generator if generator is not None \
+                else torch.Generator().manual_seed(int(seed))
             self.rgbnet = mlp_lib.MLP(dim0, rgbnet_width, rgbnet_depth, 3,
-                                      generator=generator, device=dev)
+                                      generator=gen, device=dev)
             self.has_rgbnet = True
         self.k0 = nn.Parameter(torch.zeros((*self.world_size, self.k0_dim),
                                            device=dev))

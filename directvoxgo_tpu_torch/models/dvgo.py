@@ -148,8 +148,12 @@ class DirectVoxGO(nn.Module):
                 dim0 = (self.k0_dim * (27 if feat_unfold else 1) + 3
                         + (3 if cell_decode else 0) + 3 + 3 * viewbase_pe * 2)
             self.rgbnet_dim0 = dim0
+            # the MLP starts from the model's ``seed`` keyword, as the JAX
+            # model's does from ``PRNGKey(seed)``, whatever the run's seed
+            gen = generator if generator is not None \
+                else torch.Generator().manual_seed(int(seed))
             self.rgbnet = mlp_lib.MLP(dim0, rgbnet_width, rgbnet_depth, 3,
-                                      generator=generator, device=dev)
+                                      generator=gen, device=dev)
             self.has_rgbnet = True
         self.k0 = nn.Parameter(torch.zeros((*ws, self.k0_dim), device=dev))
 

@@ -6,12 +6,16 @@ build happens at first use (or ahead of time with :func:`build_all`, which
 runs one ``nvcc`` per source in parallel) into ``_kernels/`` inside the
 package directory (listed in ``.gitignore``). Libraries are keyed by a hash
 of their source and of the headers in ``csrc/`` (``*.cuh``, shared device
-code), so an edited kernel is rebuilt and a stale one never loaded. Nothing
-here runs at import time.
+code), so an edited kernel is rebuilt and a stale one never loaded. A
+build writes a temporary file named after its process and renames it into
+place, and builds in one process take turns, so two builds of one library
+never write one file, and a partial file left by a killed build is never
+loaded. Nothing here runs at import time.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -73,15 +77,27 @@ def _finish(name, path, proc, tmp):
         return ""
     out, _ = proc.communicate()
     if proc.returncode != 0:
+        with contextlib.suppress(FileNotFoundError):  # a failed link unlinks
+            os.remove(tmp)
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
     os.replace(tmp, path)
     return out
 
 
 def build_all(names=KERNELS):
-    """Compile every kernel source in parallel; returns {name: nvcc log}."""
-    started = {n: _start(n) for n in names}
-    return {n: _finish(n, *started[n]) for n in names}
+    """Compile every kernel source in parallel; returns {name: nvcc log}.
+    Every build started is waited for before a failure is raised."""
+    with _LOCK:
+        started = {n: _start(n) for n in names}
+        logs, failed = {}, []
+        for n in names:
+            try:
+                logs[n] = _finish(n, *started[n])
+            except RuntimeError as e:
+                failed.append(str(e))
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        return logs
 
 
 def load(name):

@@ -11,8 +11,6 @@ from __future__ import annotations
 
 import os
 
-import torch
-
 from .config import Config
 from .data import load_everything
 from .engine import train as train_lib
@@ -30,7 +28,6 @@ def fine_stage(args, cfg, data_dict, coarse_ckpt_path, device):
     model = MultiSceneImplicitDVGO(
         xyz_min=xyz_min, xyz_max=xyz_max, num_voxels=cfg_model.num_voxels,
         mask_cache_path=coarse_ckpt_path, device=device,
-        generator=torch.Generator().manual_seed(args.seed),
         **model_kwargs_of(cfg_model))
     optimizer = train_lib.create_optimizer_or_freeze_model(model, cfg_train)
     scene = train_scene(data_dict, data_dict['i_train'])

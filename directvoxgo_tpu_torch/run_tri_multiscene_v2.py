@@ -73,8 +73,7 @@ def coarse_stage(args, cfg, dataset, xyz_min, xyz_max, device):
                        'world_bound_scale', 'stepsize', 'bbox_thres')}
     model = DirectVoxGOMultiScene(
         xyz_min=xyz_min, xyz_max=xyz_max, n_scene=dataset.n_scene,
-        num_voxels=cfg_model.num_voxels, device=device,
-        generator=torch.Generator().manual_seed(args.seed), **kw)
+        num_voxels=cfg_model.num_voxels, device=device, **kw)
     optimizer = train_lib.create_optimizer_or_freeze_model(model, cfg_train)
     scenes = [dataset.scene_data(s) for s in range(dataset.n_scene)]
     near, far = shared_near_far(scenes)
@@ -132,7 +131,6 @@ def fine_model(args, cfg, dataset, xyz_min, xyz_max, device):
         num_voxels=cond_lib.initial_num_voxels(args, cfg, cfg_model,
                                                cfg_train, 'fine'),
         mask_cache_path=None, device=device,
-        generator=torch.Generator().manual_seed(args.seed),
         **model_kwargs_of(cfg_model))
     optimizer = train_lib.create_optimizer_or_freeze_model(model, cfg_train)
     return model, optimizer
