@@ -204,11 +204,14 @@ Phases, each of which fails the run:
      group of one rank on the card (its all-reduce, captured in a CUDA
      graph, returns its input bit for bit), phase 5's 8-step coarse chunk
      and top-grid fine window steps through the data-parallel step,
-     replayed as CUDA graphs with the all-reduce captured, against the
-     same graphed steps without a group from one state (the first step bit
-     for bit, every step within the graph checks' bounds, a second plain
-     run as the noise floor of K-C's run-to-run sums), ms per step of
-     each; (b) two spawned gloo ranks sharing the card with CUDA tensors:
+     replayed as CUDA graphs with the all-reduce captured, against three
+     runs of the same graphed steps without a group, every step taken in
+     all four from one state (``dp_gate``: loss and PSNR bit for bit, the
+     parameter elements off the nearest plain run at most
+     ``DP_FLOOR_FACTOR`` times the chunk's one-step plain-to-plain floor;
+     K-C's f32 atomics flip roundings run to run), the free trajectories'
+     parting steps logged, ms per step of each; (b) two spawned gloo
+     ranks sharing the card with CUDA tensors:
      4 window steps, 4 gather steps and one fused step
      (``DVGO_FUSED_TRAIN=force``) of phase 5's top-grid fine model, both
      ranks bit for bit equal and against one rank at
@@ -727,7 +730,7 @@ def build_checkpoint(torch, dev, num_voxels=None):
     kw.pop("num_voxels", None)
     gen = torch.Generator(device="cpu").manual_seed(SEED)
     model = DirectVoxGO(xyz_min=[-1.0] * 3, xyz_max=[1.0] * 3,
-                        num_voxels=num_voxels, device=dev, generator=gen,
+                        num_voxels=num_voxels, device=dev, seed=SEED,
                         **kw)
     dens, _ = teacher_grids(128, "lego")
     dens = torch.nn.functional.interpolate(
@@ -1341,8 +1344,7 @@ def _f32_model(torch, cls, kw, density, seed, dev):
     seeded random colour features and MLP, its occupancy renewed, sweeping
     and running its MLP in f32 (the parity mode)."""
     import numpy as np
-    model = cls(**kw, device=dev,
-                generator=torch.Generator().manual_seed(seed))
+    model = cls(**kw, device=dev, seed=seed)
     rng = np.random.default_rng(seed)
     with torch.no_grad():
         model.density.copy_(torch.as_tensor(density(model)))
@@ -4112,7 +4114,7 @@ def gather_cpu_case(torch, mode, device, seed=3):
         alpha_init=1e-2, fast_color_thres=1e-4, rgbnet_depth=3,
         rgbnet_width=32, query_mode="gather",
         k_density=48 if fine else None, k_color=16 if fine else 0,
-        device=device, generator=torch.Generator().manual_seed(seed), **kw)
+        device=device, seed=seed, **kw)
     rng = np.random.default_rng(seed)
     pts = model.grid_points().cpu().numpy()
     dens = (12.0 * np.exp(-(pts[..., 0] / 1.1) ** 2 - (pts[..., 1] / 0.35)
@@ -4249,8 +4251,7 @@ def liif_full_width(torch, dev, fine_model, pool, rk):
     kw.pop("voxel_size_ratio")
     kw.pop("mask_cache_path")
     kw["num_voxels"] = fine_model.num_voxels
-    model = DirectVoxGO(**kw, device=dev,
-                        generator=torch.Generator().manual_seed(SEED))
+    model = DirectVoxGO(**kw, device=dev, seed=SEED)
     with torch.no_grad():
         model.density.copy_(fine_model.density)
         model.mask.copy_(fine_model.mask)
@@ -5137,8 +5138,7 @@ def cond_cpu_case(torch, kind, mode, device, full=False, seed=3):
                  interp_width=16, interp_depth=3)
     kw = dict(xyz_min=[-1.2] * 3, xyz_max=[1.2] * 3, num_voxels=24 ** 3,
               num_voxels_base=24 ** 3, alpha_init=1e-2,
-              fast_color_thres=1e-4, device=device,
-              generator=torch.Generator().manual_seed(seed))
+              fast_color_thres=1e-4, device=device, seed=seed)
     if full:
         kw.update(num_voxels=64 ** 3, num_voxels_base=64 ** 3,
                   k_density=256, k_color=64, rgbnet_dim=12, interp_width=64,
@@ -6325,14 +6325,132 @@ def _leaves(tree):
     return [tree]
 
 
-# phase 12 (a): parameter elements in which the data-parallel run differs
-# from the nearest plain run, in units of those in which two plain runs
-# differ. A count, not a size: the f32 atomics' order flips a bf16 rounding
-# of a few voxels' gradients (4-80 of 4-53 M elements on the card), and
-# Adam turns each flip into a jump of up to ~5e-4, in one run and not the
-# next (one pair's largest difference was 23x another's); a
-# fault of the data-parallel step (a rounding lost) moves most elements.
+# phase 12 (a): parameter elements in which the data-parallel step differs
+# from the nearest plain step, both taken from one state, in units of the
+# largest count in which two plain steps from one state differ over the
+# chunk. A count, not a size: the f32 atomics' order flips a bf16 rounding
+# of a few voxels' gradients in one run and not the next, and Adam turns
+# each flip into a jump of up to ~5e-4; a fault of the data-parallel step
+# (a rounding lost) moves most elements.
 DP_FLOOR_FACTOR = 3.0
+DP_LABEL = "data parallel"
+DP_PLAIN_LABELS = ("plain", "plain again", "plain third")
+
+
+def dp_sync(torch, dst, src):
+    """Copy ``src``'s (model, MaskedAdam) parameters, moments and step
+    count into ``dst``'s, in place: captured graphs keep their tensors."""
+    (dm, dopt), (sm, sopt) = dst, src
+    with torch.no_grad():
+        for p, q in zip(dm.parameters(), sm.parameters()):
+            p.copy_(q)
+        for k in ("exp_avg", "exp_avg_sq"):
+            for name, qs in sopt.state[k].items():
+                for p, q in zip(dopt.state[k][name], qs):
+                    p.copy_(q)
+        dopt.state["step"].copy_(sopt.state["step"])
+
+
+def params_off(torch, ma, mb):
+    """Parameter elements of two models that are not bit for bit equal."""
+    return int(torch.stack([(p != q).sum() for p, q in
+                            zip(ma.parameters(), mb.parameters())]).sum())
+
+
+def dp_lockstep(torch, runs, key, pool, sels, offs, sync, around=None):
+    """``key``'s steps ``sels``/``offs`` taken one at a time in every run
+    of ``runs`` (label -> (model, optimizer, step, StepGraphs)), in turn.
+    ``sync``: before each step the first run's state is copied into the
+    others, so that every run takes each step from one state. ``around``:
+    label, step -> a context each run's step is taken in. Returns one
+    record a step: {"res": {label: [loss, psnr]}, "off": [[label a, label
+    b, parameter elements not bit for bit equal after the step], ...]}."""
+    import contextlib
+    labels = list(runs)
+    records = []
+    for i in range(sels.shape[0]):
+        if sync:
+            src = runs[labels[0]][:2]
+            for label in labels[1:]:
+                dp_sync(torch, runs[label][:2], src)
+        res = {}
+        for label, (_, _, step, sg) in runs.items():
+            with (around(label, i) if around else contextlib.nullcontext()):
+                res[label] = sg.run(key, step, pool, sels[i:i + 1],
+                                    offs[i:i + 1])
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        off = [[a, b, params_off(torch, runs[a][0], runs[b][0])]
+               for j, a in enumerate(labels) for b in labels[j + 1:]]
+        records.append({"res": {k: [float(x) for x in v[0].cpu()]
+                                for k, v in res.items()}, "off": off})
+    return records
+
+
+def _offs_of(record):
+    """(the data-parallel run's counts against each plain run, the plain
+    runs' counts against each other) of one step's record."""
+    to_dp = [c for a, b, c in record["off"] if DP_LABEL in (a, b)]
+    plain = [c for a, b, c in record["off"] if DP_LABEL not in (a, b)]
+    return to_dp, plain
+
+
+def dp_gate(records):
+    """Phase 12 (a)'s decision on the records of steps taken from one
+    state each (:func:`dp_lockstep` with ``sync``): (ok, reason). The
+    data-parallel run's loss and PSNR must be finite and equal one plain
+    run's bit for bit at every step, and at every step the parameter
+    elements in which it differs from the nearest plain run must be at
+    most ``DP_FLOOR_FACTOR`` times the one-step floor: the most in which
+    two plain runs differ after any one step of the chunk (at least 1)."""
+    import numpy as np
+    floor = max((c for r in records for c in _offs_of(r)[1]), default=0)
+    bar = DP_FLOOR_FACTOR * max(floor, 1)
+    for i, r in enumerate(records):
+        d = np.asarray(r["res"][DP_LABEL], np.float64)
+        if not np.isfinite(d).all():
+            return False, f"step {i}: loss and PSNR {d.tolist()} not finite"
+        if not any(np.array_equal(d, v) for k, v in r["res"].items()
+                   if k != DP_LABEL):
+            return False, (f"step {i}: loss and PSNR {d.tolist()} equal no "
+                           f"plain run's {r['res']}")
+        off = min(_offs_of(r)[0])
+        if off > bar:
+            return False, (f"step {i}: {off} parameter elements off the "
+                           f"nearest plain run, above {DP_FLOOR_FACTOR} x "
+                           f"the one-step floor {floor}")
+    return True, (f"every step's loss and PSNR bit for bit; at most "
+                  f"{max(min(_offs_of(r)[0]) for r in records)} "
+                  f"elements off against a one-step floor of {floor}")
+
+
+def dp_trajectory(records):
+    """Figures of free runs' records (:func:`dp_lockstep` without
+    ``sync``): the first step after which each pair of runs differs in a
+    parameter element (None: never), each plain run's losses and PSNRs
+    bit for bit the data-parallel run's on every step, the leading steps
+    on which they equal the first plain run's, and the elements off after
+    the last step."""
+    import numpy as np
+    first = {}
+    for i, r in enumerate(records):
+        for a, b, c in r["off"]:
+            first.setdefault(f"{a} / {b}", None)
+            if c and first[f"{a} / {b}"] is None:
+                first[f"{a} / {b}"] = i
+    plains = [k for k in records[0]["res"] if k != DP_LABEL]
+    lead = 0
+    while lead < len(records) and np.array_equal(
+            records[lead]["res"][DP_LABEL], records[lead]["res"][plains[0]]):
+        lead += 1
+    to_dp, plain = _offs_of(records[-1])
+    return {"first_parting_step": first,
+            "steps_bitwise_with_plain_runs": [
+                all(np.array_equal(r["res"][DP_LABEL], r["res"][k])
+                    for r in records) for k in plains],
+            "bitwise_leading_steps_first_plain": lead,
+            "params_off_to_plain_runs": to_dp,
+            "params_off_plain_runs": plain}
 
 
 def dp_nccl_checks(torch, dev, ka, kc):
@@ -6340,135 +6458,130 @@ def dp_nccl_checks(torch, dev, ka, kc):
     in a CUDA graph, returns its input bit for bit; phase 5's 8-step
     coarse chunk and top-grid fine window steps through the data-parallel
     step (graphed, the all-reduce captured) against the same steps without
-    a group, from one state, run three times (K-C sums with f32 atomics,
-    so plain runs differ from each other: their spread is the noise
-    floor). The data-parallel run's loss and PSNR must equal one plain
-    run's bit for bit on every step, and the parameter elements in which
-    it differs from the nearest plain run must be no more than
-    ``DP_FLOOR_FACTOR`` times those in which two plain runs differ (at
-    least 1). Returns
-    (summary, K-A and K-C launches of the data-parallel runs, their last
-    eager K-A and K-C inputs)."""
+    a group, three plain runs (K-C sums with f32 atomics, so plain runs
+    differ from each other: their spread is the noise floor). Every step
+    is taken in all four runs from one state (the first plain run's,
+    copied into the others before it), so that a rounding flipped in one
+    step is not carried into the next, and :func:`dp_gate` judges the
+    records. The same steps are then taken again from phase 5's state
+    without copies; those trajectories' figures (:func:`dp_trajectory`)
+    are logged only. A key that fails says ``"passed": False`` in its
+    summary entry (:func:`dp_phase` raises on it). Returns (summary, K-A
+    and K-C launches of the data-parallel runs, their last eager K-A and
+    K-C inputs)."""
+    import contextlib
     import copy
-    import numpy as np
     from directvoxgo_tpu_torch.engine import graphs as graphs_lib
     from directvoxgo_tpu_torch.engine import train as train_lib
     from directvoxgo_tpu_torch.ops import sweep as sweep_ops
     from directvoxgo_tpu_torch.parallel import all_reduce_mean, make_mesh
+    import torch.distributed as dist
     t0 = time.time()
     mesh = make_mesh(dev, backend="nccl", world_size=1, rank=0,
                      init_method=f"tcp://localhost:{_free_port()}")
-    gen = torch.Generator(device="cpu").manual_seed(SEED + 12)
-    x = torch.randn(1 << 22, generator=gen).to(dev)
-    buf = x.clone()
-    side = torch.cuda.Stream(dev)
-    side.wait_stream(torch.cuda.current_stream(dev))
-    with torch.cuda.stream(side):
-        all_reduce_mean(mesh, [buf])
-    torch.cuda.current_stream(dev).wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out = all_reduce_mean(mesh, [buf])[0]
-    buf.copy_(x)
-    graph.replay()
-    torch.cuda.synchronize()
-    reduce_bitwise = bool(torch.equal(out, x))
-    log(f"[phase 12] (a) NCCL group of 1 in {time.time() - t0:.1f} s; "
-        f"captured all-reduce returns its input bit for bit: "
-        f"{reduce_bitwise}")
-    if not reduce_bitwise:
-        raise AssertionError("a one-rank NCCL all-reduce changed its input")
+    try:
+        gen = torch.Generator(device="cpu").manual_seed(SEED + 12)
+        x = torch.randn(1 << 22, generator=gen).to(dev)
+        buf = x.clone()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            all_reduce_mean(mesh, [buf])
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = all_reduce_mean(mesh, [buf])[0]
+        buf.copy_(x)
+        graph.replay()
+        torch.cuda.synchronize()
+        reduce_bitwise = bool(torch.equal(out, x))
+        log(f"[phase 12] (a) NCCL group of 1 in {time.time() - t0:.1f} s; "
+            f"captured all-reduce returns its input bit for bit: "
+            f"{reduce_bitwise}")
+        if not reduce_bitwise:
+            raise AssertionError("a one-rank NCCL all-reduce changed its "
+                                 "input")
 
-    out = {"captured_all_reduce_bitwise": reduce_bitwise}
-    launches = {"sweep_fwd": 0, "sweep_bwd": 0}
-    cap_a = cap_c = None
-    for name, (model, args, kw, pool, sels, offs) in DP_INPUTS.items():
-        key = (kw["axis"], kw.get("clip_sizes"))
-        n = sels.shape[0]
-        runs = {}
-        for label, group in (("plain", None), ("data parallel", mesh),
-                             ("plain again", None), ("plain third", None)):
-            m, opt = copy.deepcopy((model, args[0]))
-            step = train_lib.make_train_step(m, opt, *args[1:],
-                                             **dict(kw, group=group))
-            sg = graphs_lib.StepGraphs(dev)
-            sg.reset(scratch=(np_prod(m.world_size), 2 + m.k0_dim))
-            if group is not None:
-                ka.launches = kc.launches = 0
-                cap_a = Capture(sweep_ops, "sweep_fwd", keep=1)
-                cap_c = Capture(sweep_ops, "sweep_bwd", keep=1)
-            try:
-                res = sg.run(key, step, pool, sels, offs).cpu().numpy()
+        out = {"captured_all_reduce_bitwise": reduce_bitwise}
+        launches = {"sweep_fwd": 0, "sweep_bwd": 0}
+        caps = {}
+        for name, (model, args, kw, pool, sels, offs) in DP_INPUTS.items():
+            key = (kw["axis"], kw.get("clip_sizes"))
+            n = sels.shape[0]
+            runs = {}
+            for label in (DP_PLAIN_LABELS[0], DP_LABEL,
+                          *DP_PLAIN_LABELS[1:]):
+                group = mesh if label == DP_LABEL else None
+                m, opt = copy.deepcopy((model, args[0]))
+                step = train_lib.make_train_step(m, opt, *args[1:],
+                                                 **dict(kw, group=group))
+                sg = graphs_lib.StepGraphs(dev)
+                sg.reset(scratch=(np_prod(m.world_size), 2 + m.k0_dim))
+                runs[label] = (m, opt, step, sg)
+            counted = {"sweep_fwd": 0, "sweep_bwd": 0}
+
+            @contextlib.contextmanager
+            def around(label, i):
+                """The data-parallel run's launches, and its first (eager)
+                step's K-A and K-C inputs."""
+                if label != DP_LABEL:
+                    yield
+                    return
+                a0, c0 = ka.launches, kc.launches
+                if i == 0:
+                    caps["a"] = Capture(sweep_ops, "sweep_fwd", keep=1)
+                    caps["c"] = Capture(sweep_ops, "sweep_bwd", keep=1)
+                try:
+                    yield
+                finally:
+                    if i == 0:
+                        caps["c"].restore()
+                        caps["a"].restore()
+                    counted["sweep_fwd"] += ka.launches - a0
+                    counted["sweep_bwd"] += kc.launches - c0
+
+            synced = dp_lockstep(torch, runs, key, pool, sels, offs,
+                                 sync=True, around=around)
+            graph_runs = dict(runs[DP_LABEL][3].stats)
+            n_kernel = counted["sweep_fwd"]
+            launches["sweep_fwd"] += counted["sweep_fwd"]
+            launches["sweep_bwd"] += counted["sweep_bwd"]
+            gate_ok, reason = dp_gate(synced)
+            ok = (gate_ok and n_kernel == n and graph_runs == {
+                "eager": 1, "capture": 1, "replay": n - 2})
+            # the same steps again from phase 5's state, free (logged only)
+            for m, opt, _, _ in runs.values():
+                dp_sync(torch, (m, opt), (model, args[0]))
+            free = dp_lockstep(torch, runs, key, pool, sels, offs,
+                               sync=False)
+            # wall ms per step of more chunks, replays only, in turns
+            # (plain, data parallel, data parallel, plain): the lower of
+            # each's two
+            timed = {"plain": [], DP_LABEL: []}
+            for label in ("plain", DP_LABEL, DP_LABEL, "plain"):
+                _, _, step, sg = runs[label]
                 torch.cuda.synchronize()
-            finally:
-                if group is not None:
-                    cap_c.restore()
-                    cap_a.restore()
-            if group is not None:
-                launches["sweep_fwd"] += ka.launches
-                launches["sweep_bwd"] += kc.launches
-                n_kernel = ka.launches
-            runs[label] = (m, step, sg, res)
-        md, _, sgd, rd = runs["data parallel"]
-        plains = [runs[k] for k in ("plain", "plain again", "plain third")]
-
-        def par_diff(ma_, mb_):
-            """(largest difference, parameter elements not bit for bit
-            equal) of two runs' models"""
-            pairs = list(zip(ma_.parameters(), mb_.parameters()))
-            return (max(float((p - q).detach().abs().max())
-                        for p, q in pairs),
-                    sum(int((p != q).sum()) for p, q in pairs))
-
-        # loss and PSNR of every step against each plain run
-        steps_bitwise = [np.array_equal(rd, r) for _, _, _, r in plains]
-        lead = 0
-        while lead < n and np.array_equal(rd[lead], plains[0][3][lead]):
-            lead += 1
-        dpar = [par_diff(md, m) for m, _, _, _ in plains]
-        floor = [par_diff(a[0], b[0]) for i, a in enumerate(plains)
-                 for b in plains[i + 1:]]
-        floor_par = max(f[0] for f in floor)
-        floor_off = max(f[1] for f in floor)
-        floor_loss = max(float(np.abs(a[3] - b[3]).max())
-                         for i, a in enumerate(plains) for b in plains[i + 1:])
-        ok = (np.isfinite(rd).all() and any(steps_bitwise)
-              and dict(sgd.stats) == {"eager": 1, "capture": 1,
-                                      "replay": n - 2}
-              and n_kernel == n
-              and min(d[1] for d in dpar)
-              <= DP_FLOOR_FACTOR * max(floor_off, 1))
-        # wall ms per step of more chunks, replays only, in turns (plain,
-        # data parallel, data parallel, plain): the lower of each's two
-        timed = {"plain": [], "data parallel": []}
-        for label in ("plain", "data parallel", "data parallel", "plain"):
-            m, step, sg, _ = runs[label]
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            sg.run(key, step, pool, sels, offs)
-            torch.cuda.synchronize()
-            timed[label].append((time.perf_counter() - t1) * 1e3 / n)
-        timed = {k: min(v) for k, v in timed.items()}
-        out[name] = {
-            "key": str(key), "steps": n, "runs": dict(sgd.stats),
-            "steps_bitwise_with_plain_runs": steps_bitwise,
-            "bitwise_leading_steps_first_plain": lead,
-            "param_diff_to_plain_runs": [d[0] for d in dpar],
-            "params_off_to_plain_runs": [d[1] for d in dpar],
-            "noise_floor_loss_diff": floor_loss,
-            "noise_floor_param_diff": floor_par,
-            "noise_floor_params_off": floor_off,
-            "plain_ms_per_step": timed["plain"],
-            "dp_ms_per_step": timed["data parallel"]}
-        log(f"[phase 12] (a) {name}: {out[name]}")
-        if not ok:
-            raise AssertionError(
-                f"(a) {name}: data-parallel steps of one NCCL rank differ "
-                f"from plain ones: {out[name]}, K-A launches {n_kernel}")
-        del runs
-    import torch.distributed as dist
-    dist.destroy_process_group()
-    return out, launches, (cap_a.calls[-1][0], cap_c.calls[-1][0])
+                t1 = time.perf_counter()
+                sg.run(key, step, pool, sels, offs)
+                torch.cuda.synchronize()
+                timed[label].append((time.perf_counter() - t1) * 1e3 / n)
+            timed = {k: min(v) for k, v in timed.items()}
+            one_step = [_offs_of(r) for r in synced]
+            out[name] = {
+                "key": str(key), "steps": n, "runs": graph_runs,
+                "sweep_fwd_launches": n_kernel, "passed": ok,
+                "gate": reason,
+                "one_step_params_off_to_plain_runs": [d for d, _ in
+                                                      one_step],
+                "one_step_params_off_plain_runs": [p for _, p in one_step],
+                "free_runs": dp_trajectory(free),
+                "plain_ms_per_step": timed["plain"],
+                "dp_ms_per_step": timed[DP_LABEL]}
+            log(f"[phase 12] (a) {name}: {out[name]}")
+            del runs
+    finally:
+        dist.destroy_process_group()
+    return out, launches, (caps["a"].calls[-1][0], caps["c"].calls[-1][0])
 
 
 def dp_case_run(torch, case, dev, group):
@@ -6789,6 +6902,13 @@ def dp_phase(torch, dev, ka, kc, lego):
     summary = {}
     summary["nccl_one_rank"], launches, (a_in, c_in) = dp_nccl_checks(
         torch, dev, ka, kc)
+    for name, entry in summary["nccl_one_rank"].items():
+        if name in DP_INPUTS and not entry["passed"]:
+            raise AssertionError(
+                f"(a) {name}: data-parallel steps of one NCCL rank differ "
+                f"from plain ones: {entry['gate']}; graph runs "
+                f"{entry['runs']}, K-A launches "
+                f"{entry['sweep_fwd_launches']} of {entry['steps']}")
     summary["gloo_two_ranks"] = dp_gloo_checks(torch, dev)
     summary["scan_frame"] = dp_scan_checks(torch, lego)
     summary["watchdog"] = dp_watchdog_checks(torch)
@@ -6864,6 +6984,47 @@ def phase12_alone():
     entries, summary = dp_phase(torch, dev, ka, kc,
                                 lego_frame(torch, dev, ckpt))
     print(json.dumps({"kernels": entries, "data_parallel": summary}))
+
+
+def phase12a_repeats(n=24, out=None):
+    """Phase 12 (a) ``n`` times in one process, after phase 5 (whose steps
+    it reuses) and the builds and checkpoint it needs: ``python3 -c
+    "import chip_smoke; chip_smoke.phase12a_repeats(24)"``. Writes each
+    repeat's entries (the gate's verdict, the one-step counts, the free
+    runs' first parting steps) to ``out`` (default
+    ``logs/chip_smoke/phase12a_repeats.json``), prints a count of
+    verdicts, and fails if any repeat failed."""
+    import torch
+    from directvoxgo_tpu_torch.ops import _build
+    from directvoxgo_tpu_torch.ops import render_frame as kb
+    from directvoxgo_tpu_torch.ops import sweep as sweep_ops
+    from directvoxgo_tpu_torch.ops import sweep_bwd as kc
+    from directvoxgo_tpu_torch.ops import sweep_fwd as ka
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.chdir(REPO)
+    dev = torch.device("cuda", 0)
+    USAGE.update(ptxas_usage(_build.build_all(_build.KERNELS
+                                              + PREV_KERNELS)))
+    build_checkpoint(torch, dev)
+    train_phase(torch, dev, ka, kb, kc, sweep_ops)
+    repeats = []
+    for r in range(n):
+        summary = dp_nccl_checks(torch, dev, ka, kc)[0]
+        repeats.append({k: v for k, v in summary.items() if k in DP_INPUTS})
+        log(f"[phase 12] (a) repeat {r}: passed "
+            f"{[v['passed'] for v in repeats[-1].values()]}")
+    path = out or os.path.join(CKPT_DIR, "phase12a_repeats.json")
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump({"card": card_name_and_limit(), "repeats": repeats}, f,
+                  indent=1)
+    passed = {name: sum(r[name]["passed"] for r in repeats)
+              for name in DP_INPUTS}
+    print(json.dumps({"repeats": n, "passed": passed}))
+    if any(v != n for v in passed.values()):
+        raise AssertionError(f"phase 12 (a) failed in some repeats: "
+                             f"{passed} of {n}")
 
 
 # ---------------------------- phase 13: the last entry points, JPEG

@@ -6,9 +6,11 @@ NCHW ``nn.Conv2d`` layers with OIHW weights; the JAX package keeps HWIO
 (``convert.py`` transposes). ``"SAME"`` padding is XLA's: for a stride of
 1 and an odd kernel it is ``k // 2`` on each side, at a stride of 2 the
 extra row or column goes after. Initial weights and biases are drawn
-uniform in ``+-1/sqrt(fan_in)`` from an explicit ``torch.Generator`` (on
-the host, then copied), as the JAX package draws them. Pretrained weights
-come from a local file only (:func:`load_torch_edsr_weights`).
+uniform in ``+-1/sqrt(fan_in)`` from a key of the JAX package's random
+stream (:mod:`.prng`, on the host, then copied), bit for bit as the JAX
+package draws them, with each module's keys split as JAX splits them.
+Pretrained weights come from a local file only
+(:func:`load_torch_edsr_weights`).
 """
 
 from __future__ import annotations
@@ -19,20 +21,20 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-
-def _uniform_(p, bound, generator):
-    with torch.no_grad():
-        p.copy_(torch.empty(p.shape).uniform_(-bound, bound,
-                                              generator=generator))
+from . import prng
+from .mlp import set_param, skip_init
 
 
-def init_conv(cin, cout, ksize, bias=True, generator=None, device=None):
-    """``nn.Conv2d`` (no built-in padding) with the JAX package's init."""
-    conv = nn.Conv2d(cin, cout, ksize, bias=bias, device=device)
+def init_conv(cin, cout, ksize, bias=True, key=None, device=None):
+    """``nn.Conv2d`` (no built-in padding) with the JAX package's
+    ``init_conv(key, ...)``: the HWIO weight drawn, then made OIHW."""
+    conv = skip_init(nn.Conv2d, cin, cout, ksize, bias=bias, device=device)
+    kw, kb = prng.split(prng.key_or_default(key))
     bound = 1.0 / math.sqrt(cin * ksize * ksize)
-    _uniform_(conv.weight, bound, generator)
+    w = prng.uniform(kw, (ksize, ksize, cin, cout), -bound, bound)
+    set_param(conv.weight, w.transpose(3, 2, 0, 1))
     if bias:
-        _uniform_(conv.bias, bound, generator)
+        set_param(conv.bias, prng.uniform(kb, (cout,), -bound, bound))
     return conv
 
 
@@ -70,36 +72,39 @@ def pixel_shuffle(x, r):
 # ---------------------------------------------------------------------- EDSR
 
 class ResBlock(nn.Module):
-    def __init__(self, n_feats, generator=None, device=None):
+    def __init__(self, n_feats, keys, device=None):
         super().__init__()
-        self.c1 = init_conv(n_feats, n_feats, 3, generator=generator,
+        self.c1 = init_conv(n_feats, n_feats, 3, key=next(keys),
                             device=device)
-        self.c2 = init_conv(n_feats, n_feats, 3, generator=generator,
+        self.c2 = init_conv(n_feats, n_feats, 3, key=next(keys),
                             device=device)
 
 
 class EDSR(nn.Module):
     """EDSR: head conv, ``n_resblocks`` residual blocks, body tail conv and
     the long skip; with ``no_upsampling=False`` the pixel-shuffle tail to
-    ``n_colors`` (power-of-two scales)."""
+    ``n_colors`` (power-of-two scales). Keys: ``init_edsr``'s."""
 
     def __init__(self, n_resblocks=16, n_feats=64, n_colors=9, scale=2,
-                 res_scale=1.0, no_upsampling=True, generator=None,
-                 device=None):
+                 res_scale=1.0, no_upsampling=True, key=None, device=None):
         super().__init__()
-        kw = dict(generator=generator, device=device)
+        keys = prng.split_keys(key, 4 + 2 * n_resblocks + 4)
         self.res_scale = float(res_scale)
         self.no_upsampling = no_upsampling
-        self.head = init_conv(n_colors, n_feats, 3, **kw)
-        self.body = nn.ModuleList(ResBlock(n_feats, **kw)
+        self.head = init_conv(n_colors, n_feats, 3, key=next(keys),
+                              device=device)
+        self.body = nn.ModuleList(ResBlock(n_feats, keys, device)
                                   for _ in range(n_resblocks))
-        self.body_tail = init_conv(n_feats, n_feats, 3, **kw)
+        self.body_tail = init_conv(n_feats, n_feats, 3, key=next(keys),
+                                   device=device)
         if not no_upsampling:
             assert scale & (scale - 1) == 0, "power-of-two upsampling only"
             self.tail_up = nn.ModuleList(
-                init_conv(n_feats, 4 * n_feats, 3, **kw)
+                init_conv(n_feats, 4 * n_feats, 3, key=next(keys),
+                          device=device)
                 for _ in range(int(math.log2(scale))))
-            self.tail_out = init_conv(n_feats, n_colors, 3, **kw)
+            self.tail_out = init_conv(n_feats, n_colors, 3, key=next(keys),
+                                      device=device)
         self.out_dim = n_feats if no_upsampling else n_colors
 
     def forward(self, x):
@@ -125,11 +130,11 @@ def edsr_apply(model, x):
 
 
 def make_edsr_baseline(n_resblocks=16, n_feats=64, res_scale=1.0, scale=2,
-                       no_upsampling=True, n_colors=9, generator=None,
+                       no_upsampling=True, n_colors=9, key=None,
                        device=None):
     """(module, out_dim): the EDSR baseline of the conditioned models."""
     m = EDSR(n_resblocks, n_feats, n_colors, scale, res_scale, no_upsampling,
-             generator=generator, device=device)
+             key=key, device=device)
     return m, m.out_dim
 
 
@@ -171,33 +176,33 @@ class FrozenBN(nn.Module):
 
 
 class BasicBlock(nn.Module):
-    def __init__(self, width, generator=None, device=None):
+    def __init__(self, width, keys, device=None):
         super().__init__()
-        kw = dict(bias=False, generator=generator, device=device)
-        self.c1 = init_conv(width, width, 3, **kw)
+        self.c1 = init_conv(width, width, 3, False, next(keys), device)
         self.bn1 = FrozenBN(width, device)
-        self.c2 = init_conv(width, width, 3, **kw)
+        self.c2 = init_conv(width, width, 3, False, next(keys), device)
         self.bn2 = FrozenBN(width, device)
 
 
 class ResNetExtractor(nn.Module):
     """ResNet-34 stem and layer 1: 7x7/2 conv, BN, ReLU, 3x3/2 max pool,
-    then ``n_blocks`` basic blocks at ``width``."""
+    then ``n_blocks`` basic blocks at ``width``. Keys:
+    ``init_resnet_extractor``'s."""
 
-    def __init__(self, width=64, n_blocks=3, generator=None, device=None):
+    def __init__(self, width=64, n_blocks=3, key=None, device=None):
         super().__init__()
-        self.stem = init_conv(3, width, 7, bias=False, generator=generator,
-                              device=device)
+        keys = prng.split_keys(key, 1 + 2 * n_blocks)
+        self.stem = init_conv(3, width, 7, False, next(keys), device)
         self.stem_bn = FrozenBN(width, device)
-        self.blocks = nn.ModuleList(BasicBlock(width, generator, device)
+        self.blocks = nn.ModuleList(BasicBlock(width, keys, device)
                                     for _ in range(n_blocks))
 
     def forward(self, x):
         return resnet_extractor_apply(self, x)
 
 
-def init_resnet_extractor(width=64, n_blocks=3, generator=None, device=None):
-    return ResNetExtractor(width, n_blocks, generator, device)
+def init_resnet_extractor(width=64, n_blocks=3, key=None, device=None):
+    return ResNetExtractor(width, n_blocks, key, device)
 
 
 def resnet_extractor_apply(model, x):

@@ -34,6 +34,7 @@ from ..ops import raymarch as rm
 from ..ops import sweep as sweep_ops
 from ..ops.tv import total_variation_add_grad
 from . import mlp as mlp_lib
+from . import prng
 from .dvgo import DirectVoxGO
 
 
@@ -55,8 +56,9 @@ class DirectMPIGO(nn.Module):
     """Multiplane-image radiance field of one forward-facing scene.
 
     The constructor takes the JAX package's keyword set (what checkpoints
-    store as ``model_kwargs``); ``device`` (default: CUDA) and ``generator``
-    (for the MLP's initial weights) are the port's own.
+    store as ``model_kwargs``); ``device`` (default: CUDA) is the port's
+    own. The MLP's initial weights come from ``prng_key(seed)`` as the JAX
+    model's from ``PRNGKey(seed)``, bit for bit (:mod:`.prng`).
     """
 
     # Every ray sweeps along z (the NDC sampler's planes), whatever its
@@ -68,7 +70,7 @@ class DirectMPIGO(nn.Module):
                  fast_color_thres=0, rgbnet_dim=0, rgbnet_depth=3,
                  rgbnet_width=128, viewbase_pe=0, k_color=64,
                  query_mode="sweep", sweep_color_topk=0, seed=0,
-                 device=None, generator=None, **kwargs):
+                 device=None, **kwargs):
         super().__init__()
         if query_mode not in ("sweep", "gather"):
             raise ValueError(f"query_mode {query_mode!r}: expected 'sweep' "
@@ -105,10 +107,8 @@ class DirectMPIGO(nn.Module):
         else:
             self.k0_dim = rgbnet_dim
             dim0 = (3 + 3 * viewbase_pe * 2) + self.k0_dim
-            gen = generator if generator is not None \
-                else torch.Generator().manual_seed(int(seed))
             self.rgbnet = mlp_lib.MLP(dim0, rgbnet_width, rgbnet_depth, 3,
-                                      generator=gen, device=dev)
+                                      key=prng.prng_key(seed), device=dev)
             self.has_rgbnet = True
         self.k0 = nn.Parameter(torch.zeros((*self.world_size, self.k0_dim),
                                            device=dev))
@@ -260,7 +260,7 @@ class DirectMPIGO(nn.Module):
         interval = stepsize * self.voxel_size_ratio
         n_s = self.n_samples(stepsize)
         (px, py, pz), valid = rm.sample_points_ndc_parts(
-            rays_o, rays_d, n_s, bbox_min, bbox_max, fma_=True)
+            rays_o, rays_d, n_s, bbox_min, bbox_max)
         occ = grid_ops.occupancy_lookup_parts(
             mask, px, py, pz, bbox_min, bbox_max) & valid
         step_f = torch.arange(n_s, dtype=torch.float32,

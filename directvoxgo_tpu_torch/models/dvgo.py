@@ -39,6 +39,7 @@ from ..ops import rounding
 from ..ops import sweep as sweep_ops
 from ..ops.tv import total_variation_add_grad
 from . import mlp as mlp_lib
+from . import prng
 
 
 def _round_up(x, m):
@@ -53,8 +54,9 @@ class DirectVoxGO(nn.Module):
     """Per-scene voxel-grid radiance field.
 
     The constructor takes the JAX package's keyword set (what checkpoints
-    store as ``model_kwargs``); ``device`` (default: CUDA) and ``generator``
-    (for the MLP's initial weights) are the port's own.
+    store as ``model_kwargs``); ``device`` (default: CUDA) is the port's
+    own. The MLP's initial weights come from ``prng_key(seed)`` as the JAX
+    model's from ``PRNGKey(seed)``, bit for bit (:mod:`.prng`).
     """
 
     def __init__(self, xyz_min, xyz_max,
@@ -71,7 +73,7 @@ class DirectVoxGO(nn.Module):
                  query_mode="sweep",
                  sweep_color_topk=0,
                  world_size_quantum=1,
-                 seed=0, device=None, generator=None,
+                 seed=0, device=None,
                  **kwargs):
         super().__init__()
         if query_mode not in ("sweep", "gather"):
@@ -150,10 +152,8 @@ class DirectVoxGO(nn.Module):
             self.rgbnet_dim0 = dim0
             # the MLP starts from the model's ``seed`` keyword, as the JAX
             # model's does from ``PRNGKey(seed)``, whatever the run's seed
-            gen = generator if generator is not None \
-                else torch.Generator().manual_seed(int(seed))
             self.rgbnet = mlp_lib.MLP(dim0, rgbnet_width, rgbnet_depth, 3,
-                                      generator=gen, device=dev)
+                                      key=prng.prng_key(seed), device=dev)
             self.has_rgbnet = True
         self.k0 = nn.Parameter(torch.zeros((*ws, self.k0_dim), device=dev))
 
@@ -490,8 +490,7 @@ class DirectVoxGO(nn.Module):
         n_cap = rm.max_samples_for_bbox(self.xyz_min, self.xyz_max, stepdist)
 
         (px, py, pz), valid, step_sl = rm.sample_points_dense_parts(
-            rays_o, rays_d, bbox_min, bbox_max, near, far, stepdist, n_cap,
-            fma_=True)
+            rays_o, rays_d, bbox_min, bbox_max, near, far, stepdist, n_cap)
         occ = grid_ops.occupancy_lookup_parts(
             mask, px, py, pz, bbox_min, bbox_max) & valid
         step_f = step_sl.to(torch.float32)[None, :].expand(px.shape)

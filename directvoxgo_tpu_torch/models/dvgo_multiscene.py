@@ -27,12 +27,10 @@ def pooled_alpha(model):
 
 
 class DirectVoxGOMultiScene(DirectVoxGO):
-    def __init__(self, xyz_min, xyz_max, n_scene=1, device=None,
-                 generator=None, **kwargs):
+    def __init__(self, xyz_min, xyz_max, n_scene=1, device=None, **kwargs):
         n = int(n_scene)
         mask_cache_path = kwargs.pop("mask_cache_path", None)
-        super().__init__(xyz_min, xyz_max, device=device, generator=generator,
-                         **kwargs)
+        super().__init__(xyz_min, xyz_max, device=device, **kwargs)
         self.n_scene = n
         dev = self.density.device
         ws = tuple(self.world_size)

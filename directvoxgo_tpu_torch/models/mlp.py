@@ -2,47 +2,62 @@
 
 ``MLP`` keeps the layer layout of the JAX package's ``init_mlp``: ``depth``
 linear layers (in -> width, (depth-2) x width -> width, width -> out) with
-ReLU between them and a zero last bias. Weights are ``nn.Linear`` ([out,
-in]); the JAX pytree stores ``w`` as [in, out] (see ``convert.py``).
+ReLU between them and a zero last bias, and draws its initial weights as
+``init_mlp`` does (:mod:`.prng`). Weights are ``nn.Linear`` ([out, in]);
+the JAX pytree stores ``w`` as [in, out] (see ``convert.py``).
 """
 
 from __future__ import annotations
 
-import math
-
+import numpy as np
 import torch
 from torch import nn
 
 from ..ops import rounding
+from . import prng
 
 BF16 = torch.bfloat16
 
 
-def init_linear(fan_in, fan_out, zero_bias=False, generator=None,
-                device=None):
-    """``nn.Linear`` with the JAX package's ``init_linear``: weight and bias
-    uniform in ``+-1/sqrt(fan_in)`` (the bias zero with ``zero_bias``),
-    drawn on the host from ``generator``."""
-    layer = nn.Linear(fan_in, fan_out, device=device)
-    bound = 1.0 / math.sqrt(fan_in)
+def skip_init(cls, *args, device=None, **kwargs):
+    """A layer of ``cls`` with its parameters allocated and left unset
+    (torch's own initializers would draw from its global random state)."""
+    if device is None:
+        device = torch.get_default_device()
+    return nn.utils.skip_init(cls, *args, device=device, **kwargs)
+
+
+def set_param(p, arr):
+    """Copy the numpy array ``arr`` into the parameter ``p``."""
     with torch.no_grad():
-        for p in (layer.weight, layer.bias):
-            p.copy_(torch.empty(p.shape).uniform_(-bound, bound,
-                                                  generator=generator))
-        if zero_bias:
-            layer.bias.zero_()
+        p.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+
+
+def init_linear(fan_in, fan_out, zero_bias=False, key=None, device=None):
+    """``nn.Linear`` with the JAX package's ``init_linear(key, ...)``:
+    weight ``[in, out]`` and bias uniform in ``+-1/sqrt(fan_in)`` (the bias
+    zero with ``zero_bias``), drawn on the host from ``key`` (default
+    ``prng_key(0)``) as JAX draws them, the weight then transposed."""
+    layer = skip_init(nn.Linear, fan_in, fan_out, device=device)
+    kw, kb = prng.split(prng.key_or_default(key))
+    bound = prng.linear_bound(fan_in)
+    set_param(layer.weight,
+              prng.uniform(kw, (fan_in, fan_out), -bound, bound).T)
+    set_param(layer.bias, np.zeros(fan_out, np.float32) if zero_bias
+              else prng.uniform(kb, (fan_out,), -bound, bound))
     return layer
 
 
 class MLP(nn.Module):
-    def __init__(self, dim_in, width, depth, dim_out, generator=None,
-                 device=None):
+    def __init__(self, dim_in, width, depth, dim_out, key=None, device=None):
+        """The JAX package's ``init_mlp(key, dim_in, width, depth,
+        dim_out)``: one key of ``split(key, depth)`` per layer."""
         super().__init__()
         dims = [dim_in] + [width] * (depth - 1) + [dim_out]
-        # Drawn on the host (``generator`` is a CPU generator), then copied.
+        keys = prng.split(prng.key_or_default(key), len(dims) - 1)
         self.layers = nn.ModuleList(
             init_linear(dims[i], dims[i + 1], zero_bias=i == len(dims) - 2,
-                        generator=generator, device=device)
+                        key=keys[i], device=device)
             for i in range(len(dims) - 1))
 
 

@@ -18,6 +18,7 @@ import torch
 from ..ops import raymarch as rm
 from . import mlp as mlp_lib
 from . import nets
+from . import prng
 from .tri_dvgo import TriDVGO
 
 
@@ -31,12 +32,9 @@ class MultiSceneImplicitDVGO(TriDVGO):
 
     def __init__(self, xyz_min, xyz_max, use_mipnerf_density=True,
                  rgbnet_depth=8, rgbnet_width=256, skips=(2,), device=None,
-                 generator=None, **kwargs):
+                 **kwargs):
         kwargs.setdefault("alpha_init", 1e-2)
-        gen = generator if generator is not None \
-            else torch.Generator().manual_seed(int(kwargs.get("seed", 0)))
-        super().__init__(xyz_min, xyz_max, device=device, generator=gen,
-                         **kwargs)
+        super().__init__(xyz_min, xyz_max, device=device, **kwargs)
         dev = self.density.device
         self.density = None
         self.use_mipnerf_density = use_mipnerf_density
@@ -53,7 +51,7 @@ class MultiSceneImplicitDVGO(TriDVGO):
         self.rgbnet = nets.NerfMLP(
             D=rgbnet_depth, W=rgbnet_width, input_ch=self.k0_dim,
             input_ch_views=3 + 3 * self.viewbase_pe * 2, skips=self.skips,
-            generator=gen, device=dev)
+            key=prng.prng_key(kwargs.get("seed", 0) + 7), device=dev)
 
     @property
     def device(self):

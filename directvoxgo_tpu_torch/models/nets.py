@@ -8,9 +8,13 @@ Modules hold ``nn.Linear`` ([out, in]) and ``nn.Conv2d`` (OIHW) layers
 under the JAX package's parameter names, so :mod:`..convert` carries the
 JAX pytrees across by name; a module's non-array settings that the JAX
 pytree keeps among its leaves (``dropout``, ``skips``, ...) are listed in
-its ``JAX_EXTRAS``. Maps are NCHW. Dropout runs only when a
-``torch.Generator`` is passed as ``rng``, as the JAX package's runs only
-with an rng key; no train step passes one, so it is inert on every path.
+its ``JAX_EXTRAS``. Maps are NCHW. Each module draws its initial
+parameters from a ``key`` of the JAX package's random stream
+(:mod:`.prng`), split among its layers as the JAX ``init_*`` function
+splits it, so a module built from a key equals the JAX pytree built from
+it. Dropout runs only when a ``torch.Generator`` is passed as ``rng``, as
+the JAX package's runs only with an rng key (its ``bernoulli`` draws are
+not copied); no train step passes one, so it is inert on every path.
 """
 
 from __future__ import annotations
@@ -21,8 +25,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from . import prng
 from .backbone import conv_apply, init_conv, max_pool2d
-from .mlp import init_linear
+from .mlp import init_linear, set_param, skip_init
 
 
 def _linear(layer, x):
@@ -52,19 +57,22 @@ class NerfMLP(nn.Module):
     JAX_EXTRAS = ("skips",)
 
     def __init__(self, D=8, W=256, input_ch=99, input_ch_views=27,
-                 skips=(2,), generator=None, device=None):
+                 skips=(2,), key=None, device=None):
         super().__init__()
-        kw = dict(generator=generator, device=device)
+        keys = prng.split_keys(key, D + 5)
+
+        def lin(cin, cout, zero_bias=False):
+            return init_linear(cin, cout, zero_bias, next(keys), device)
+
         self.skips = tuple(int(s) for s in skips)
-        pts = [init_linear(input_ch, W, **kw)]
+        pts = [lin(input_ch, W)]
         for i in range(D - 1):
-            cin = W + input_ch if i in self.skips else W
-            pts.append(init_linear(cin, W, **kw))
+            pts.append(lin(W + input_ch if i in self.skips else W, W))
         self.pts = nn.ModuleList(pts)
-        self.views = init_linear(input_ch_views + W, W // 2, **kw)
-        self.feature = init_linear(W, W, **kw)
-        self.density = init_linear(W, 1, **kw)
-        self.rgb = init_linear(W // 2, 3, zero_bias=True, **kw)
+        self.views = lin(input_ch_views + W, W // 2)
+        self.feature = lin(W, W)
+        self.density = lin(W, 1)
+        self.rgb = lin(W // 2, 3, zero_bias=True)
 
 
 def nerf_mlp_apply(model, emb, viewemb):
@@ -92,15 +100,16 @@ class Mapping(nn.Module):
     JAX_EXTRAS = ("dropout",)
 
     def __init__(self, in_dim, out_dim=12, depth=1, width=64, dropout=0.1,
-                 generator=None, device=None):
+                 key=None, device=None):
         super().__init__()
-        kw = dict(generator=generator, device=device)
+        keys = prng.split_keys(key, depth + 1)
         self.dropout = float(dropout)
-        hidden = [init_linear(in_dim, width, **kw)]
+        hidden = [init_linear(in_dim, width, key=next(keys), device=device)]
         for _ in range(max(depth - 2, 0)):
-            hidden.append(init_linear(width, width, **kw))
+            hidden.append(init_linear(width, width, key=next(keys),
+                                      device=device))
         self.hidden = nn.ModuleList(hidden)
-        self.out = init_linear(width, out_dim, **kw)
+        self.out = init_linear(width, out_dim, key=next(keys), device=device)
 
 
 def mapping_apply(model, feature, pose, rng=None):
@@ -124,15 +133,14 @@ class InterpMLP(nn.Module):
     JAX_EXTRAS = ("dropout",)
 
     def __init__(self, in_dim, out_dim, width=128, depth=5, dropout=0.1,
-                 generator=None, device=None):
+                 key=None, device=None):
         super().__init__()
-        kw = dict(generator=generator, device=device)
+        keys = prng.split_keys(key, depth)
+        dims = [in_dim] + [width] * (depth - 1) + [out_dim]
         self.dropout = float(dropout)
-        layers = [init_linear(in_dim, width, **kw)]
-        for _ in range(depth - 2):
-            layers.append(init_linear(width, width, **kw))
-        layers.append(init_linear(width, out_dim, **kw))
-        self.layers = nn.ModuleList(layers)
+        self.layers = nn.ModuleList(
+            init_linear(dims[i], dims[i + 1], key=next(keys), device=device)
+            for i in range(depth))
 
 
 def interp_mlp_apply(model, x, rng=None):
@@ -176,10 +184,10 @@ def apply_liif_sd_to_interp(interp, liif_layers):
 # -------------------------------------------------------------- ConvMapping
 
 class ConvBlock(nn.Module):
-    def __init__(self, c, ksize, generator=None, device=None):
+    def __init__(self, c, ksize, keys, device=None):
         super().__init__()
-        self.c1 = init_conv(c, c, ksize, generator=generator, device=device)
-        self.c2 = init_conv(c, c, ksize, generator=generator, device=device)
+        self.c1 = init_conv(c, c, ksize, key=next(keys), device=device)
+        self.c2 = init_conv(c, c, ksize, key=next(keys), device=device)
 
 
 class ConvMapping(nn.Module):
@@ -189,14 +197,16 @@ class ConvMapping(nn.Module):
     JAX_EXTRAS = ("dropout",)
 
     def __init__(self, in_dim, out_dim=12, ksize=3, n_resblocks=5,
-                 dropout=0.1, generator=None, device=None):
+                 dropout=0.1, key=None, device=None):
         super().__init__()
-        kw = dict(generator=generator, device=device)
+        keys = prng.split_keys(key, 2 + 2 * n_resblocks + 1)
         self.dropout = float(dropout)
-        self.head = init_conv(in_dim, in_dim, ksize, **kw)
-        self.blocks = nn.ModuleList(ConvBlock(in_dim, ksize, **kw)
+        self.head = init_conv(in_dim, in_dim, ksize, key=next(keys),
+                              device=device)
+        self.blocks = nn.ModuleList(ConvBlock(in_dim, ksize, keys, device)
                                     for _ in range(n_resblocks))
-        self.out = init_conv(in_dim, out_dim, ksize, **kw)
+        self.out = init_conv(in_dim, out_dim, ksize, key=next(keys),
+                             device=device)
 
 
 def conv_mapping_apply(model, feature, cond, rng=None):
@@ -217,16 +227,14 @@ def conv_mapping_apply(model, feature, cond, rng=None):
 
 # -------------------------------------------------------------------- SIREN
 
-def init_siren_layer(in_f, out_f, w0=30.0, is_first=False, generator=None,
+def init_siren_layer(in_f, out_f, w0=30.0, is_first=False, key=None,
                      device=None):
-    layer = nn.Linear(in_f, out_f, device=device)
+    layer = skip_init(nn.Linear, in_f, out_f, device=device)
+    kw, kb = prng.split(prng.key_or_default(key))
     b = 1.0 / in_f if is_first else math.sqrt(6.0 / in_f) / w0
-    with torch.no_grad():
-        layer.weight.copy_(torch.empty(layer.weight.shape).uniform_(
-            -b, b, generator=generator))
-        bound = 1.0 / math.sqrt(in_f)
-        layer.bias.copy_(torch.empty(out_f).uniform_(-bound, bound,
-                                                     generator=generator))
+    set_param(layer.weight, prng.uniform(kw, (in_f, out_f), -b, b).T)
+    bound = 1.0 / math.sqrt(in_f)
+    set_param(layer.bias, prng.uniform(kb, (out_f,), -bound, bound))
     return layer
 
 
@@ -234,15 +242,15 @@ class SirenRgbNet(nn.Module):
     JAX_EXTRAS = ("w0",)
 
     def __init__(self, num_layers, input_dim, hidden_dim, w0=30.0,
-                 generator=None, device=None):
+                 key=None, device=None):
         super().__init__()
-        kw = dict(generator=generator, device=device)
+        keys = prng.split_keys(key, num_layers)
         self.w0 = float(w0)
-        layers = [init_siren_layer(input_dim, hidden_dim, w0, True, **kw)]
-        for _ in range(num_layers - 2):
-            layers.append(init_siren_layer(hidden_dim, hidden_dim, w0, **kw))
-        layers.append(init_siren_layer(hidden_dim, 3, w0, **kw))
-        self.layers = nn.ModuleList(layers)
+        dims = [input_dim] + [hidden_dim] * (num_layers - 1) + [3]
+        self.layers = nn.ModuleList(
+            init_siren_layer(dims[i], dims[i + 1], w0, i == 0, next(keys),
+                             device)
+            for i in range(num_layers))
 
 
 def siren_rgb_net_apply(model, x):
@@ -255,21 +263,26 @@ def siren_rgb_net_apply(model, x):
 
 class NLBlock(nn.Module):
     """Non-local block attending features to the density map; the output
-    conv starts at zero (the block is the identity at init)."""
+    conv starts at zero (the block is the identity at init). Keys: the
+    JAX package's ``init_nl_block`` draws ``wz`` (then zeroed) first."""
 
     JAX_EXTRAS = ("mode", "inter")
 
     def __init__(self, feat_channels, density_channels, inter_channels=None,
-                 mode="embedded", generator=None, device=None):
+                 mode="embedded", key=None, device=None):
         super().__init__()
         assert mode in ("embedded", "dot")
-        kw = dict(generator=generator, device=device)
+        k_wz, k_g, k_theta, k_phi = prng.split_keys(key, 4)
         self.mode = mode
         self.inter = inter_channels or max(feat_channels // 2, 1)
-        self.g = init_conv(feat_channels, self.inter, 1, **kw)
-        self.theta = init_conv(feat_channels, self.inter, 1, **kw)
-        self.phi = init_conv(density_channels, self.inter, 1, **kw)
-        self.wz = init_conv(self.inter, feat_channels, 1, **kw)
+        self.g = init_conv(feat_channels, self.inter, 1, key=k_g,
+                           device=device)
+        self.theta = init_conv(feat_channels, self.inter, 1, key=k_theta,
+                               device=device)
+        self.phi = init_conv(density_channels, self.inter, 1, key=k_phi,
+                             device=device)
+        self.wz = init_conv(self.inter, feat_channels, 1, key=k_wz,
+                            device=device)
         with torch.no_grad():
             self.wz.weight.zero_()
             self.wz.bias.zero_()
@@ -298,14 +311,18 @@ def nl_block_apply(model, x, density):
 class ScaledProductAttention(nn.Module):
     JAX_EXTRAS = ("heads",)
 
-    def __init__(self, embed_dim, num_heads=1, generator=None, device=None):
+    def __init__(self, embed_dim, num_heads=1, key=None, device=None):
         super().__init__()
-        kw = dict(generator=generator, device=device)
+        keys = prng.split_keys(key, 4)
         self.heads = int(num_heads)
-        self.q = init_linear(embed_dim, embed_dim, **kw)
-        self.k = init_linear(embed_dim, embed_dim, **kw)
-        self.v = init_linear(embed_dim, embed_dim, **kw)
-        self.o = init_linear(embed_dim, embed_dim, **kw)
+        self.q = init_linear(embed_dim, embed_dim, key=next(keys),
+                             device=device)
+        self.k = init_linear(embed_dim, embed_dim, key=next(keys),
+                             device=device)
+        self.v = init_linear(embed_dim, embed_dim, key=next(keys),
+                             device=device)
+        self.o = init_linear(embed_dim, embed_dim, key=next(keys),
+                             device=device)
 
 
 def scaled_product_attention_apply(model, query, kv):
@@ -333,15 +350,17 @@ class SplitRgbnet(nn.Module):
     """pos/view head -> concat the voxel feature -> rgb."""
 
     def __init__(self, input_dim, vox_dim=64, width=128, depth=4,
-                 generator=None, device=None):
+                 key=None, device=None):
         super().__init__()
-        kw = dict(generator=generator, device=device)
-        self.head = nn.ModuleList([
-            init_linear(input_dim, width, **kw),
-            init_linear(width, width, **kw),
-            init_linear(width, width - vox_dim, **kw)])
-        self.mid = init_linear(width, width, **kw)
-        self.rgb = init_linear(width, 3, **kw)
+        keys = prng.split_keys(key, 5)
+
+        def lin(cin, cout):
+            return init_linear(cin, cout, key=next(keys), device=device)
+
+        self.head = nn.ModuleList([lin(input_dim, width), lin(width, width),
+                                   lin(width, width - vox_dim)])
+        self.mid = lin(width, width)
+        self.rgb = lin(width, 3)
 
 
 def split_rgbnet_apply(model, pos_view, vox):

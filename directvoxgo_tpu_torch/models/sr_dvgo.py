@@ -10,11 +10,11 @@ The geometry is the triplane model's (:class:`.tri_dvgo.TriDVGO`).
 
 from __future__ import annotations
 
-import torch
 
 from ..ops import grid as grid_ops
 from . import backbone
 from . import mlp as mlp_lib
+from . import prng
 from .dvgo import DirectVoxGO
 from .tri_dvgo import TriDVGO
 
@@ -30,7 +30,7 @@ class SRDVGO(TriDVGO):
                  rgbnet_width=128, viewbase_pe=4,
                  n_feats=64, n_resblocks=16, res_scale=1, n_colors=3,
                  k_density=None, k_color=64, seed=0, device=None,
-                 generator=None, **kwargs):
+                 **kwargs):
         DirectVoxGO.__init__(
             self, xyz_min, xyz_max, num_voxels=num_voxels,
             num_voxels_base=num_voxels_base, alpha_init=alpha_init,
@@ -40,8 +40,7 @@ class SRDVGO(TriDVGO):
             k_density=k_density, k_color=k_color, seed=seed, device=device)
         self.k0 = None
         dev = self.density.device
-        gen = generator if generator is not None \
-            else torch.Generator().manual_seed(int(seed))
+        k_enc, k_rgb = prng.split(prng.prng_key(seed))
         self.liif = False
         self.rgbnet_dim = rgbnet_dim
         self.rgbnet_direct = rgbnet_direct
@@ -56,12 +55,11 @@ class SRDVGO(TriDVGO):
         }
         self.encoder, _ = backbone.make_edsr_baseline(
             n_resblocks=n_resblocks, n_feats=n_feats, res_scale=res_scale,
-            no_upsampling=True, n_colors=n_colors, generator=gen,
-            device=dev)
+            no_upsampling=True, n_colors=n_colors, key=k_enc, device=dev)
         dim0 = 3 + 3 * viewbase_pe * 2
         dim0 += rgbnet_dim if rgbnet_direct else rgbnet_dim - 3
         self.rgbnet = mlp_lib.MLP(dim0, rgbnet_width, rgbnet_depth, 3,
-                                  generator=gen, device=dev)
+                                  key=k_rgb, device=dev)
         self.has_rgbnet = True
 
     def jax_groups(self):

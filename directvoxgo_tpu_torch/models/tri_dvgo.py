@@ -11,8 +11,8 @@ and aggregate by concatenation or sum; LIIF replaces the bilinear tap by a
 copy of ``interp_yz``'s weights and trains on its own, as the JAX package's
 optimizer updates the two leaves apart).
 
-The geometry is the gather forward's (its samplers, in their ``fma_``
-forms): dense samples, the occupied ones compacted to ``k_density``,
+The geometry is the gather forward's (its samplers, as the JAX package's
+compiler computes them): dense samples, the occupied ones compacted to ``k_density``,
 trilinear density, compositing, the ``k_color`` samples of largest weight
 kept for the colour query. Unlike DirectVoxGO's gather forward the weight
 the colour cap drops is not returned to ``alphainv_last``, as in the JAX
@@ -37,6 +37,7 @@ from ..ops import raymarch as rm
 from . import backbone
 from . import mlp as mlp_lib
 from . import nets
+from . import prng
 from .dvgo import DirectVoxGO
 
 PLANE_AXES = {"xy": (0, 1), "yz": (1, 2), "zx": (2, 0)}
@@ -73,7 +74,7 @@ class TriDVGO(DirectVoxGO):
                  map_depth=1, map_width=64,
                  n_feats=64, n_resblocks=16, res_scale=1,
                  k_density=None, k_color=64, seed=0, device=None,
-                 generator=None, **kwargs):
+                 **kwargs):
         super().__init__(
             xyz_min, xyz_max, num_voxels=num_voxels,
             num_voxels_base=num_voxels_base, alpha_init=alpha_init,
@@ -83,9 +84,8 @@ class TriDVGO(DirectVoxGO):
             k_density=k_density, k_color=k_color, seed=seed, device=device)
         self.k0 = None
         dev = self.density.device
-        gen = generator if generator is not None \
-            else torch.Generator().manual_seed(int(seed))
-        kw = dict(generator=gen, device=dev)
+        k_enc, k_map, k_rgb, k_ixy, k_iyz, _ = prng.split(
+            prng.prng_key(seed), 6)
 
         self.tri_aggregation = tri_aggregation
         self.liif = bool(liif or implicit_voxel_feat)
@@ -116,14 +116,14 @@ class TriDVGO(DirectVoxGO):
 
         self.encoder, _ = backbone.make_edsr_baseline(
             n_resblocks=n_resblocks, n_feats=n_feats, res_scale=res_scale,
-            no_upsampling=True, n_colors=9, **kw)
+            no_upsampling=True, n_colors=9, key=k_enc, device=dev)
         self.map = nets.Mapping(n_feats + 16, rgbnet_dim, map_depth,
-                                map_width, **kw)
+                                map_width, key=k_map, device=dev)
         dim0 = 3 + 3 * viewbase_pe * 2
         dim0 += self.k0_dim if rgbnet_direct else self.k0_dim - 3
         self.rgbnet_dim0 = dim0
         self.rgbnet = mlp_lib.MLP(dim0, rgbnet_width, rgbnet_depth, 3,
-                                  generator=gen, device=dev)
+                                  key=k_rgb, device=dev)
         self.has_rgbnet = True
         if self.liif:
             # decoder input: the feature (3x3-unfolded), the relative
@@ -131,9 +131,11 @@ class TriDVGO(DirectVoxGO):
             in_dim = (rgbnet_dim * (9 if feat_unfold else 1) + 2
                       + (2 if cell_decode else 0))
             self.interp_xy = nets.InterpMLP(in_dim, rgbnet_dim, interp_width,
-                                            interp_depth, **kw)
+                                            interp_depth, key=k_ixy,
+                                            device=dev)
             self.interp_yz = nets.InterpMLP(in_dim, rgbnet_dim, interp_width,
-                                            interp_depth, **kw)
+                                            interp_depth, key=k_iyz,
+                                            device=dev)
             # the reference shares zx's decoder with yz at init
             self.interp_zx = copy.deepcopy(self.interp_yz)
 
@@ -298,8 +300,7 @@ class TriDVGO(DirectVoxGO):
         interval = stepsize * self.voxel_size_ratio
         n_cap = rm.max_samples_for_bbox(self.xyz_min, self.xyz_max, stepdist)
         (px, py, pz), valid, step_sl = rm.sample_points_dense_parts(
-            rays_o, rays_d, bbox_min, bbox_max, near, far, stepdist, n_cap,
-            fma_=True)
+            rays_o, rays_d, bbox_min, bbox_max, near, far, stepdist, n_cap)
         occ = grid_ops.occupancy_lookup_parts(
             mask, px, py, pz, bbox_min, bbox_max) & valid
         step_f = step_sl.to(torch.float32)[None, :].expand(px.shape)

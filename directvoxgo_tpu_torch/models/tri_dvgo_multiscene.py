@@ -24,7 +24,7 @@ import torch
 from torch import nn
 
 from ..ops import grid as grid_ops
-from . import backbone, nets
+from . import backbone, nets, prng
 from .dvgo_multiscene import pooled_alpha
 from .mlp import init_linear
 from .tri_dvgo import PLANE_AXES, PLANES, TriDVGO, _planes_last
@@ -62,11 +62,8 @@ class TriDVGOMultiScene(TriDVGO):
                  compute_consistency=False, compute_cosine=False,
                  cosine_v1=False, cosine_v2=True,
                  use_anchor_liif=False, load_liif_sd=False,
-                 liif_state_dict="", device=None, generator=None, **kwargs):
-        gen = generator if generator is not None \
-            else torch.Generator().manual_seed(int(kwargs.get("seed", 0)))
-        super().__init__(xyz_min, xyz_max, device=device, generator=gen,
-                         **kwargs)
+                 liif_state_dict="", device=None, **kwargs):
+        super().__init__(xyz_min, xyz_max, device=device, **kwargs)
         self.n_scene = int(n_scene)
         dev = self.density.device
         ws = tuple(self.world_size)
@@ -93,15 +90,20 @@ class TriDVGOMultiScene(TriDVGO):
             "load_liif_sd": bool(load_liif_sd),
             "liif_state_dict": liif_state_dict,
         })
-        kw = dict(generator=gen, device=dev)
+        # the JAX model's keys: ``seed + 11``, whole for the mapping and
+        # the NL block, folded with 1, 2 and 3 for the rest
+        key = prng.prng_key(kwargs.get("seed", 0) + 11)
         n_feats = self.encoder_kwargs["n_feats"]
         if conv_map:
-            self.map = nets.ConvMapping(n_feats + 16, self.rgbnet_dim, **kw)
+            self.map = nets.ConvMapping(n_feats + 16, self.rgbnet_dim,
+                                        key=key, device=dev)
         if use_nl:
-            self.nl_block = nets.NLBlock(n_feats, 1, **kw)
+            self.nl_block = nets.NLBlock(n_feats, 1, key=key, device=dev)
         if not (conv_map or mlp_map) and n_feats != self.rgbnet_dim:
             # the closed-form, NL and identity modes emit n_feats channels
-            self.plane_proj = init_linear(n_feats, self.rgbnet_dim, **kw)
+            self.plane_proj = init_linear(n_feats, self.rgbnet_dim,
+                                          key=prng.fold_in(key, 1),
+                                          device=dev)
 
         if (self.use_anchor_liif or load_liif_sd) and not self.liif:
             raise ValueError("use_anchor_liif/load_liif_sd require liif=True "
@@ -122,11 +124,13 @@ class TriDVGOMultiScene(TriDVGO):
             first = self.interp_xy.layers[0]
             self.anchor_liif = nets.InterpMLP(
                 first.in_features, self.rgbnet_dim, first.out_features,
-                len(self.interp_xy.layers), **kw)
+                len(self.interp_xy.layers), key=prng.fold_in(key, 2),
+                device=dev)
             if liif_layers is not None:
                 nets.apply_liif_sd_to_interp(self.anchor_liif, liif_layers)
-            self.distillation_head = init_linear(self.rgbnet_dim,
-                                                 self.rgbnet_dim, **kw)
+            self.distillation_head = init_linear(
+                self.rgbnet_dim, self.rgbnet_dim, key=prng.fold_in(key, 3),
+                device=dev)
 
     def jax_groups(self):
         groups = super().jax_groups()

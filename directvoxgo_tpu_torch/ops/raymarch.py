@@ -3,12 +3,12 @@ raw2alpha, front-to-back compositing with early termination (with its
 closed-form backward) and the fixed-capacity compaction of the gather
 forward.
 
-The samplers take ``fma=True`` on the gather paths: the JAX package's
-compiler contracts ``a * b + c`` there into fused multiply-adds (on the CPU
-as on the accelerators), and a one-ulp change in a sample point can flip
-its bbox test, its occupancy voxel or its trilinear corner. A fused
-multiply-add is computed exactly as an f64 product and sum rounded once to
-f32 (:func:`fma`)."""
+The samplers compute their points as the JAX package's compiler does:
+it contracts ``a * b + c`` into fused multiply-adds (on the CPU as on the
+accelerators) and divides by a constant as a product with its f32
+reciprocal, and a one-ulp change in a sample point can flip its bbox
+test, its occupancy voxel or its trilinear corner. A fused multiply-add is computed exactly as
+an f64 product and sum rounded once to f32 (:func:`fma`)."""
 
 from __future__ import annotations
 
@@ -52,22 +52,27 @@ def fma(a, b, c):
     return (a.double() * b.double() + c.double()).float()
 
 
+def reciprocal32(c):
+    """``1 / c`` in f32, the factor by which the JAX package's compiler
+    replaces a division by the constant ``c``."""
+    return float(np.float32(1.0) / np.float32(c))
+
+
 def sample_points_dense_parts(rays_o, rays_d, xyz_min, xyz_max, near, far,
-                              stepdist, n_samples, fma_=False):
+                              stepdist, n_samples):
     """Up to ``n_samples`` equidistant points per ray inside the AABB:
     ``o + d*t_min + unit(d) * stepdist * step``. Returns ((px, py, pz) each
     [N, n_samples], valid [N, n_samples] (in segment and in bbox), step_id
-    [n_samples]). ``fma_``: the start, the ray's norm and the points as
-    the JAX package's compiler contracts them (``fma(dz, dz, fma(dx, dx,
-    dy * dy))``, ``fma(d, t_min, o)``, ``fma(unit, dist, start)``)."""
+    [n_samples]). The step count, the start, the ray's norm and the points
+    as the JAX package's compiler computes them (``(t_max - t_min) *
+    reciprocal32(stepdist)``, ``fma(dz, dz, fma(dx, dx, dy * dy))``,
+    ``fma(d, t_min, o)``, ``fma(unit, dist, start)``)."""
     o = tuple(rays_o[:, i] for i in range(3))
     d = tuple(rays_d[:, i] for i in range(3))
     t_min, t_max = ray_aabb_tminmax_parts(o, d, xyz_min, xyz_max, near, far)
-    n_steps = torch.clamp(torch.ceil((t_max - t_min) / stepdist), min=1.0)
-    if fma_:
-        rnorm = torch.sqrt(fma(d[2], d[2], fma(d[0], d[0], d[1] * d[1])))
-    else:
-        rnorm = torch.sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
+    n_steps = torch.clamp(
+        torch.ceil((t_max - t_min) * reciprocal32(stepdist)), min=1.0)
+    rnorm = torch.sqrt(fma(d[2], d[2], fma(d[0], d[0], d[1] * d[1])))
     step_id = torch.arange(n_samples, dtype=torch.int32,
                            device=rays_o.device)
     dist = stepdist * step_id.to(rays_o.dtype)
@@ -75,10 +80,7 @@ def sample_points_dense_parts(rays_o, rays_d, xyz_min, xyz_max, near, far,
     in_bbox = None
     for ov, dv, lo, hi in zip(o, d, xyz_min, xyz_max):
         unit = dv / rnorm
-        if fma_:
-            p = fma(unit[:, None], dist[None, :], fma(dv, t_min, ov)[:, None])
-        else:
-            p = (ov + dv * t_min)[:, None] + unit[:, None] * dist[None, :]
+        p = fma(unit[:, None], dist[None, :], fma(dv, t_min, ov)[:, None])
         ok = (p >= float(lo)) & (p <= float(hi))
         in_bbox = ok if in_bbox is None else (in_bbox & ok)
         pts.append(p)
@@ -88,30 +90,25 @@ def sample_points_dense_parts(rays_o, rays_d, xyz_min, xyz_max, near, far,
 
 def sample_points_dense(rays_o, rays_d, xyz_min, xyz_max, near, far,
                         stepdist, n_samples):
-    """:func:`sample_points_dense_parts` (with ``fma_``) in the packed
-    layout: (pts [N, n_samples, 3], valid, step_id); python-float
+    """:func:`sample_points_dense_parts` in the packed layout: (pts [N, n_samples, 3], valid, step_id); python-float
     bounds."""
     mn = [float(v) for v in np.asarray(xyz_min, np.float64)]
     mx = [float(v) for v in np.asarray(xyz_max, np.float64)]
     pts, valid, step_id = sample_points_dense_parts(
-        rays_o, rays_d, mn, mx, near, far, stepdist, n_samples, fma_=True)
+        rays_o, rays_d, mn, mx, near, far, stepdist, n_samples)
     return torch.stack(pts, -1), valid, step_id
 
 
-def sample_points_ndc_parts(rays_o, rays_d, n_samples, xyz_min, xyz_max,
-                            fma_=False):
+def sample_points_ndc_parts(rays_o, rays_d, n_samples, xyz_min, xyz_max):
     """The regular NDC sampler in component form: ``n_samples`` points at
-    ray fractions j / (n_samples - 1) (``fma_``: ``fma(d, frac, o)``), valid
-    inside the box. Returns ((px, py, pz), valid)."""
+    ray fractions j / (n_samples - 1) (``j * reciprocal32(n_samples -
+    1)``, then ``fma(d, frac, o)``), valid inside the box. Returns ((px,
+    py, pz), valid)."""
     frac = torch.arange(n_samples, dtype=torch.float32,
-                        device=rays_o.device) / (n_samples - 1)
+                        device=rays_o.device) * reciprocal32(n_samples - 1)
     pts, valid = [], None
     for i, (lo, hi) in enumerate(zip(xyz_min, xyz_max)):
-        if fma_:
-            p = fma(rays_d[:, i][:, None], frac[None, :],
-                    rays_o[:, i][:, None])
-        else:
-            p = rays_o[:, i][:, None] + rays_d[:, i][:, None] * frac[None, :]
+        p = fma(rays_d[:, i][:, None], frac[None, :], rays_o[:, i][:, None])
         ok = (p >= float(lo)) & (p <= float(hi))
         valid = ok if valid is None else (valid & ok)
         pts.append(p)
@@ -119,12 +116,11 @@ def sample_points_ndc_parts(rays_o, rays_d, n_samples, xyz_min, xyz_max,
 
 
 def sample_points_ndc(rays_o, rays_d, xyz_min, xyz_max, n_samples):
-    """:func:`sample_points_ndc_parts` (with ``fma_``) in the packed layout:
-    (pts [N, n_samples, 3], valid, step_id)."""
+    """:func:`sample_points_ndc_parts` in the packed layout: (pts [N,
+    n_samples, 3], valid, step_id)."""
     mn = [float(v) for v in np.asarray(xyz_min, np.float64)]
     mx = [float(v) for v in np.asarray(xyz_max, np.float64)]
-    pts, valid = sample_points_ndc_parts(rays_o, rays_d, n_samples, mn, mx,
-                                         fma_=True)
+    pts, valid = sample_points_ndc_parts(rays_o, rays_d, n_samples, mn, mx)
     step_id = torch.arange(n_samples, dtype=torch.int32,
                            device=rays_o.device)
     return torch.stack(pts, -1), valid, step_id

@@ -61,7 +61,6 @@ def fine_stage(args, cfg, data_dict, coarse_ckpt_path, device):
     model = SRDVGO(xyz_min=xyz_min, xyz_max=xyz_max,
                    num_voxels=cfg_model.num_voxels,
                    mask_cache_path=coarse_ckpt_path, device=device,
-                   generator=torch.Generator().manual_seed(args.seed),
                    **model_kwargs_of(cfg_model))
     optimizer = train_lib.create_optimizer_or_freeze_model(model, cfg_train)
     render_kwargs = render_kwargs_of(cfg, data_dict['near'],

@@ -116,7 +116,7 @@ def main(argv=None):
     kw = dict(cfg.fine_model_and_render)
     gen = torch.Generator(device="cpu").manual_seed(0)
     model = DirectVoxGO(xyz_min=[-1.0] * 3, xyz_max=[1.0] * 3, device=dev,
-                        generator=gen, **kw)
+                        **kw)
     dens, _ = teacher_grids(128, "lego")
     dens = torch.nn.functional.interpolate(
         torch.as_tensor(dens)[None, None], size=model.world_size,

@@ -12,11 +12,13 @@ until an axis's program lands it draws from the axes whose programs did:
 how long that lasts depends on the machine, not on the seed. Here both are
 joined, without editing the JAX package: the thread is joined as it
 starts, and the pool runs each job as it is submitted. The engines then
-draw by the same rules, which the port copies, so their seed means must
-agree within ``BAR_DB``. Each case prints, per seed, both engines' test
-PSNR and their draws per step key (axis, clip or window box), and writes
-them to ``logs/c1/<case>_<seeds>.json``. ``DVGO_C1_SEEDS`` picks the
-seeds (default 777, 1, 2).
+draw by the same rules, which the port copies, and both start from the
+same initial weights (the port draws them from its copy of the JAX random
+stream, ``models/prng.py``), so their seed means must agree within
+``BAR_DB``. Each case prints, per seed, both engines' test PSNR, their
+train loss and PSNR per 100 steps and their draws per step key (axis,
+clip or window box), and writes them to ``logs/c1/<case>_<seeds>.json``.
+``DVGO_C1_SEEDS`` picks the seeds (default 777, 1, 2).
 """
 
 import collections
@@ -25,6 +27,8 @@ import contextlib
 import json
 import os
 import random
+import re
+import sys
 import threading
 import time
 import types
@@ -36,6 +40,11 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SEEDS = (777, 1, 2)
 BAR_DB = 0.2
+# the engines' train PSNRs (printed to 0.01 dB, the mean of the i_print
+# window's steps) are said to part at the first i_print step where they
+# differ by more than this; the one batch's loss printed beside them drifts
+# by up to a few percent within 100 steps from float orders alone
+PART_DB = 0.05
 FERN_CFG = os.path.join(REPO, "configs", "synthetic", "fixture_ndc_fern.py")
 # The fern schedule cut to 25 minutes of JAX on an 8-core CPU (29 on four
 # cores): the grid's final size cut from 256^3 to 160^3 voxels
@@ -95,6 +104,38 @@ def jax_background_joined():
         yield
     finally:
         threading.Thread, cf.ThreadPoolExecutor = real_thread, real_pool
+
+
+TRAIN_LINE = re.compile(r"scene_rep_reconstruction \((\w+)\): iter\s+(\d+) "
+                        r"/ Loss: ([-+.\deE]+) / PSNR:\s*([-+.\deE]+)")
+
+
+class _TrainLines:
+    """A stdout that passes everything on and keeps each engine's
+    ``i_print`` line as (stage, step, loss, train PSNR)."""
+
+    def __init__(self, out):
+        self.out, self.rows, self.buf = out, [], ""
+
+    def write(self, text):
+        self.buf += text
+        *lines, self.buf = self.buf.split("\n")
+        for line in lines:
+            m = TRAIN_LINE.search(line)
+            if m:
+                self.rows.append((m[1], int(m[2]), float(m[3]),
+                                  float(m[4])))
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+@contextlib.contextmanager
+def train_lines():
+    tee = _TrainLines(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        yield tee.rows
 
 
 def _plain(x):
@@ -159,7 +200,7 @@ def _views(data):
 
 def jax_run(cfg_path, overrides, basedir, seed):
     """The JAX package trained from ``seed`` with its background work
-    joined; returns (test PSNR, {step key: steps}, seconds)."""
+    joined; returns (test PSNR, {step key: steps}, seconds, train lines)."""
     from directvoxgo_tpu.config import Config
     from directvoxgo_tpu.data import load_everything
     from directvoxgo_tpu.engine import checkpoint as ckpt_lib
@@ -182,7 +223,7 @@ def jax_run(cfg_path, overrides, basedir, seed):
     t0 = time.time()
     train_lib.make_train_step = counted
     try:
-        with jax_background_joined():
+        with jax_background_joined(), train_lines() as rows:
             train_lib.train(_args(seed), cfg, data)
     finally:
         train_lib.make_train_step = real
@@ -193,42 +234,11 @@ def jax_run(cfg_path, overrides, basedir, seed):
         os.path.join(cfg.basedir, cfg.expname, "fine_last.tar"))
     _, _, stats = render_viewpoints(model=model, verbose=False,
                                     **_views(data), **_render_kw(cfg, data))
-    return float(np.mean(stats["psnr"])), dict(counts), seconds
+    return float(np.mean(stats["psnr"])), dict(counts), seconds, rows
 
 
-@contextlib.contextmanager
-def jax_initial_mlp():
-    """The port's colour MLPs built with the JAX package's initial weights:
-    ``init_mlp(PRNGKey(0), ...)``, the key of the JAX models' ``seed``
-    keyword (0 in every config). Both engines start every ``--seed`` from
-    the MLP that keyword gives, but from different random streams."""
-    import jax
-    from directvoxgo_tpu.models import mlp as jax_mlp
-    from directvoxgo_tpu_torch.models import mlp as torch_mlp
-    real = torch_mlp.MLP.__init__
-
-    def init(self, dim_in, width, depth, dim_out, generator=None,
-             device=None):
-        real(self, dim_in, width, depth, dim_out, generator=generator,
-             device=device)
-        params = jax_mlp.init_mlp(jax.random.PRNGKey(0), dim_in, width,
-                                  depth, dim_out)
-        with torch.no_grad():
-            for layer, p in zip(self.layers, params["layers"]):
-                layer.weight.copy_(torch.tensor(np.array(p["w"]).T))
-                layer.bias.copy_(torch.tensor(np.array(p["b"])))
-
-    torch_mlp.MLP.__init__ = init
-    try:
-        yield
-    finally:
-        torch_mlp.MLP.__init__ = real
-
-
-def port_run(cfg_path, overrides, basedir, seed, jax_init=False):
-    """The port trained from ``seed`` on the CPU; as :func:`jax_run`.
-    ``jax_init``: its colour MLP starts from the JAX package's initial
-    weights (:func:`jax_initial_mlp`)."""
+def port_run(cfg_path, overrides, basedir, seed):
+    """The port trained from ``seed`` on the CPU; as :func:`jax_run`."""
     from directvoxgo_tpu_torch.config import Config
     from directvoxgo_tpu_torch.data import load_everything
     from directvoxgo_tpu_torch.engine import checkpoint as ckpt_lib
@@ -252,7 +262,7 @@ def port_run(cfg_path, overrides, basedir, seed, jax_init=False):
     t0 = time.time()
     graphs.StepGraphs.run = counted
     try:
-        with (jax_initial_mlp() if jax_init else contextlib.nullcontext()):
+        with train_lines() as rows:
             train_lib.train(_args(seed), cfg, data, device="cpu")
     finally:
         graphs.StepGraphs.run = real
@@ -263,7 +273,7 @@ def port_run(cfg_path, overrides, basedir, seed, jax_init=False):
         device="cpu")
     _, _, stats = render_viewpoints(model=model, verbose=False,
                                     **_views(data), **_render_kw(cfg, data))
-    return float(np.mean(stats["psnr"])), dict(counts), seconds
+    return float(np.mean(stats["psnr"])), dict(counts), seconds, rows
 
 
 def shares(counts):
@@ -272,25 +282,40 @@ def shares(counts):
         counts.items(), key=lambda kv: -kv[1])}
 
 
-def compare(case, cfg_path, overrides, tmp_path, jax_init=False):
-    """Both engines from each seed (``jax_init``: see :func:`port_run`);
-    prints and writes the table, returns (port mean, JAX mean, rows)."""
+def first_parting(port_lines, jax_lines):
+    """The first ``i_print`` line (stage, step) whose train PSNRs differ
+    between the engines by more than ``PART_DB``, or None."""
+    for p, j in zip(port_lines, jax_lines):
+        if p[:2] != j[:2] or abs(p[3] - j[3]) > PART_DB:
+            return p[:2]
+    return None
+
+
+def compare(case, cfg_path, overrides, tmp_path):
+    """Both engines from each seed; prints and writes the table, returns
+    (port mean, JAX mean, rows)."""
     rows, seeds = [], _seeds()
     for seed in seeds:
-        p_psnr, p_counts, p_s = port_run(cfg_path, overrides,
-                                         tmp_path / f"port_{seed}", seed,
-                                         jax_init)
-        j_psnr, j_counts, j_s = jax_run(cfg_path, overrides,
-                                        tmp_path / f"jax_{seed}", seed)
+        p_psnr, p_counts, p_s, p_lines = port_run(
+            cfg_path, overrides, tmp_path / f"port_{seed}", seed)
+        j_psnr, j_counts, j_s, j_lines = jax_run(
+            cfg_path, overrides, tmp_path / f"jax_{seed}", seed)
         keys = set(map(str, p_counts)) | set(map(str, j_counts))
         ps, js = shares(p_counts), shares(j_counts)
         tv = 0.5 * sum(abs(ps.get(k, 0.0) - js.get(k, 0.0)) for k in keys)
+        parting = first_parting(p_lines, j_lines)
         rows.append(dict(seed=seed, port_psnr=p_psnr, jax_psnr=j_psnr,
                          port_s=p_s, jax_s=j_s, port_draws=ps, jax_draws=js,
-                         draw_share_distance=tv))
+                         draw_share_distance=tv, port_train=p_lines,
+                         jax_train=j_lines, first_parting=parting))
+        train = "\n".join(
+            f"  {p[0]} {p[1]:6d}: loss {p[2]:.9f} / {j[2]:.9f}, train PSNR "
+            f"{p[3]:5.2f} / {j[3]:5.2f}" for p, j in zip(p_lines, j_lines))
         print(f"C1 {case} seed {seed}: port {p_psnr:.4f} dB ({p_s:.0f} s), "
               f"JAX {j_psnr:.4f} dB ({j_s:.0f} s), draws apart by {tv:.4f} "
-              f"(total variation)\n  port {ps}\n  JAX  {js}", flush=True)
+              f"(total variation); per 100 steps, port / JAX:\n{train}\n"
+              f"  train PSNRs first part at {parting}\n  port {ps}\n"
+              f"  JAX  {js}", flush=True)
     port = float(np.mean([r["port_psnr"] for r in rows]))
     jax_ = float(np.mean([r["jax_psnr"] for r in rows]))
     out = os.path.join(REPO, "logs", "c1")
@@ -340,18 +365,5 @@ def test_c1_fern_cut_schedule_seed_means_agree(tmp_path):
     if not _wanted("fern"):
         pytest.skip("opt-in: set DVGO_C1=fern (or all)")
     port, jax_, rows = compare("fern", FERN_CFG, FERN_CUT, tmp_path)
-    assert all(np.isfinite(r["port_psnr"]) for r in rows)
-    assert abs(port - jax_) <= BAR_DB, (port, jax_)
-
-
-def test_c1_fern_cut_schedule_from_the_jax_initial_mlp(tmp_path):
-    """As :func:`test_c1_fern_cut_schedule_seed_means_agree`, with the
-    port's colour MLP started from the JAX package's initial weights
-    (:func:`jax_initial_mlp`) rather than from its own draw of the same
-    ``seed`` keyword: the seed means within ``BAR_DB``."""
-    if not _wanted("fern_jax_init"):
-        pytest.skip("opt-in: set DVGO_C1=fern_jax_init (or all)")
-    port, jax_, rows = compare("fern_jax_init", FERN_CFG, FERN_CUT, tmp_path,
-                               jax_init=True)
     assert all(np.isfinite(r["port_psnr"]) for r in rows)
     assert abs(port - jax_) <= BAR_DB, (port, jax_)

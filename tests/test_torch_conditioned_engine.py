@@ -521,8 +521,7 @@ def test_resume_picks_up_the_finished_stage(tmp_path, data):
                                    [pool], source, _rk(data), "fine")
     assert t_cond.initial_num_voxels(_args(), cfg, cfg.fine_model_and_render,
                                      cfg.fine_train, "fine") == 16 ** 3
-    tm2 = TriDVGO(**kw, device="cpu", generator=torch.Generator()
-                  .manual_seed(9))
+    tm2 = TriDVGO(**kw, device="cpu", seed=9)
     opt2 = t_train.create_optimizer_or_freeze_model(tm2, cfg.fine_train)
     loaded, start = t_cond.resume_latest_checkpoint(_args(), cfg, tm2, opt2,
                                                     "fine")

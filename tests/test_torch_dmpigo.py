@@ -207,6 +207,18 @@ def test_hit_coarse_geo_matches_jax():
     assert np.sum(hit_t != hit_j) <= 2
 
 
+def test_hit_coarse_geo_is_bitwise_jax():
+    """The NDC-sampler ray filter over a carved mask, bit for bit, its
+    sample points one fused multiply-add each as the JAX package's
+    compiled filter computes them."""
+    jm, tm = _model_pair(5, carve=True)
+    o, d, _, _ = _ndc_rays(7, 20000)
+    hit_j = jm.hit_coarse_geo(o, d, 0.0, 1.0, 0.5)
+    hit_t = tm.hit_coarse_geo(o, d, 0.0, 1.0, 0.5)
+    assert 0 < hit_j.mean() < 1
+    np.testing.assert_array_equal(hit_t, hit_j)
+
+
 # (rgbnet_dim, sweep_color_topk, f32, clipped, stepsize)
 SWEEP_CASES = {
     "sigmoid_k1": (0, 0, True, False, 1.0),

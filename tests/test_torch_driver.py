@@ -187,7 +187,7 @@ def test_export_flags_match_the_jax_driver(tmp_path, monkeypatch):
     jax_ckpt.save_model_checkpoint(str(logdir / "coarse_last.tar"),
                                    _jax_model(24, 0, seed=1), 5)
     fine = TorchDVGO(**_jax_model(32, 6, seed=2).get_kwargs(), device="cpu",
-                     generator=torch.Generator().manual_seed(3))
+                     seed=3)
     with torch.no_grad():
         fine.density.normal_(0, 2, generator=torch.Generator().manual_seed(4))
     torch_ckpt.save_model_checkpoint(str(logdir / "fine_last.tar"), fine, 7)

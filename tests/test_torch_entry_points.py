@@ -141,8 +141,7 @@ def _checkpoint(path, writer, n=16, rgbnet_dim=6):
             rng.normal(size=jm.params["k0"].shape).astype(np.float32))
         jax_ckpt.save_model_checkpoint(path, jm, 7)
     else:
-        tm = TorchDVGO(**kw, device="cpu",
-                       generator=torch.Generator().manual_seed(0))
+        tm = TorchDVGO(**kw, device="cpu", seed=0)
         with torch.no_grad():
             tm.density.copy_(torch.as_tensor(
                 rng.normal(0, 4, tm.density.shape).astype(np.float32)))

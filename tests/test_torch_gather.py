@@ -170,7 +170,7 @@ def test_samples_validity_occupancy_and_corners_bit_for_bit(sampler):
             lambda o, d: jax_rm.sample_points_dense_parts(o, d, *args))(
                 jnp.asarray(ro), jnp.asarray(rd))
         (tx, ty, tz), t_valid, _ = torch_rm.sample_points_dense_parts(
-            _t(ro), _t(rd), *args, fma_=True)
+            _t(ro), _t(rd), *args)
     else:
         ro = np.concatenate([rng.uniform(-1.4, 1.4, (n, 2)),
                              -np.ones((n, 1))], 1).astype(np.float32)
@@ -180,7 +180,7 @@ def test_samples_validity_occupancy_and_corners_bit_for_bit(sampler):
             lambda o, d: JaxMPIGO._sample_ndc_parts(o, d, 129, lo, hi))(
                 jnp.asarray(ro), jnp.asarray(rd))
         (tx, ty, tz), t_valid = torch_rm.sample_points_ndc_parts(
-            _t(ro), _t(rd), 129, lo, hi, fma_=True)
+            _t(ro), _t(rd), 129, lo, hi)
     for a, b in ((tx, jx), (ty, jy), (tz, jz)):
         b = np.asarray(b)
         assert np.all(np.abs(a.numpy() - b) <= 2 * np.spacing(np.abs(b)))
@@ -211,6 +211,26 @@ def test_samples_validity_occupancy_and_corners_bit_for_bit(sampler):
     np.testing.assert_array_equal(t_corners(tx, ty, tz), jc)
     np.testing.assert_array_equal(
         t_corners(*(_t(v) for v in (jx, jy, jz))), jc)
+
+
+def test_ndc_sampler_points_are_bitwise_jax():
+    """The NDC sampler's points bit for bit: the JAX package's compiler
+    divides by the sample count less one (126, not a power of two) as a
+    product with the f32 reciprocal, and contracts ``o + d * frac`` into
+    a fused multiply-add; the port does both."""
+    rng = np.random.default_rng(13)
+    n = 2048
+    lo, hi = (-1.3, -1.1, -0.9), (1.2, 1.05, 0.95)
+    ro = np.concatenate([rng.uniform(-1.4, 1.4, (n, 2)),
+                         -np.ones((n, 1))], 1).astype(np.float32)
+    rd = np.concatenate([rng.uniform(-0.4, 0.4, (n, 2)),
+                         2 * np.ones((n, 1))], 1).astype(np.float32)
+    jout = jax.jit(lambda o, d: JaxMPIGO._sample_ndc_parts(
+        o, d, 127, lo, hi))(jnp.asarray(ro), jnp.asarray(rd))
+    tout = torch_rm.sample_points_ndc_parts(_t(ro), _t(rd), 127, lo, hi)
+    for a, b in zip(tout[0], jout[0]):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    np.testing.assert_array_equal(tout[1].numpy(), np.asarray(jout[1]))
 
 
 def test_packed_samplers_and_occupancy_match_jax():

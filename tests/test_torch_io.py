@@ -178,8 +178,7 @@ def test_checkpoint_port_to_jax_compact(tmp_path):
     tm = TorchDVGO(xyz_min=[-1, -1, -1], xyz_max=[1, 1, 1],
                    num_voxels=104 ** 3, num_voxels_base=104 ** 3,
                    alpha_init=1e-2, rgbnet_dim=3, rgbnet_direct=True,
-                   rgbnet_width=16, device="cpu",
-                   generator=torch.Generator().manual_seed(0))
+                   rgbnet_width=16, device="cpu", seed=0)
     g = torch.Generator().manual_seed(1)
     with torch.no_grad():
         tm.density.copy_(torch.randn(tm.density.shape, generator=g))

@@ -15,6 +15,7 @@ from directvoxgo_tpu.ops import raymarch as jax_rm
 from directvoxgo_tpu.ops import tv as jax_tv
 from directvoxgo_tpu.optim import MaskedAdam as JaxAdam
 from directvoxgo_tpu_torch import convert
+from directvoxgo_tpu_torch.models import prng
 from directvoxgo_tpu_torch.models.mlp import MLP
 from directvoxgo_tpu_torch.ops import grid as torch_grid
 from directvoxgo_tpu_torch.ops import raymarch as torch_rm
@@ -42,7 +43,7 @@ def _adam_pair(case, rng):
     skip = case in ("skip_zero_grad", "region")
     density = rng.normal(size=GRID).astype(np.float32)
     k0 = rng.normal(size=(*GRID, 3)).astype(np.float32)
-    mlp = MLP(5, 4, 2, 3, generator=torch.Generator().manual_seed(0))
+    mlp = MLP(5, 4, 2, 3, key=prng.prng_key(0))
     t_params = {"density": [torch.tensor(density)], "k0": [torch.tensor(k0)],
                 "rgbnet": list(mlp.parameters())}
     j_params = {"density": jnp.asarray(density), "k0": jnp.asarray(k0),

@@ -427,6 +427,33 @@ def test_in_maskcache_ray_pool_matches_jax(fine_pair, tiny_data):
     assert np.sum(hit_t != hit_j) <= 2
 
 
+def test_hit_coarse_geo_is_bitwise_jax(tiny_data):
+    """``hit_coarse_geo`` on the host rays of every training view over a
+    mask occupied at random up to the bbox faces, bit for bit: its sample
+    points are the JAX package's compiled ones (one fused multiply-add
+    each), so a ray whose first point lies on a bbox face is in or out
+    for both packages alike, and the fine stage's ray pool is the same."""
+    d = tiny_data
+    jm = JaxDVGO(xyz_min=[-1.2, -1.1, -1.0], xyz_max=[1.1, 1.2, 1.0],
+                 num_voxels=16 ** 3, num_voxels_base=16 ** 3, alpha_init=1e-2,
+                 rgbnet_dim=0)
+    mask = np.random.default_rng(21).uniform(size=jm.world_size) < 0.3
+    jm.mask = jnp.asarray(mask)
+    tm = TorchDVGO(**jm.get_kwargs(), device="cpu")
+    with torch.no_grad():
+        tm.mask.copy_(torch.as_tensor(mask))
+    hits = []
+    for i in d["i_train"]:
+        ro, rd, _ = torch_rays.get_rays_of_a_view(
+            40, 40, d["Ks"][i], d["poses"][i], False, False, False, False)
+        hit_j = np.asarray(jm.hit_coarse_geo(ro, rd, d["near"], d["far"],
+                                             0.5))
+        np.testing.assert_array_equal(
+            tm.hit_coarse_geo(ro, rd, d["near"], d["far"], 0.5), hit_j)
+        hits.append(hit_j)
+    assert 0 < np.mean(hits) < 1
+
+
 # ------------------------------------------ the training path as a whole
 
 def _tiny_cfg(basedir, cls):
