@@ -240,7 +240,21 @@ Phases, each of which fails the run:
      panels of that checkpoint on the card and on the CPU (1e-6, the panel
      count); (d) ``tools.crop_image`` on a frame of (b) and an RGBA PNG
      against a numpy crop and composite. Alone: ``python3 -c "import
-     chip_smoke; chip_smoke.phase13_alone()"`` (with phase 5, ~3 min).
+     chip_smoke; chip_smoke.phase13_alone()"`` (with phase 5, ~3 min);
+ 14. whole training runs on the card against the same runs on the CPU
+     (C1): the tiny fixture's cut of configs/default.py and the fern cut
+     of configs/synthetic/fixture_ndc_fern.py (TINY_CUT, FERN_CUT), each
+     at seeds 777, 1 and 2, trained through ``engine/train.train`` and
+     rendered by ``render_viewpoints`` as ``run.py --render_test`` does,
+     K-A, K-C (and for fern K-F) counted from zero and required to launch;
+     each run held to the CPU rows committed in tests/data/c1/
+     cpu_runs.json (``c1_gate``: the card's seed mean within 0.2 dB of the
+     CPU port's, and fern's steps per step key identical to the CPU's in
+     every seed); per seed the card, CPU port and CPU JAX PSNR, the first
+     print where the train PSNRs part, the draws, the ``in_maskcache``
+     pools and the seconds are logged, the runs written to
+     logs/chip_smoke/c1/card_runs.json. Alone: ``python3 -c "import
+     chip_smoke; chip_smoke.phase14_alone()"``.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line (one
 entry per kernel and form, each with the launches of the path it belongs
@@ -256,6 +270,7 @@ file.
 """
 
 import collections
+import contextlib
 import json
 import math
 import os
@@ -4913,6 +4928,8 @@ def run(dev):
         {"model": model, "H": 800, "W": 800, "K": K2, "c2w": c2w, "rk": rk})
     # Phase 13: the last entry points and the JPEG decoder.
     training["entry_points"] = entry_phase(torch, dev, ka, kb, kc)
+    # Phase 14: whole training runs on the card against the CPU's (C1).
+    training["c1"] = c1_phase(torch, dev, ka, kb, kc, tv)
     training["window_checks"] = errs["window"]
     training["small_graph_checks"] = errs["graphs"]
     training["fresh_ka_repeats"] = fresh
@@ -7293,6 +7310,444 @@ def phase13_alone():
     build_checkpoint(torch, dev)
     train_phase(torch, dev, ka, kb, kc, sweep_ops)
     print(json.dumps({"entry_points": entry_phase(torch, dev, ka, kb, kc)}))
+
+
+# ------------------------- phase 14: whole training runs, card against CPU
+
+# C1's cuts, trained on the CPU by tests/test_torch_c1.py (both packages,
+# the rows written to C1_REF) and on the card by phase 14, which holds its
+# runs to the CPU port's rows in C1_REF.
+C1_REF = os.path.join(REPO, "tests", "data", "c1", "cpu_runs.json")
+C1_SEEDS = (777, 1, 2)
+C1_BAR_DB = 0.2    # seed means, card against CPU port (the round's bar)
+# Train PSNRs (printed to 0.01 dB, the mean over the i_print window) part
+# at the first print where they differ by more than this.
+C1_PART_DB = 0.05
+C1_I_PRINT = 100
+# The JAX package's own end-to-end cut (tests/test_train_e2e.py) of
+# configs/default.py on the tiny fixture.
+TINY_CUT = {"expname": "tiny_e2e", "data.dataset_type": "synthetic_fixture",
+            "data.white_bkgd": True, "coarse_train.N_iters": 150,
+            "coarse_train.N_rand": 512, "coarse_train.lrate_density": 0.3,
+            "fine_train.N_iters": 150, "fine_train.N_rand": 512,
+            "fine_train.pg_scale": [75],
+            "coarse_model_and_render.num_voxels": 24 ** 3,
+            "coarse_model_and_render.num_voxels_base": 24 ** 3,
+            "fine_model_and_render.num_voxels": 32 ** 3,
+            "fine_model_and_render.num_voxels_base": 32 ** 3,
+            "fine_model_and_render.rgbnet_dim": 6,
+            "fine_model_and_render.rgbnet_width": 32,
+            "fine_model_and_render.k_density": 64,
+            "fine_model_and_render.k_color": 32}
+# configs/synthetic/fixture_ndc_fern.py cut to 25 minutes of JAX on an
+# 8-core CPU: the grid's final size from 256^3 to 160^3 voxels
+# (352x371x128 planes to 174x183x128), the iterations from 25000 to
+# C1_FERN_ITERS, and two pg_scale events of four at the same share of the
+# schedule (2000/25000 and 4000/25000), the dense-TV span scaled with them
+# (10000/25000). Window draws engage from the first pg event (2.05 M
+# voxels) on. Its batches are drawn on the host from data that does not
+# depend on the device ('flatten', no coarse stage).
+C1_FERN_ITERS = 600
+FERN_CUT = {"fine_train.N_iters": C1_FERN_ITERS,
+            "fine_train.pg_scale": [48, 96],
+            "fine_train.tv_dense_before": 240,
+            "fine_model_and_render.num_voxels": 160 ** 3}
+# case: (config, cut, whether the card must draw the CPU's steps per key)
+C1_CASES = {"tiny": ("configs/default.py", TINY_CUT, False),
+            "fern": ("configs/synthetic/fixture_ndc_fern.py", FERN_CUT, True)}
+C1_TRAIN_LINE = re.compile(
+    r"scene_rep_reconstruction \((\w+)\): iter\s+(\d+) / Loss: ([-+.\deE]+)"
+    r" / PSNR:\s*([-+.\deE]+)")
+
+
+class TrainLines:
+    """A stdout that passes everything on and keeps each ``i_print``
+    line of the trainer as [stage, step, loss, train PSNR] (``rows``)."""
+
+    def __init__(self, out):
+        self.out, self.rows, self.buf = out, [], ""
+
+    def write(self, text):
+        self.buf += text
+        *lines, self.buf = self.buf.split("\n")
+        for line in lines:
+            m = C1_TRAIN_LINE.search(line)
+            if m:
+                self.rows.append([m[1], int(m[2]), float(m[3]),
+                                  float(m[4])])
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def c1_key(key):
+    """A step key as the references write it: ``str`` of its plain
+    Python form (numpy integers as int)."""
+    def plain(x):
+        if isinstance(x, (tuple, list)):
+            return tuple(plain(v) for v in x)
+        return int(x) if hasattr(x, "dtype") and x.dtype.kind in "iu" else x
+    return str(plain(key))
+
+
+def c1_set(cfg, dotted, value):
+    *path, last = dotted.split(".")
+    node = cfg
+    for p in path:
+        node = getattr(node, p)
+    setattr(node, last, value)
+
+
+def c1_config(case, basedir):
+    """``case``'s config with its cut and ``basedir`` set."""
+    from directvoxgo_tpu_torch.config import Config
+    path, cut, _ = C1_CASES[case]
+    cfg = Config.fromfile(os.path.join(REPO, path))
+    for k, v in dict(cut, basedir=str(basedir)).items():
+        c1_set(cfg, k, v)
+    return cfg
+
+
+def c1_views(cfg, data):
+    """``render_viewpoints``' arguments for the test views, as ``run.py
+    --render_test`` passes them (no PNGs written)."""
+    import numpy as np
+    i = data["i_test"]
+    return dict(
+        render_poses=data["poses"][i], HW=data["HW"][i], Ks=data["Ks"][i],
+        gt_imgs=[np.asarray(data["images"][j]) for j in i],
+        ndc=cfg.data.ndc, render_kwargs={
+            "near": data["near"], "far": data["far"],
+            "bg": 1 if cfg.data.white_bkgd else 0,
+            "stepsize": cfg.fine_model_and_render.stepsize,
+            "inverse_y": cfg.data.inverse_y, "flip_x": cfg.data.flip_x,
+            "flip_y": cfg.data.flip_y, "render_depth": True},
+        flip_x=cfg.data.flip_x, flip_y=cfg.data.flip_y, verbose=False)
+
+
+def c1_run(case, basedir, seed, device):
+    """One C1 run of the port: ``case``'s cut trained from ``seed`` on
+    ``device`` through ``engine/train.train`` (seeded, and with the matmul
+    precision, as ``run.py`` does), then its test views rendered by
+    ``render_viewpoints`` as ``run.py --render_test`` renders them.
+    Returns its row: the test PSNR (mean and per view) and each view's
+    path, the train loss and PSNR at every ``i_print``, the steps taken
+    per step key (``StepGraphs.run``), the ``in_maskcache`` pool sizes
+    and the seconds of training."""
+    import random
+    import types
+    import numpy as np
+    import torch
+    from directvoxgo_tpu_torch.data import load_everything
+    from directvoxgo_tpu_torch.engine import checkpoint as ckpt_lib
+    from directvoxgo_tpu_torch.engine import graphs
+    from directvoxgo_tpu_torch.engine import train as train_lib
+    from directvoxgo_tpu_torch.engine.render import render_viewpoints
+    cfg = c1_config(case, basedir)
+    args = types.SimpleNamespace(seed=seed, no_reload=True,
+                                 no_reload_optimizer=False, ft_path="",
+                                 i_print=C1_I_PRINT, i_weights=10 ** 9)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    np.random.seed(seed)
+    random.seed(seed)
+    torch.manual_seed(seed)
+    data = load_everything(args=args, cfg=cfg)
+    draws, pools = collections.Counter(), []
+    real_run, real_rays = graphs.StepGraphs.run, train_lib.gather_training_rays
+
+    def counted(self, key, fn, pool, sels, offs, **kwargs):
+        draws[c1_key(key)] += len(sels)
+        return real_run(self, key, fn, pool, sels, offs, **kwargs)
+
+    def pooled(model, cfg_, cfg_train, *a, **k):
+        out = real_rays(model, cfg_, cfg_train, *a, **k)
+        if cfg_train.ray_sampler == "in_maskcache":
+            pools.append(int(len(out[0])))
+        return out
+
+    on_card = torch.device(device).type == "cuda"
+    tee = TrainLines(sys.stdout)
+    graphs.StepGraphs.run, train_lib.gather_training_rays = counted, pooled
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stdout(tee):
+            train_lib.train(args, cfg, data, device=device)
+        if on_card:
+            torch.cuda.synchronize()
+    finally:
+        graphs.StepGraphs.run = real_run
+        train_lib.gather_training_rays = real_rays
+    seconds = time.time() - t0
+    model = ckpt_lib.load_model(
+        train_lib.model_class_for(cfg),
+        os.path.join(cfg.basedir, cfg.expname, "fine_last.tar"),
+        device=device)
+    t0 = time.time()
+    _, _, stats = render_viewpoints(model=model, **c1_views(cfg, data))
+    return {"psnr": float(np.mean(stats["psnr"])),
+            "view_psnrs": [float(p) for p in stats["psnr"]],
+            "paths": list(stats["path"]), "train": tee.rows,
+            "draws": dict(sorted(draws.items())), "pool": pools,
+            "seconds": seconds, "render_seconds": time.time() - t0}
+
+
+def c1_first_parting(rows, ref_rows, part_db=C1_PART_DB):
+    """The first ``i_print`` line [stage, step] at which two runs' train
+    PSNRs differ by more than ``part_db`` (or their prints differ), else
+    None."""
+    for a, b in zip(rows, ref_rows):
+        if a[:2] != b[:2] or abs(a[3] - b[3]) > part_db:
+            return a[:2]
+    if len(rows) != len(ref_rows):
+        return (rows or ref_rows)[min(len(rows), len(ref_rows))][:2]
+    return None
+
+
+def c1_mean(rows):
+    import numpy as np
+    return float(np.mean([r["psnr"] for r in rows]))
+
+
+def c1_gate(ref, card):
+    """Phase 14's judgment of the card's runs ``card`` ({case: {seed:
+    row}}) against the CPU references ``ref`` (C1_REF's contents): a
+    summary per case with ``passed`` and the ``reasons`` it failed. A case
+    fails if a seed of C1_SEEDS lacks a card or a CPU port row, if a card
+    PSNR is not finite, if the card's seed mean departs from the CPU
+    port's by more than C1_BAR_DB, or, where the case's batches do not
+    depend on the device (fern), if a seed's steps per step key differ
+    from the CPU port's. Per seed: card, CPU port and CPU JAX PSNR, the
+    first print where the card's train PSNR parts from the CPU port's,
+    whether the draws are identical, the pool sizes and the seconds."""
+    import numpy as np
+    out = {}
+    for case, (_, _, same_draws) in C1_CASES.items():
+        cpu = ref["cases"].get(case, {})
+        port, jax_ = cpu.get("port", {}), cpu.get("jax", {})
+        got = card.get(case, {})
+        reasons, seeds = [], {}
+        for s in map(str, C1_SEEDS):
+            if s not in got or s not in port:
+                reasons.append(f"seed {s}: no "
+                               f"{'card' if s not in got else 'CPU port'} "
+                               "row")
+                continue
+            c, p, j = got[s], port[s], jax_.get(s)
+            same = c["draws"] == p["draws"]
+            seeds[s] = {"card_psnr": c["psnr"], "cpu_psnr": p["psnr"],
+                        "jax_psnr": None if j is None else j["psnr"],
+                        "card_minus_cpu": c["psnr"] - p["psnr"],
+                        "first_parting": c1_first_parting(c["train"],
+                                                          p["train"]),
+                        "draws_identical": same,
+                        "pool_card": c.get("pool"), "pool_cpu": p.get("pool"),
+                        "seconds_card": c["seconds"],
+                        "seconds_cpu": p["seconds"]}
+            if not np.isfinite(c["psnr"]):
+                reasons.append(f"seed {s}: card PSNR {c['psnr']}")
+            if same_draws and not same:
+                keys = sorted(set(c["draws"]) | set(p["draws"]))
+                diff = {k: (c["draws"].get(k, 0), p["draws"].get(k, 0))
+                        for k in keys
+                        if c["draws"].get(k, 0) != p["draws"].get(k, 0)}
+                reasons.append(f"seed {s}: steps per key differ from the "
+                               f"CPU's (card, CPU): {diff}")
+        summary = {"seeds": seeds}
+        if len(seeds) == len(C1_SEEDS):
+            card_mean = c1_mean([got[s] for s in seeds])
+            cpu_mean = c1_mean([port[s] for s in seeds])
+            summary.update(card_mean=card_mean, cpu_mean=cpu_mean,
+                           difference=card_mean - cpu_mean)
+            if all(s in jax_ for s in seeds):
+                summary["jax_mean"] = c1_mean([jax_[s] for s in seeds])
+            if not abs(card_mean - cpu_mean) <= C1_BAR_DB:
+                reasons.append(f"seed mean {card_mean:.4f} dB on the card, "
+                               f"{cpu_mean:.4f} on the CPU: "
+                               f"{card_mean - cpu_mean:+.4f} beyond "
+                               f"{C1_BAR_DB}")
+        summary.update(passed=not reasons, reasons=reasons)
+        out[case] = summary
+    return out
+
+
+def c1_phase(torch, dev, ka, kb, kc, tv):
+    """Phase 14: C1's cuts trained on the card at every seed through the
+    port's normal training entry, their test views rendered as ``run.py``
+    renders them, each run's K-A, K-B, K-C and K-F launches counted from
+    zero, then judged against the CPU references (:func:`c1_gate`).
+    Returns the summary; raises if a case failed or a kernel of its path
+    did not launch."""
+    with open(C1_REF) as f:
+        ref = json.load(f)
+    t0 = time.time()
+    card = {}
+    for case in C1_CASES:
+        card[case] = {}
+        for seed in C1_SEEDS:
+            ka.launches = kb.launches = kc.launches = tv.launches = 0
+            row = c1_run(case, os.path.join(CKPT_DIR, "c1", f"{case}_{seed}"),
+                         seed, dev)
+            row["launches"] = {"sweep_fwd": ka.launches,
+                               "render_frame": kb.launches,
+                               "sweep_bwd": kc.launches,
+                               "tv_add_grad": tv.launches}
+            card[case][str(seed)] = row
+            log(f"[phase 14] {case} seed {seed}: card {row['psnr']:.4f} dB "
+                f"(paths {row['paths']}), trained in {row['seconds']:.1f} s, "
+                f"rendered in {row['render_seconds']:.1f} s; pools "
+                f"{row['pool']}; launches {row['launches']}")
+            need = ["sweep_fwd", "sweep_bwd"] + (
+                ["tv_add_grad"] if case == "fern" else [])
+            if not all(row["launches"][k] > 0 for k in need):
+                raise AssertionError(f"phase 14 {case} seed {seed}: a kernel "
+                                     f"of {need} did not launch: "
+                                     f"{row['launches']}")
+    summary = c1_gate(ref, card)
+    for case, s in summary.items():
+        for seed, r in s["seeds"].items():
+            jax_ = "none" if r["jax_psnr"] is None else f"{r['jax_psnr']:.4f}"
+            log(f"[phase 14] {case} seed {seed}: card {r['card_psnr']:.4f} / "
+                f"CPU port {r['cpu_psnr']:.4f} / CPU JAX {jax_}"
+                f" dB ({r['card_minus_cpu']:+.4f}); train PSNR parts at "
+                f"{r['first_parting']}; draws identical {r['draws_identical']}"
+                f"; pools card {r['pool_card']} CPU {r['pool_cpu']}; "
+                f"{r['seconds_card']:.1f} s card, {r['seconds_cpu']:.1f} s "
+                "CPU")
+        s["launches"] = {seed: row["launches"]
+                         for seed, row in card[case].items()}
+        log(f"[phase 14] {case}: seed means card {s.get('card_mean')}, CPU "
+            f"port {s.get('cpu_mean')}, CPU JAX {s.get('jax_mean')}; passed "
+            f"{s['passed']} {s['reasons']}")
+    summary["seconds"] = time.time() - t0
+    os.makedirs(os.path.join(CKPT_DIR, "c1"), exist_ok=True)
+    with open(os.path.join(CKPT_DIR, "c1", "card_runs.json"), "w") as f:
+        json.dump({"card": card_name_and_limit(), "runs": card,
+                   "summary": summary}, f, indent=1)
+    log(f"[phase 14] done in {summary['seconds']:.1f} s")
+    failed = {c: s["reasons"] for c, s in summary.items()
+              if c in C1_CASES and not s["passed"]}
+    if failed:
+        raise AssertionError(f"phase 14: the card's runs depart from the "
+                             f"CPU's: {failed}")
+    return summary
+
+
+def phase14_alone():
+    """Phase 14 on its own, with the builds it needs: ``python3 -c
+    "import chip_smoke; chip_smoke.phase14_alone()"``. Prints the phase's
+    JSON summary; the runs are in logs/chip_smoke/c1/card_runs.json."""
+    import torch
+    from directvoxgo_tpu_torch.ops import _build
+    from directvoxgo_tpu_torch.ops import render_frame as kb
+    from directvoxgo_tpu_torch.ops import sweep_bwd as kc
+    from directvoxgo_tpu_torch.ops import sweep_fwd as ka
+    from directvoxgo_tpu_torch.ops import tv
+    os.chdir(REPO)
+    _build.build_all(("sweep_fwd", "sweep_bwd", "tv_add_grad",
+                      "render_frame"))
+    print(card_name_and_limit())
+    print(json.dumps({"c1": c1_phase(torch, torch.device("cuda", 0), ka, kb,
+                                     kc, tv)}))
+
+
+FERN_FULL_CONFIG = os.path.join(CKPT_DIR, "fern_full.py")
+
+
+def fern_split(seed=777, out=None):
+    """The fern full schedule's test PSNR split into training and
+    rendering: configs/synthetic/fixture_ndc_fern.py (uncut) trained from
+    ``seed`` through ``python -m directvoxgo_tpu_torch.run --render_test``
+    (in process) on the card, which renders its test views (a) as the
+    ``run.py`` does (windowed pixel tiles); then the same checkpoint's views
+    (b) per ray on the card (``render_rays_chunked``) and (c) on the CPU
+    with the kernels' plain versions (``render_viewpoints``, tiles).
+    ``python3 -c "import chip_smoke; chip_smoke.fern_split()"``: prints a
+    JSON line of each PSNR, the largest |rgb| difference between each
+    pair and the seconds, and writes it to ``out`` (default
+    logs/chip_smoke/fern_split.json)."""
+    import numpy as np
+    import torch
+    from directvoxgo_tpu_torch import rays as ray_lib
+    from directvoxgo_tpu_torch import run as run_lib
+    from directvoxgo_tpu_torch.config import Config
+    from directvoxgo_tpu_torch.data import load_everything
+    from directvoxgo_tpu_torch.engine import checkpoint as ckpt_lib
+    from directvoxgo_tpu_torch.engine import metrics as metrics_lib
+    from directvoxgo_tpu_torch.engine import render as render_lib
+    from directvoxgo_tpu_torch.models.dmpigo import DirectMPIGO
+    from directvoxgo_tpu_torch.ops import _build
+    os.chdir(REPO)
+    _build.build_all(("sweep_fwd", "sweep_bwd", "tv_add_grad"))
+    os.makedirs(CKPT_DIR, exist_ok=True)
+    with open(FERN_FULL_CONFIG, "w") as f:
+        f.write(f"_base_ = {FERN_BASE!r}\nexpname = 'fern_full_{seed}'\n"
+                "basedir = './logs/chip_smoke'\n")
+    cap = Capture(run_lib, "render_viewpoints", results=True)
+    t0 = time.time()
+    try:
+        run_lib.main(["--config", FERN_FULL_CONFIG, "--no_reload",
+                      "--render_test", "--seed", str(seed)])
+        torch.cuda.synchronize()
+    finally:
+        cap.restore()
+    res = {"card": card_name_and_limit(), "seed": seed,
+           "run_seconds": time.time() - t0}
+    rgb_a, _, stats_a = cap.results[0]
+    cfg = Config.fromfile(FERN_FULL_CONFIG)
+    data = load_everything(None, cfg)
+    i_test = data["i_test"]
+    gts = [np.asarray(data["images"][i], np.float32) for i in i_test]
+    ckpt = os.path.join(cfg.basedir, cfg.expname, "fine_last.tar")
+    rk = {"near": data["near"], "far": data["far"],
+          "bg": 1 if cfg.data.white_bkgd else 0,
+          "stepsize": cfg.fine_model_and_render.stepsize,
+          "inverse_y": cfg.data.inverse_y, "flip_x": cfg.data.flip_x,
+          "flip_y": cfg.data.flip_y, "render_depth": True}
+    model = ckpt_lib.load_model(DirectMPIGO, ckpt, device="cuda")
+    render_fn = render_lib.make_render_fn(model, rk)
+    t0 = time.time()
+    rgb_b = []
+    for i in i_test:
+        H, W = (int(x) for x in data["HW"][i])
+        ro, rd, vd = ray_lib.get_rays_of_a_view(
+            H, W, data["Ks"][i], data["poses"][i], True,
+            inverse_y=cfg.data.inverse_y, flip_x=cfg.data.flip_x,
+            flip_y=cfg.data.flip_y)
+        rgb, _ = render_lib.render_rays_chunked(
+            render_fn, model, ro.reshape(-1, 3), rd.reshape(-1, 3),
+            vd.reshape(-1, 3), 8192)
+        rgb_b.append(np.asarray(rgb).reshape(H, W, 3))
+    res["rays_seconds"] = time.time() - t0
+    del model, render_fn
+    cpu_model = ckpt_lib.load_model(DirectMPIGO, ckpt, device="cpu")
+    t0 = time.time()
+    rgb_c, _, stats_c = render_lib.render_viewpoints(
+        model=cpu_model, render_poses=data["poses"][i_test],
+        HW=data["HW"][i_test], Ks=data["Ks"][i_test], gt_imgs=gts,
+        ndc=cfg.data.ndc, render_kwargs=rk, flip_x=cfg.data.flip_x,
+        flip_y=cfg.data.flip_y, verbose=False)
+    res["cpu_seconds"] = time.time() - t0
+    views = {"a_tiles_card": [np.asarray(v) for v in rgb_a],
+             "b_rays_card": rgb_b, "c_cpu": [np.asarray(v) for v in rgb_c]}
+    res["paths"] = {"a_tiles_card": stats_a["path"],
+                    "c_cpu": stats_c["path"]}
+    res["psnr"] = {k: float(np.mean([metrics_lib.psnr(v, g)
+                                     for v, g in zip(vs, gts)]))
+                   for k, vs in views.items()}
+    res["view_psnrs"] = {k: [float(metrics_lib.psnr(v, g))
+                             for v, g in zip(vs, gts)]
+                         for k, vs in views.items()}
+    names = list(views)
+    res["max_abs_rgb"] = {
+        f"{a} / {b}": float(max(np.abs(x - y).max() for x, y in zip(
+            views[a], views[b])))
+        for n, a in enumerate(names) for b in names[n + 1:]}
+    path = out or os.path.join(CKPT_DIR, "fern_split.json")
+    with open(path, "w") as f:
+        json.dump(res, f, indent=1)
+    print(json.dumps(res))
+    return res
 
 
 def main():

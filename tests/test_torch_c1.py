@@ -5,6 +5,12 @@ from the same seeds (opt-in; skipped unless ``DVGO_C1`` is set).
     DVGO_C1=fern ...   (the cut fern schedule, ~25 min a JAX run)
     DVGO_C1=all  ...
 
+The cuts, seeds and bars are ``chip_smoke.py``'s (``TINY_CUT``,
+``FERN_CUT``, ``C1_SEEDS``, ``C1_BAR_DB``, ``C1_PART_DB``), whose phase 14
+trains the same cuts on the card and holds them to the rows this test
+writes into ``tests/data/c1/cpu_runs.json`` (``chip_smoke.C1_REF``). The
+port's run is ``chip_smoke.c1_run`` on the CPU, the card's on the card.
+
 The JAX engine builds its window buckets in a background thread
 (``segment-sort``) and compiles its step programs in a background pool
 (``step-compile``). Until a bucket lands it draws without windows, and
@@ -17,17 +23,20 @@ same initial weights (the port draws them from its copy of the JAX random
 stream, ``models/prng.py``), so their seed means must agree within
 ``BAR_DB``. Each case prints, per seed, both engines' test PSNR, their
 train loss and PSNR per 100 steps and their draws per step key (axis,
-clip or window box), and writes them to ``logs/c1/<case>_<seeds>.json``.
-``DVGO_C1_SEEDS`` picks the seeds (default 777, 1, 2).
+clip or window box), and writes both rows into the reference file (under
+a lock: one seed per process lets the seeds run side by side).
+``DVGO_C1_SEEDS`` picks the seeds (default 777, 1, 2); ``DVGO_C1_SIDES``
+the engines (default ``port,jax``; ``port`` reruns the port's rows and
+keeps the JAX rows the file holds).
 """
 
 import collections
 import concurrent.futures as cf
 import contextlib
+import fcntl
 import json
 import os
 import random
-import re
 import sys
 import threading
 import time
@@ -37,28 +46,14 @@ import numpy as np
 import pytest
 import torch
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SEEDS = (777, 1, 2)
-BAR_DB = 0.2
-# the engines' train PSNRs (printed to 0.01 dB, the mean of the i_print
-# window's steps) are said to part at the first i_print step where they
-# differ by more than this; the one batch's loss printed beside them drifts
-# by up to a few percent within 100 steps from float orders alone
-PART_DB = 0.05
-FERN_CFG = os.path.join(REPO, "configs", "synthetic", "fixture_ndc_fern.py")
-# The fern schedule cut to 25 minutes of JAX on an 8-core CPU (29 on four
-# cores): the grid's final size cut from 256^3 to 160^3 voxels
-# (352x371x128 planes to 174x183x128), the iterations from 25000 to
-# FERN_ITERS, and two pg_scale events of four, at the same share of the
-# schedule (2000/25000 and 4000/25000 of it), the dense-TV span scaled
-# with them (10000/25000).
-# Windows engage past 1.1 M voxels: from the first pg event (2.05 M
-# voxels) on.
-FERN_ITERS = 600
-FERN_CUT = {"fine_train.N_iters": FERN_ITERS,
-            "fine_train.pg_scale": [48, 96],
-            "fine_train.tv_dense_before": 240,
-            "fine_model_and_render.num_voxels": 160 ** 3}
+import chip_smoke
+
+REPO = chip_smoke.REPO
+SEEDS = chip_smoke.C1_SEEDS
+BAR_DB = chip_smoke.C1_BAR_DB
+PART_DB = chip_smoke.C1_PART_DB
+TINY_CUT = chip_smoke.TINY_CUT
+FERN_CUT = chip_smoke.FERN_CUT
 
 
 def _seeds():
@@ -66,6 +61,10 @@ def _seeds():
     ``SEEDS``; one seed per process lets the seeds run side by side."""
     v = os.environ.get("DVGO_C1_SEEDS", "")
     return tuple(int(x) for x in v.split(",")) if v else SEEDS
+
+
+def _sides():
+    return os.environ.get("DVGO_C1_SIDES", "port,jax").split(",")
 
 
 def _wanted(case):
@@ -106,47 +105,6 @@ def jax_background_joined():
         threading.Thread, cf.ThreadPoolExecutor = real_thread, real_pool
 
 
-TRAIN_LINE = re.compile(r"scene_rep_reconstruction \((\w+)\): iter\s+(\d+) "
-                        r"/ Loss: ([-+.\deE]+) / PSNR:\s*([-+.\deE]+)")
-
-
-class _TrainLines:
-    """A stdout that passes everything on and keeps each engine's
-    ``i_print`` line as (stage, step, loss, train PSNR)."""
-
-    def __init__(self, out):
-        self.out, self.rows, self.buf = out, [], ""
-
-    def write(self, text):
-        self.buf += text
-        *lines, self.buf = self.buf.split("\n")
-        for line in lines:
-            m = TRAIN_LINE.search(line)
-            if m:
-                self.rows.append((m[1], int(m[2]), float(m[3]),
-                                  float(m[4])))
-        return self.out.write(text)
-
-    def flush(self):
-        self.out.flush()
-
-
-@contextlib.contextmanager
-def train_lines():
-    tee = _TrainLines(sys.stdout)
-    with contextlib.redirect_stdout(tee):
-        yield tee.rows
-
-
-def _plain(x):
-    """A step key's parts as plain Python values (numpy ints to int)."""
-    if isinstance(x, (tuple, list)):
-        return tuple(_plain(v) for v in x)
-    if isinstance(x, (np.integer,)):
-        return int(x)
-    return x
-
-
 class _CountedStep:
     """A JAX step function (or its AOT-compiled form) that counts the
     steps each call takes under its key."""
@@ -167,181 +125,159 @@ class _CountedStep:
         return getattr(self.fn, name)
 
 
-def _set(cfg, dotted, value):
-    *path, last = dotted.split(".")
-    node = cfg
-    for p in path:
-        node = getattr(node, p)
-    setattr(node, last, value)
-
-
 def _args(seed):
     return types.SimpleNamespace(seed=seed, no_reload=True,
                                  no_reload_optimizer=False, ft_path="",
-                                 i_print=100, i_weights=10 ** 9)
+                                 i_print=chip_smoke.C1_I_PRINT,
+                                 i_weights=10 ** 9)
 
 
-def _render_kw(cfg, data):
-    return dict(ndc=cfg.data.ndc, render_kwargs={
-        "near": data["near"], "far": data["far"],
-        "bg": 1 if cfg.data.white_bkgd else 0,
-        "stepsize": cfg.fine_model_and_render.stepsize,
-        "inverse_y": cfg.data.inverse_y, "flip_x": cfg.data.flip_x,
-        "flip_y": cfg.data.flip_y, "render_depth": True},
-        flip_x=cfg.data.flip_x, flip_y=cfg.data.flip_y)
-
-
-def _views(data):
-    i = data["i_test"]
-    return dict(render_poses=data["poses"][i], HW=data["HW"][i],
-                Ks=data["Ks"][i],
-                gt_imgs=[np.asarray(data["images"][j]) for j in i])
-
-
-def jax_run(cfg_path, overrides, basedir, seed):
+def jax_run(case, basedir, seed):
     """The JAX package trained from ``seed`` with its background work
-    joined; returns (test PSNR, {step key: steps}, seconds, train lines)."""
+    joined, its test views rendered; its row as ``chip_smoke.c1_run``'s
+    (test PSNR, train lines, steps per step key, ``in_maskcache`` pools,
+    seconds)."""
     from directvoxgo_tpu.config import Config
     from directvoxgo_tpu.data import load_everything
     from directvoxgo_tpu.engine import checkpoint as ckpt_lib
     from directvoxgo_tpu.engine import train as train_lib
     from directvoxgo_tpu.engine.render import render_viewpoints
-    cfg = Config.fromfile(cfg_path)
-    for k, v in dict(overrides, basedir=str(basedir)).items():
-        _set(cfg, k, v)
+    path, cut, _ = chip_smoke.C1_CASES[case]
+    cfg = Config.fromfile(os.path.join(REPO, path))
+    for k, v in dict(cut, basedir=str(basedir)).items():
+        chip_smoke.c1_set(cfg, k, v)
     np.random.seed(seed)
     random.seed(seed)
     data = load_everything(args=_args(seed), cfg=cfg)
-    counts = collections.Counter()
-    real = train_lib.make_train_step
+    counts, pools = collections.Counter(), []
+    real, real_rays = train_lib.make_train_step, train_lib.gather_training_rays
 
     def counted(*args, axis=None, clip_sizes=None, n_steps=1, **kwargs):
         fn = real(*args, axis=axis, clip_sizes=clip_sizes, n_steps=n_steps,
                   **kwargs)
-        return _CountedStep(fn, _plain((axis, clip_sizes)), n_steps, counts)
+        return _CountedStep(fn, chip_smoke.c1_key((axis, clip_sizes)),
+                            n_steps, counts)
 
+    def pooled(model, cfg_, cfg_train, *a, **k):
+        out = real_rays(model, cfg_, cfg_train, *a, **k)
+        if cfg_train.ray_sampler == "in_maskcache":
+            pools.append(int(len(out[0])))
+        return out
+
+    tee = chip_smoke.TrainLines(sys.stdout)
     t0 = time.time()
     train_lib.make_train_step = counted
+    train_lib.gather_training_rays = pooled
     try:
-        with jax_background_joined(), train_lines() as rows:
+        with jax_background_joined(), contextlib.redirect_stdout(tee):
             train_lib.train(_args(seed), cfg, data)
     finally:
         train_lib.make_train_step = real
+        train_lib.gather_training_rays = real_rays
     seconds = time.time() - t0
     ckpt_lib.wait_for_pending_saves()
     model = ckpt_lib.load_model(
         train_lib._model_class_for(cfg),
         os.path.join(cfg.basedir, cfg.expname, "fine_last.tar"))
-    _, _, stats = render_viewpoints(model=model, verbose=False,
-                                    **_views(data), **_render_kw(cfg, data))
-    return float(np.mean(stats["psnr"])), dict(counts), seconds, rows
-
-
-def port_run(cfg_path, overrides, basedir, seed):
-    """The port trained from ``seed`` on the CPU; as :func:`jax_run`."""
-    from directvoxgo_tpu_torch.config import Config
-    from directvoxgo_tpu_torch.data import load_everything
-    from directvoxgo_tpu_torch.engine import checkpoint as ckpt_lib
-    from directvoxgo_tpu_torch.engine import graphs
-    from directvoxgo_tpu_torch.engine import train as train_lib
-    from directvoxgo_tpu_torch.engine.render import render_viewpoints
-    cfg = Config.fromfile(cfg_path)
-    for k, v in dict(overrides, basedir=str(basedir)).items():
-        _set(cfg, k, v)
-    np.random.seed(seed)
-    random.seed(seed)
-    torch.manual_seed(seed)
-    data = load_everything(args=_args(seed), cfg=cfg)
-    counts = collections.Counter()
-    real = graphs.StepGraphs.run
-
-    def counted(self, key, fn, pool, sels, offs, **kwargs):
-        counts[_plain(key)] += len(sels)
-        return real(self, key, fn, pool, sels, offs, **kwargs)
-
     t0 = time.time()
-    graphs.StepGraphs.run = counted
-    try:
-        with train_lines() as rows:
-            train_lib.train(_args(seed), cfg, data, device="cpu")
-    finally:
-        graphs.StepGraphs.run = real
-    seconds = time.time() - t0
-    model = ckpt_lib.load_model(
-        train_lib.model_class_for(cfg),
-        os.path.join(cfg.basedir, cfg.expname, "fine_last.tar"),
-        device="cpu")
-    _, _, stats = render_viewpoints(model=model, verbose=False,
-                                    **_views(data), **_render_kw(cfg, data))
-    return float(np.mean(stats["psnr"])), dict(counts), seconds, rows
+    _, _, stats = render_viewpoints(model=model,
+                                    **chip_smoke.c1_views(cfg, data))
+    return {"psnr": float(np.mean(stats["psnr"])),
+            "view_psnrs": [float(p) for p in stats["psnr"]],
+            "train": tee.rows, "draws": dict(sorted(counts.items())),
+            "pool": pools, "seconds": seconds,
+            "render_seconds": time.time() - t0}
+
+
+def port_run(case, basedir, seed):
+    """The port trained from ``seed`` on the CPU (``chip_smoke.c1_run``),
+    with the torch threads it ran on."""
+    row = chip_smoke.c1_run(case, basedir, seed, "cpu")
+    row["torch_threads"] = torch.get_num_threads()
+    return row
+
+
+def _means(entry):
+    """The seed means of a case's rows in the reference file."""
+    return {f"{side}_mean": (chip_smoke.c1_mean(list(entry[side].values()))
+                             if entry[side] else None)
+            for side in ("port", "jax")}
+
+
+def record(case, seed, rows):
+    """Write ``rows`` ({side: row}) of ``case`` at ``seed`` into
+    ``chip_smoke.C1_REF`` under a lock, the case's config, cut and seed
+    means with them; returns the case's entry as written."""
+    os.makedirs(os.path.dirname(chip_smoke.C1_REF), exist_ok=True)
+    with open(chip_smoke.C1_REF + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        ref = {"cases": {}}
+        if os.path.exists(chip_smoke.C1_REF):
+            with open(chip_smoke.C1_REF) as f:
+                ref = json.load(f)
+        path, cut, _ = chip_smoke.C1_CASES[case]
+        entry = ref["cases"].setdefault(case, {"port": {}, "jax": {}})
+        entry.update(config=path, overrides=cut,
+                     i_print=chip_smoke.C1_I_PRINT)
+        for side, row in rows.items():
+            entry[side][str(seed)] = row
+        entry.update(_means(entry))
+        ref["about"] = ("C1 on the CPU: the port's and the JAX package's "
+                        "runs of each case's cut, per seed; written by "
+                        "tests/test_torch_c1.py, read by chip_smoke.py's "
+                        "phase 14")
+        tmp = chip_smoke.C1_REF + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(ref, f, indent=1, sort_keys=True)
+            f.write("\n")
+        os.replace(tmp, chip_smoke.C1_REF)
+    return entry
 
 
 def shares(counts):
     tot = max(sum(counts.values()), 1)
-    return {str(k): v / tot for k, v in sorted(
-        counts.items(), key=lambda kv: -kv[1])}
+    return {k: v / tot for k, v in sorted(counts.items(),
+                                          key=lambda kv: -kv[1])}
 
 
-def first_parting(port_lines, jax_lines):
-    """The first ``i_print`` line (stage, step) whose train PSNRs differ
-    between the engines by more than ``PART_DB``, or None."""
-    for p, j in zip(port_lines, jax_lines):
-        if p[:2] != j[:2] or abs(p[3] - j[3]) > PART_DB:
-            return p[:2]
-    return None
-
-
-def compare(case, cfg_path, overrides, tmp_path):
-    """Both engines from each seed; prints and writes the table, returns
-    (port mean, JAX mean, rows)."""
-    rows, seeds = [], _seeds()
-    for seed in seeds:
-        p_psnr, p_counts, p_s, p_lines = port_run(
-            cfg_path, overrides, tmp_path / f"port_{seed}", seed)
-        j_psnr, j_counts, j_s, j_lines = jax_run(
-            cfg_path, overrides, tmp_path / f"jax_{seed}", seed)
-        keys = set(map(str, p_counts)) | set(map(str, j_counts))
-        ps, js = shares(p_counts), shares(j_counts)
+def compare(case, tmp_path):
+    """Each engine of ``DVGO_C1_SIDES`` from each seed; prints and records
+    the rows, returns (port mean, JAX mean, {seed: (port row, JAX row)})
+    over the seeds run (a side not run: the file's row)."""
+    pairs = {}
+    for seed in _seeds():
+        rows = {}
+        if "port" in _sides():
+            rows["port"] = port_run(case, tmp_path / f"port_{seed}", seed)
+        if "jax" in _sides():
+            rows["jax"] = jax_run(case, tmp_path / f"jax_{seed}", seed)
+        entry = record(case, seed, rows)
+        p, j = entry["port"].get(str(seed)), entry["jax"].get(str(seed))
+        pairs[seed] = (p, j)
+        if p is None or j is None:
+            continue
+        keys = set(p["draws"]) | set(j["draws"])
+        ps, js = shares(p["draws"]), shares(j["draws"])
         tv = 0.5 * sum(abs(ps.get(k, 0.0) - js.get(k, 0.0)) for k in keys)
-        parting = first_parting(p_lines, j_lines)
-        rows.append(dict(seed=seed, port_psnr=p_psnr, jax_psnr=j_psnr,
-                         port_s=p_s, jax_s=j_s, port_draws=ps, jax_draws=js,
-                         draw_share_distance=tv, port_train=p_lines,
-                         jax_train=j_lines, first_parting=parting))
         train = "\n".join(
-            f"  {p[0]} {p[1]:6d}: loss {p[2]:.9f} / {j[2]:.9f}, train PSNR "
-            f"{p[3]:5.2f} / {j[3]:5.2f}" for p, j in zip(p_lines, j_lines))
-        print(f"C1 {case} seed {seed}: port {p_psnr:.4f} dB ({p_s:.0f} s), "
-              f"JAX {j_psnr:.4f} dB ({j_s:.0f} s), draws apart by {tv:.4f} "
-              f"(total variation); per 100 steps, port / JAX:\n{train}\n"
-              f"  train PSNRs first part at {parting}\n  port {ps}\n"
-              f"  JAX  {js}", flush=True)
-    port = float(np.mean([r["port_psnr"] for r in rows]))
-    jax_ = float(np.mean([r["jax_psnr"] for r in rows]))
-    out = os.path.join(REPO, "logs", "c1")
-    os.makedirs(out, exist_ok=True)
-    name = f"{case}_{'_'.join(map(str, seeds))}.json"
-    with open(os.path.join(out, name), "w") as f:
-        json.dump(dict(case=case, overrides=overrides, port_mean=port,
-                       jax_mean=jax_, rows=rows), f, indent=1)
-    print(f"C1 {case}: seed means port {port:.4f} dB, JAX {jax_:.4f} dB, "
-          f"difference {port - jax_:+.4f} (bar {BAR_DB})", flush=True)
-    return port, jax_, rows
-
-
-TINY_CUT = {"expname": "tiny_e2e", "data.dataset_type": "synthetic_fixture",
-            "data.white_bkgd": True, "coarse_train.N_iters": 150,
-            "coarse_train.N_rand": 512, "coarse_train.lrate_density": 0.3,
-            "fine_train.N_iters": 150, "fine_train.N_rand": 512,
-            "fine_train.pg_scale": [75],
-            "coarse_model_and_render.num_voxels": 24 ** 3,
-            "coarse_model_and_render.num_voxels_base": 24 ** 3,
-            "fine_model_and_render.num_voxels": 32 ** 3,
-            "fine_model_and_render.num_voxels_base": 32 ** 3,
-            "fine_model_and_render.rgbnet_dim": 6,
-            "fine_model_and_render.rgbnet_width": 32,
-            "fine_model_and_render.k_density": 64,
-            "fine_model_and_render.k_color": 32}
+            f"  {a[0]} {a[1]:6d}: loss {a[2]:.9f} / {b[2]:.9f}, train PSNR "
+            f"{a[3]:5.2f} / {b[3]:5.2f}"
+            for a, b in zip(p["train"], j["train"]))
+        print(f"C1 {case} seed {seed}: port {p['psnr']:.4f} dB "
+              f"({p['seconds']:.0f} s), JAX {j['psnr']:.4f} dB "
+              f"({j['seconds']:.0f} s), draws apart by {tv:.4f} (total "
+              f"variation); pools {p['pool']} / {j['pool']}; per 100 "
+              f"steps, port / JAX:\n{train}\n  train PSNRs first part at "
+              f"{chip_smoke.c1_first_parting(p['train'], j['train'])}\n"
+              f"  port {ps}\n  JAX  {js}", flush=True)
+    both = [v for v in pairs.values() if None not in v]
+    port = chip_smoke.c1_mean([p for p, _ in both]) if both else None
+    jax_ = chip_smoke.c1_mean([j for _, j in both]) if both else None
+    if both:
+        print(f"C1 {case}: seed means port {port:.4f} dB, JAX {jax_:.4f} "
+              f"dB, difference {port - jax_:+.4f} (bar {BAR_DB})",
+              flush=True)
+    return port, jax_, pairs
 
 
 def test_c1_tiny_fixture_seed_means_agree(tmp_path):
@@ -350,11 +286,9 @@ def test_c1_tiny_fixture_seed_means_agree(tmp_path):
     the seed means within ``BAR_DB``."""
     if not _wanted("tiny"):
         pytest.skip("opt-in: set DVGO_C1=tiny (or all)")
-    port, jax_, rows = compare(
-        "tiny", os.path.join(REPO, "configs", "default.py"), TINY_CUT,
-        tmp_path)
-    assert all(np.isfinite(r["port_psnr"]) for r in rows)
-    assert abs(port - jax_) <= BAR_DB, (port, jax_)
+    port, jax_, pairs = compare("tiny", tmp_path)
+    assert all(np.isfinite(p["psnr"]) for p, _ in pairs.values())
+    assert port is None or abs(port - jax_) <= BAR_DB, (port, jax_)
 
 
 def test_c1_fern_cut_schedule_seed_means_agree(tmp_path):
@@ -364,6 +298,6 @@ def test_c1_fern_cut_schedule_seed_means_agree(tmp_path):
     ``BAR_DB``."""
     if not _wanted("fern"):
         pytest.skip("opt-in: set DVGO_C1=fern (or all)")
-    port, jax_, rows = compare("fern", FERN_CFG, FERN_CUT, tmp_path)
-    assert all(np.isfinite(r["port_psnr"]) for r in rows)
-    assert abs(port - jax_) <= BAR_DB, (port, jax_)
+    port, jax_, pairs = compare("fern", tmp_path)
+    assert all(np.isfinite(p["psnr"]) for p, _ in pairs.values())
+    assert port is None or abs(port - jax_) <= BAR_DB, (port, jax_)
